@@ -1,0 +1,512 @@
+"""Chip smoke test of the PyTorch/CUDA port (src/repro_torch) on one card.
+
+    python3 chip_smoke.py
+
+Phases (any failure raises and exits non-zero; no phase catches and goes on):
+
+1. build   -- compile csrc/*.cu with nvcc (one process per source, all at
+              once) and print the build time, ptxas' register/spill lines
+              and the card (nvidia-smi name, power limit);
+2. kernels -- hold every CUDA kernel against its plain PyTorch version on
+              the card at the serving path's full-width shapes (f32 and
+              bf16) and at the JAX test sweep's awkward shapes; time the
+              kernel, the plain version and one PyTorch library call at
+              the main-path shapes (CUDA events), and compute each shape's
+              bound (bytes over HBM bandwidth vs flops over peak);
+3. serve   -- run `repro_torch.launch.serve` at full width (smollm-135m,
+              30 layers, d_model 576, seeded random f32 weights; batch 4,
+              s_max 256, 8 requests of 4-31 tokens, 16 new tokens each)
+              with the launch counters zeroed just before and read just
+              after: every kernel must have launched; then hold the card's
+              prefill and teacher-forced decode logits against the port's
+              CPU run on the same weights;
+4. profile -- torch.profiler over 5 decode steps of a full batch: device
+              busy time and idle share per step, device work by kernel.
+
+It prints the kernels as one JSON line, then the last line
+``{"ok": true, "device": {...}}``.  ``--out PATH`` also writes the full
+tables (every case, the serve and profile numbers) as JSON.  It exits
+non-zero without a result where there is no CUDA device or no checkout of
+the repository around it.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
+# (rtol, atol) of each kernel against its plain version, per dtype: the JAX
+# test sweep's tolerances (tests/test_kernels.py)
+TOL = {"matmul": {"float32": (1e-5, 8e-5), "bfloat16": (3e-2, 2.4e-1)},
+       "rmsnorm": {"float32": (2e-5, 2e-5), "bfloat16": (3e-2, 3e-2)},
+       "flash_attention": {"float32": (3e-4, 3e-4),
+                           "bfloat16": (4e-2, 4e-2)}}
+# the port's CUDA run against its CPU run, f32 logits: both do the same f32
+# arithmetic in another order, so 1e-3/1e-4 (the ceiling is 2e-2/2e-3)
+SERVE_TOL = (1e-3, 1e-4)
+
+SERVE_ARGV = ["--arch", "smollm-135m", "--batch", "4", "--s-max", "256",
+              "--requests", "8", "--max-new", "16", "--seed", "0"]
+PROMPT_MAX = 31                 # the serve run's prompts have 4..31 tokens
+KERNELS = {
+    "matmul": ("src/repro_torch/kernels/csrc/matmul.cu",
+               "src/repro/kernels/matmul.py:24"),
+    "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                "src/repro/kernels/rmsnorm.py:19"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:29"),
+}
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: {msg}", file=sys.stderr)
+    sys.exit(1)
+
+
+if not (ROOT / "src" / "repro_torch").is_dir():
+    fail(f"no src/repro_torch beside {Path(__file__).name}: run it from a "
+         "checkout of the repository")
+sys.path.insert(0, str(ROOT / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch.kernels import _build, ops, ref  # noqa: E402
+
+
+# -- helpers -----------------------------------------------------------------
+
+def time_ms(fn, reps: int = 20, warmup: int = 3, trials: int = 3):
+    """(device ms, host ms) per call.  Device: the stream is held by a spin
+    kernel while the host enqueues ``reps`` calls, so the CUDA events
+    bracket the calls' device work back to back, without the host's launch
+    gaps; the least of ``trials`` such runs (host hiccups only add).  Host:
+    the same events with nothing holding the stream, i.e. the larger of the
+    host's issue time and the device time per call."""
+    for _ in range(warmup):
+        fn()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+
+    def run(hold_cycles: int) -> float:
+        torch.cuda.synchronize()
+        if hold_cycles:
+            torch.cuda._sleep(hold_cycles)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        return e0.elapsed_time(e1) / reps
+
+    host = run(0)
+    # hold the stream for 4x the host's issue time plus 1 ms (~2 GHz clock)
+    hold = int((4 * reps * host + 1.0) * 1e-3 * 2e9)
+    return min(run(hold) for _ in range(trials)), host
+
+
+def bound(nbytes: float, flops: float, dtype: str):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def check_close(name, got, want, dtype) -> float:
+    rtol, atol = TOL[name][dtype]
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    bad = bool((err > atol + rtol * w.abs()).any())
+    if bad or not torch.isfinite(g).all():
+        raise AssertionError(
+            f"{name} {dtype} {tuple(got.shape)}: kernel disagrees with the "
+            f"plain version (max abs err {float(err.max()):.3e}, rtol "
+            f"{rtol}, atol {atol})")
+    return float(err.max())
+
+
+def randn(shape, dtype, std=1.0, gen=None):
+    return (torch.randn(shape, generator=gen) * std).to("cuda", dtype)
+
+
+def elem(dtype) -> int:
+    return torch.empty((), dtype=dtype).element_size()
+
+
+# -- phase 1: build -----------------------------------------------------------
+
+def phase_build() -> str:
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    for name in _build.launches:       # every library exists and loads
+        _build.load(name)
+    dt = time.perf_counter() - t0
+    print(f"[build] {len(logs)} sources built in {dt:.1f}s "
+          f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
+    for name, log in sorted(logs.items()):
+        for line in log.splitlines():
+            if "Used" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(card)
+    return card
+
+
+# -- phase 2: kernels against their plain versions ----------------------------
+
+def matmul_case(M, K, N, dtype, gen, strided_b=False):
+    a = randn((M, K), dtype, 1.0, gen)
+    if strided_b:       # the tied head: B = embed.T, a transposed view
+        b = randn((N, K), dtype, 0.02, gen).T
+    else:
+        b = randn((K, N), dtype, 1.0 / math.sqrt(K), gen)
+    return (a, b)
+
+
+def rms_case(rows, D, dtype, gen):
+    return (randn((rows, D), dtype, 1.0, gen), randn((D,), dtype, 0.1, gen))
+
+
+def flash_case(B, Sq, Skv, H, KVH, d, dtype, gen):
+    return tuple(randn(s, dtype, 1.0, gen) for s in
+                 ((B, Sq, H, d), (B, Skv, KVH, d), (B, Skv, KVH, d)))
+
+
+def causal_pairs(Sq, Skv) -> int:
+    return sum(min(Skv, Skv - Sq + i + 1) for i in range(Sq))
+
+
+def cost(name, args):
+    """(bytes, flops) the function needs on these inputs."""
+    es = elem(args[0].dtype)
+    if name == "matmul":
+        (M, K), N = args[0].shape, args[1].shape[1]
+        return (M * K + K * N + M * N) * es, 2 * M * N * K
+    if name == "rmsnorm":
+        x, w = args
+        return 2 * x.numel() * es + w.numel() * es, 4 * x.numel()
+    q, k, v = args
+    B, Sq, H, d = q.shape
+    return ((2 * q.numel() + k.numel() + v.numel()) * es,
+            4 * d * B * H * causal_pairs(Sq, k.shape[1]))
+
+
+def library_call(name, args):
+    """One PyTorch call computing the same function (yardstick only)."""
+    if name == "matmul":
+        a, b = args
+        return lambda: torch.matmul(a, b)
+    if name == "rmsnorm":
+        x, w = args
+        w1 = 1.0 + w
+        return lambda: F.rms_norm(x, (x.shape[-1],), weight=w1, eps=1e-5)
+    q, k, v = args
+    G = q.shape[2] // k.shape[2]
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
+    assert q.shape[1] == k.shape[1]     # is_causal aligns top-left
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+
+KERNEL_FN = {"matmul": ops.matmul, "rmsnorm": ops.rmsnorm,
+             "flash_attention": ops.flash_attention}
+PLAIN_FN = {"matmul": ref.matmul_ref, "rmsnorm": ref.rmsnorm_ref,
+            "flash_attention": ref.flash_attention_ref}
+
+
+def main_path_cases(cfg):
+    """(kernel, label, shape spec) at the serving path's full width."""
+    D, F_, V = cfg.d_model, cfg.d_ff, cfg.vocab
+    HD, KD = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    S, B = PROMPT_MAX, 4
+    cases = []
+    for phase, M in (("prefill", S), ("decode", B)):
+        for what, K, N in (("q/o", D, HD), ("k/v", D, KD), ("gate/up", D, F_),
+                           ("down", F_, D)):
+            cases.append(("matmul", f"{phase} {what} {M}x{K}x{N}",
+                          (M, K, N, False)))
+        Mh = 1 if phase == "prefill" else M     # prefill: last row only
+        cases.append(("matmul", f"{phase} tied head {Mh}x{D}x{V} (B=embed.T)",
+                      (Mh, D, V, True)))
+        cases.append(("rmsnorm", f"{phase} {M}x{D}", (M, D)))
+    cases.append(("flash_attention",
+                  f"prefill B1 S{S} H{cfg.n_heads}/{cfg.n_kv_heads} "
+                  f"d{cfg.head_dim}",
+                  (1, S, S, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)))
+    return cases
+
+
+AWKWARD = [("matmul", (8, 8, 8, False)), ("matmul", (64, 96, 32, False)),
+           ("matmul", (256, 512, 384, False)), ("matmul", (3, 5, 7, True)),
+           ("matmul", (512, 128, 256, False)),
+           ("rmsnorm", (4 * 64, 128)), ("rmsnorm", (3 * 37, 96)),
+           ("rmsnorm", (1, 8)), ("rmsnorm", (2 * 200, 256)),
+           ("flash_attention", (2, 128, 128, 4, 2, 64)),
+           ("flash_attention", (1, 64, 256, 8, 8, 32)),
+           ("flash_attention", (2, 256, 256, 6, 2, 64)),
+           ("flash_attention", (1, 96, 96, 3, 1, 16)),
+           ("flash_attention", (1, 37, 37, 9, 3, 64)),
+           ("flash_attention", (2, 33, 70, 4, 2, 8)),
+           ("flash_attention", (1, 5, 5, 2, 1, 128))]
+
+
+def make_args(name, spec, dtype, gen):
+    if name == "matmul":
+        return matmul_case(*spec[:3], dtype, gen, strided_b=spec[3])
+    if name == "rmsnorm":
+        return rms_case(*spec, dtype, gen)
+    return flash_case(*spec, dtype, gen)
+
+
+def phase_kernels(cfg):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    rows, worst = [], {}
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for name, label, spec in main_path_cases(cfg) + [
+                (n, f"awkward {s}", s) for n, s in AWKWARD]:
+            args = make_args(name, spec, dtype, gen)
+            got = KERNEL_FN[name](*args)
+            want = PLAIN_FN[name](*args)
+            torch.cuda.synchronize()
+            err = check_close(name, got, want, dn)
+            worst[name] = max(worst.get(name, 0.0), err)
+            row = {"kernel": name, "shape": label, "dtype": dn,
+                   "max_abs_err": err}
+            if dtype == torch.float32 and not label.startswith("awkward"):
+                nbytes, flops = cost(name, args)
+                row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dn)
+                row["ms"], row["host_ms"] = time_ms(
+                    lambda: KERNEL_FN[name](*args))
+                row["plain_ms"], row["plain_host_ms"] = time_ms(
+                    lambda: PLAIN_FN[name](*args))
+                row["library_ms"], row["library_host_ms"] = time_ms(
+                    library_call(name, args))
+                print(f"[kernels] {name:15s} {label:42s} f32 err "
+                      f"{err:.2e}  device ms: kernel {row['ms']:.4f} plain "
+                      f"{row['plain_ms']:.4f} library "
+                      f"{row['library_ms']:.4f} bound "
+                      f"{row['bound_ms']:.4f} ({row['bound_by']});  host "
+                      f"ms: kernel {row['host_ms']:.4f} plain "
+                      f"{row['plain_host_ms']:.4f} library "
+                      f"{row['library_host_ms']:.4f}")
+            rows.append(row)
+    print(f"[kernels] {len(rows)} cases agree; max abs err per kernel: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    return rows
+
+
+# -- phase 3: serve at full width ---------------------------------------------
+
+def per_step_launches(cfg):
+    """Kernel launches the model makes per prefill and per decode step."""
+    L = cfg.n_layers
+    return ({"rmsnorm": 2 * L + 1, "matmul": 7 * L + 1, "flash_attention": L},
+            {"rmsnorm": 2 * L + 1, "matmul": 7 * L + 1, "flash_attention": 0})
+
+
+def phase_serve(cfg):
+    from repro_torch.launch import serve
+    from repro_torch.models.model import Model
+
+    for k in ops.launches:
+        ops.launches[k] = 0
+    t0 = time.perf_counter()
+    eng = serve.main(SERVE_ARGV)
+    wall = time.perf_counter() - t0
+    launches = dict(ops.launches)
+    print(f"[serve] launches on the main path: {launches}")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched on the main path: "
+                             f"{missing}")
+    pre, dec = eng.timings["prefill_s"], eng.timings["decode_s"]
+    per_pre, per_dec = per_step_launches(cfg)
+    expect = {k: len(pre) * per_pre[k] + len(dec) * per_dec[k]
+              for k in launches}
+    if launches != expect:
+        raise AssertionError(f"launches {launches} != {len(pre)} prefills "
+                             f"and {len(dec)} decode steps: {expect}")
+    toks = [t for r in eng.results.values() for t in r.tokens]
+    if len(eng.results) != 8 or any(len(r.tokens) != 16
+                                    for r in eng.results.values()) \
+            or not all(0 <= t < cfg.vocab for t in toks):
+        raise AssertionError("serve results have the wrong count or range")
+    engine_s = sum(pre) + sum(dec)
+    serve_stats = {
+        "requests": len(eng.results), "tokens": len(toks),
+        "main_wall_s": wall, "engine_s": engine_s,
+        "tokens_per_s": len(toks) / engine_s,
+        "prefill_ms_mean": 1e3 * float(np.mean(pre)),
+        "prefill_ms_median": 1e3 * float(np.median(pre)),
+        "prefill_ms_first": 1e3 * pre[0],
+        "decode_ms_mean": 1e3 * float(np.mean(dec)),
+        "decode_ms_median": 1e3 * float(np.median(dec)),
+        "decode_steps": len(dec), "launches": launches,
+        "launches_per_prefill": per_pre, "launches_per_decode_step": per_dec,
+    }
+    print(f"[serve] {json.dumps(serve_stats)}")
+
+    # the same weights through the port on the CPU: prefill logits of two
+    # prompts, then 8 teacher-forced decode steps
+    gpu = Model(cfg, device="cuda")
+    cpu = Model(cfg, device="cpu")
+    p_gpu = eng.params
+    p_cpu = {g: {k: v.cpu() for k, v in sub.items()}
+             for g, sub in p_gpu.items()}
+    rng = np.random.default_rng(1)
+    worst = 0.0
+    rtol, atol = SERVE_TOL
+    for n in (13, 29):
+        toks = rng.integers(0, cfg.vocab, size=(1, n + 8))
+        outs = []
+        for model, params in ((gpu, p_gpu), (cpu, p_cpu)):
+            dev = model.device
+            tt = torch.from_numpy(toks).to(dev)
+            lg, cache, _ = model.prefill(params, {"tokens": tt[:, :n]}, 64)
+            seq = [lg.float().cpu()]
+            for i in range(8):
+                lg, cache = model.decode_step(
+                    params, cache, torch.tensor([n + i], device=dev),
+                    {"tokens": tt[:, n + i:n + i + 1]})
+                seq.append(lg.float().cpu())
+            outs.append(torch.stack(seq))
+        g, c = outs
+        err = (g - c).abs()
+        if not torch.isfinite(g).all() or \
+                bool((err > atol + rtol * c.abs()).any()):
+            raise AssertionError(f"CUDA vs CPU logits disagree for a "
+                                 f"{n}-token prompt: max abs err "
+                                 f"{float(err.max()):.3e}")
+        worst = max(worst, float(err.max()))
+    print(f"[serve] CUDA vs CPU logits (prefill + 8 decode steps, 2 "
+          f"prompts): max abs err {worst:.3e} (rtol {rtol}, atol {atol})")
+    serve_stats["cpu_max_abs_err"] = worst
+    return serve_stats, p_gpu
+
+
+def phase_profile(cfg, params, steps: int = 5):
+    """Where a decode step's time goes: torch.profiler (CUPTI) over
+    ``steps`` engine steps of a full batch (4 slots, 16-token prompts)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+
+    eng = Engine(Model(cfg, device="cuda"), params,
+                 ServeConfig(batch_size=4, s_max=256, max_new_tokens=64))
+    rng = np.random.default_rng(2)
+    for uid in range(4):
+        eng.submit(Request(uid, rng.integers(0, cfg.vocab, size=(16,))))
+    eng.step()                      # admit the 4 requests + one decode step
+    eng.step()
+    torch.cuda.synchronize()
+    n_dec = len(eng.timings["decode_s"])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    dec_ms = 1e3 * float(np.mean(eng.timings["decode_s"][n_dec:]))
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        print("[profile] the profiler recorded no device events; device "
+              "busy share not measured")
+        return {"decode_ms_profiled": dec_ms, "device_events": 0}
+    busy = sum(e.time_range.elapsed_us() for e in dev)
+    span = (max(e.time_range.end for e in dev)
+            - min(e.time_range.start for e in dev))
+    by_name = {}
+    for e in dev:
+        c, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    ours = {k: sum(c for n, (c, _) in by_name.items() if k in n)
+            for k in ("rmsnorm_kernel", "matmul_kernel", "flash_fwd_kernel")}
+    out = {
+        "decode_ms_profiled": dec_ms,
+        "device_busy_ms_per_step": busy / steps / 1e3,
+        "device_span_ms_per_step": span / steps / 1e3,
+        "device_idle_share": 1.0 - busy / span,
+        "device_events_per_step": len(dev) / steps,
+        "port_kernels_per_step": {k: c / steps for k, c in ours.items()},
+        "top_device_time_per_step": [
+            {"name": n[:80], "count": c / steps, "us": t / steps}
+            for n, (c, t) in top],
+    }
+    print(f"[profile] decode step under the profiler {dec_ms:.2f} ms; device "
+          f"busy {out['device_busy_ms_per_step']:.3f} ms of a "
+          f"{out['device_span_ms_per_step']:.3f} ms span (idle share "
+          f"{out['device_idle_share']:.3f}); "
+          f"{out['device_events_per_step']:.0f} device events per step, of "
+          f"which ours "
+          f"{out['port_kernels_per_step']}")
+    for row in out["top_device_time_per_step"]:
+        print(f"[profile]   {row['us']:9.1f} us  x{row['count']:5.1f}  "
+              f"{row['name']}")
+    return out
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--out", type=Path, default=None,
+                    help="also write the full tables here (JSON)")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: no CUDA device")
+    from repro_torch.configs import get_config
+    cfg = get_config("smollm-135m")
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+          f"{torch.cuda.get_device_name(0)}")
+    card = phase_build()
+    rows = phase_kernels(cfg)
+    serve_stats, params = phase_serve(cfg)
+    serve_stats["profile"] = phase_profile(cfg, params)
+
+    # one entry per kernel: its largest main-path shape at f32
+    rep = {"matmul": "decode tied head", "rmsnorm": "decode",
+           "flash_attention": "prefill"}
+    kernels = []
+    for name, (source, replaces) in KERNELS.items():
+        row = next(r for r in rows if r["kernel"] == name
+                   and r["dtype"] == "float32"
+                   and r["shape"].startswith(rep[name]))
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": serve_stats["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows
+                               if r["kernel"] == name),
+            "ms": row["ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"], "shape": row["shape"],
+            "status": "ported, agrees with its plain version"})
+    if args.out is not None:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(json.dumps({"card": card, "kernels": kernels,
+                                        "cases": rows, "serve": serve_stats},
+                                       indent=1))
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

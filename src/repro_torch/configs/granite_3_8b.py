@@ -1,0 +1,13 @@
+"""granite-3-8b [dense]: GQA model.
+
+40L d_model=4096 32H (GQA kv=8) d_ff=12800 vocab=49155.
+[hf:ibm-granite/granite-3.0-2b-base; hf]
+"""
+
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="granite-3-8b", family="dense",
+    n_layers=40, d_model=4096, n_heads=32, n_kv_heads=8,
+    d_ff=12800, vocab=49155,
+)
