@@ -5,14 +5,24 @@
 Phases (any failure raises and exits non-zero; no phase catches and goes on):
 
 1. build   -- compile csrc/*.cu with nvcc (one process per source, all at
-              once) and print the build time, ptxas' register/spill lines
-              and the card (nvidia-smi name, power limit);
+              once) and print the build time, each kernel's registers and
+              spilled bytes (ptxas -v) and the card (nvidia-smi name, power
+              limit);
 2. kernels -- hold every CUDA kernel against its plain PyTorch version on
               the card at the serving path's full-width shapes (f32 and
               bf16) and at the JAX test sweep's awkward shapes; time the
               kernel, the plain version and one PyTorch library call at
-              the main-path shapes (CUDA events), and compute each shape's
-              bound (bytes over HBM bandwidth vs flops over peak);
+              the main-path shapes (f32) and at long-prompt shapes (f32 and
+              bf16; CUDA events), and compute each shape's bound (bytes over
+              HBM bandwidth vs flops over peak).  Each matmul row names the
+              path the wrapper chose.  The decode matmuls are also timed
+              with cold weights: a rotation of distinct copies of B
+              totalling twice the L2, as the decode step reads 30 layers'
+              weights from HBM ("cold" beside the warm-in-L2 time); then
+              both matmul paths forced at M around the skinny threshold
+              ("crossover"), and other skinny geometries at the serving
+              shapes ("sweep": rows of A per block, split target, block
+              cap), each held against the plain version;
 3. serve   -- run `repro_torch.launch.serve` at full width (smollm-135m,
               30 layers, d_model 576, seeded random f32 weights; batch 4,
               s_max 256, 8 requests of 4-31 tokens, 16 new tokens each)
@@ -33,6 +43,7 @@ the repository around it.
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import math
 import subprocess
@@ -83,6 +94,8 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels.matmul import (SKINNY_MAX_M, matmul_cuda,  # noqa: E402
+                                        plan_matmul)
 
 
 # -- helpers -----------------------------------------------------------------
@@ -145,7 +158,37 @@ def elem(dtype) -> int:
 
 # -- phase 1: build -----------------------------------------------------------
 
-def phase_build() -> str:
+def ptxas_table(logs):
+    """{source: [(kernel, registers, spill bytes)]} from nvcc's -Xptxas -v
+    output (entry names demangled with c++filt where it exists)."""
+    import re
+    import shutil
+    table = {}
+    for src, log in sorted(logs.items()):
+        rows, name, spill = [], None, 0
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                name = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spill = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                rows.append([name, int(m.group(1)), spill])
+                name, spill = None, 0
+        if rows and shutil.which("c++filt"):
+            out = subprocess.run(["c++filt"], input="\n".join(
+                r[0] for r in rows), capture_output=True, text=True,
+                timeout=60).stdout.splitlines()
+            for r, d in zip(rows, out):
+                r[0] = re.sub(r"\(anonymous namespace\)::|\(.*$", "", d)
+        table[src] = rows
+    return table
+
+
+def phase_build():
     t0 = time.perf_counter()
     logs = _build.build_all()
     for name in _build.launches:       # every library exists and loads
@@ -153,16 +196,19 @@ def phase_build() -> str:
     dt = time.perf_counter() - t0
     print(f"[build] {len(logs)} sources built in {dt:.1f}s "
           f"(nvcc {' '.join(_build.NVCC_FLAGS)})")
-    for name, log in sorted(logs.items()):
-        for line in log.splitlines():
-            if "Used" in line or "spill" in line:
-                print(f"[build] {name}: {line.strip()}")
+    table = ptxas_table(logs)
+    for src, rows in table.items():
+        for kname, regs, spill in rows:
+            print(f"[build] {src}: {kname}: {regs} registers, {spill} bytes "
+                  f"spilled")
+    spills = [k for rows in table.values() for k, _, s in rows if s]
+    print(f"[build] kernels with spills: {spills or 'none'}")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     print(card)
-    return card
+    return card, table
 
 
 # -- phase 2: kernels against their plain versions ----------------------------
@@ -222,6 +268,12 @@ def library_call(name, args):
     return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
 
 
+# the CUDA entry functions of each kernel, as the profiler names them
+KERNEL_NAMES = {"rmsnorm": ("rmsnorm_kernel",),
+                "matmul": ("skinny_rowb_kernel", "skinny_colb_kernel",
+                           "tiled_f32_kernel", "tiled_bf16_kernel"),
+                "flash_attention": ("flash_fwd_f32_kernel",
+                                    "flash_fwd_bf16_kernel")}
 KERNEL_FN = {"matmul": ops.matmul, "rmsnorm": ops.rmsnorm,
              "flash_attention": ops.flash_attention}
 PLAIN_FN = {"matmul": ref.matmul_ref, "rmsnorm": ref.rmsnorm_ref,
@@ -272,15 +324,86 @@ def make_args(name, spec, dtype, gen):
     return flash_case(*spec, dtype, gen)
 
 
+# timing rows beyond the serving path's shapes (not served): the tiled
+# matmul path at a 2048-token prompt and flash attention at long prompts,
+# timed in f32 and bf16
+LONG_CASES = [("matmul", "long prompt 2048x576x1536", (2048, 576, 1536, False)),
+              ("matmul", "long prompt 2048x1536x576", (2048, 1536, 576, False)),
+              ("flash_attention", "prefill B1 S256 H9/3 d64",
+               (1, 256, 256, 9, 3, 64)),
+              ("flash_attention", "prefill B1 S2048 H9/3 d64",
+               (1, 2048, 2048, 9, 3, 64))]
+L2_BYTES = 50e6                 # H100 L2
+
+
+def cold_weights(b, n_min: int = 30):
+    """Distinct copies of B (same shape, strides and scale) totalling at
+    least twice the L2, so that each call of a rotation finds its weights
+    in HBM, as the decode step does (30 layers of distinct weights)."""
+    nbytes = b.numel() * b.element_size()
+    n = max(n_min, math.ceil(2 * L2_BYTES / nbytes))
+    std = float(b.float().std())
+    if b.stride(0) == 1 and b.stride(1) != 1:   # embed.T
+        return [(torch.randn(b.shape[::-1], device=b.device) * std)
+                .to(b.dtype).T for _ in range(n)]
+    return [(torch.randn(b.shape, device=b.device) * std).to(b.dtype)
+            for _ in range(n)]
+
+
+def rotating(fn, a, bs):
+    it = itertools.cycle(bs)
+    return lambda: fn(a, next(it))
+
+
+def matmul_path(a, b):
+    plan = plan_matmul(a.shape[0], a.shape[1], b.shape[1], a.stride(),
+                       b.stride(), a.dtype, a.data_ptr() % 16 == 0,
+                       b.data_ptr() % 16 == 0)
+    return plan.path + (f" x{plan.splits} splits" if plan.splits > 1 else "")
+
+
+def time_row(row, name, args, dn):
+    nbytes, flops = cost(name, args)
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dn)
+    row["ms"], row["host_ms"] = time_ms(lambda: KERNEL_FN[name](*args))
+    row["plain_ms"], row["plain_host_ms"] = time_ms(
+        lambda: PLAIN_FN[name](*args))
+    row["library_ms"], row["library_host_ms"] = time_ms(
+        library_call(name, args))
+    cold = ""
+    if name == "matmul" and row["shape"].startswith("decode"):
+        bs = cold_weights(args[1])
+        row["cold_copies"] = len(bs)
+        row["cold_ms"], row["cold_host_ms"] = time_ms(
+            rotating(ops.matmul, args[0], bs))
+        row["library_cold_ms"], row["library_cold_host_ms"] = time_ms(
+            rotating(torch.matmul, args[0], bs))
+        del bs
+        cold = (f" cold {row['cold_ms']:.4f} (library "
+                f"{row['library_cold_ms']:.4f})")
+    path = f" [{row['path']}]" if "path" in row else ""
+    print(f"[kernels] {name:15s} {row['shape']:42s} {dn} err "
+          f"{row['max_abs_err']:.2e}{path}  device ms: kernel "
+          f"{row['ms']:.4f}{cold} plain {row['plain_ms']:.4f} library "
+          f"{row['library_ms']:.4f} bound {row['bound_ms']:.5f} "
+          f"({row['bound_by']});  host ms: kernel {row['host_ms']:.4f} "
+          f"plain {row['plain_host_ms']:.4f} library "
+          f"{row['library_host_ms']:.4f}")
+
+
 def phase_kernels(cfg):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(0)
     rows, worst = [], {}
-    for dtype in (torch.float32, torch.bfloat16):
+    f32 = torch.float32
+    cases = ([(n, lab, sp, (f32,)) for n, lab, sp in main_path_cases(cfg)]
+             + [(n, lab, sp, (f32, torch.bfloat16))
+                for n, lab, sp in LONG_CASES]
+             + [(n, f"awkward {sp}", sp, ()) for n, sp in AWKWARD])
+    for dtype in (f32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
-        for name, label, spec in main_path_cases(cfg) + [
-                (n, f"awkward {s}", s) for n, s in AWKWARD]:
+        for name, label, spec, timed in cases:
             args = make_args(name, spec, dtype, gen)
             got = KERNEL_FN[name](*args)
             want = PLAIN_FN[name](*args)
@@ -289,26 +412,76 @@ def phase_kernels(cfg):
             worst[name] = max(worst.get(name, 0.0), err)
             row = {"kernel": name, "shape": label, "dtype": dn,
                    "max_abs_err": err}
-            if dtype == torch.float32 and not label.startswith("awkward"):
-                nbytes, flops = cost(name, args)
-                row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dn)
-                row["ms"], row["host_ms"] = time_ms(
-                    lambda: KERNEL_FN[name](*args))
-                row["plain_ms"], row["plain_host_ms"] = time_ms(
-                    lambda: PLAIN_FN[name](*args))
-                row["library_ms"], row["library_host_ms"] = time_ms(
-                    library_call(name, args))
-                print(f"[kernels] {name:15s} {label:42s} f32 err "
-                      f"{err:.2e}  device ms: kernel {row['ms']:.4f} plain "
-                      f"{row['plain_ms']:.4f} library "
-                      f"{row['library_ms']:.4f} bound "
-                      f"{row['bound_ms']:.4f} ({row['bound_by']});  host "
-                      f"ms: kernel {row['host_ms']:.4f} plain "
-                      f"{row['plain_host_ms']:.4f} library "
-                      f"{row['library_host_ms']:.4f}")
+            if name == "matmul":
+                row["path"] = matmul_path(*args)
+            if dtype in timed:
+                time_row(row, name, args, dn)
             rows.append(row)
+            del args, got, want
     print(f"[kernels] {len(rows)} cases agree; max abs err per kernel: "
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    return rows
+
+
+def phase_crossover():
+    """Where the skinny path stops paying: both matmul paths forced at M
+    around SKINNY_MAX_M, each held against the plain version."""
+    gen = torch.Generator().manual_seed(3)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        dn = str(dtype).split(".")[1]
+        for K, N in ((576, 1536), (1536, 576)):
+            for M in (16, 32, 64, 128, 192, 256):
+                a, b = matmul_case(M, K, N, dtype, gen)
+                want = ref.matmul_ref(a, b)
+                row = {"M": M, "K": K, "N": N, "dtype": dn}
+                for path, smax in (("skinny", 1 << 30), ("tiled", 0)):
+                    plan = plan_matmul(M, K, N, a.stride(), b.stride(),
+                                       dtype, skinny_max=smax)
+                    check_close("matmul", matmul_cuda(a, b, plan), want, dn)
+                    row[path + "_ms"], _ = time_ms(
+                        lambda: matmul_cuda(a, b, plan))
+                row["library_ms"], _ = time_ms(lambda: torch.matmul(a, b))
+                print(f"[crossover] {dn} {M}x{K}x{N}: skinny "
+                      f"{row['skinny_ms']:.4f} tiled {row['tiled_ms']:.4f} "
+                      f"library {row['library_ms']:.4f} ms (threshold "
+                      f"M <= {SKINNY_MAX_M[dtype]})")
+                rows.append(row)
+    return rows
+
+
+SWEEP_SHAPES = [("decode tied head", 4, 576, 49152, True),
+                ("prefill tied head", 1, 576, 49152, True),
+                ("prefill q/o", 31, 576, 576, False),
+                ("prefill gate/up", 31, 576, 1536, False),
+                ("prefill down", 31, 1536, 576, False)]
+
+
+def phase_sweep():
+    """Skinny geometries at the serving shapes (f32), each held against the
+    plain version: rows of A per block and the split target for the
+    projections, the cap on blocks (each walking several output tiles)
+    for the tied head."""
+    gen = torch.Generator().manual_seed(4)
+    rows = []
+    for label, M, K, N, colb in SWEEP_SHAPES:
+        a, b = matmul_case(M, K, N, torch.float32, gen, strided_b=colb)
+        want = ref.matmul_ref(a, b)
+        if colb:
+            variants = [dict(max_blocks=x) for x in (None, 132, 264, 528)]
+        else:
+            variants = [dict(mt=mt, target_blocks=t) for mt in (4, 8, 16)
+                        for t in (132, 264, 528)]
+        for v in variants:
+            plan = plan_matmul(M, K, N, a.stride(), b.stride(),
+                               torch.float32, **v)
+            check_close("matmul", matmul_cuda(a, b, plan), want, "float32")
+            ms, _ = time_ms(lambda: matmul_cuda(a, b, plan))
+            row = {"shape": label, **v, "grid": plan.grid, "mt": plan.mt,
+                   "splits": plan.splits, "ms": ms}
+            rows.append(row)
+            print(f"[sweep] {label:18s} {v} mt {plan.mt} grid {plan.grid} "
+                  f"splits {plan.splits}: {ms:.4f} ms")
     return rows
 
 
@@ -437,15 +610,19 @@ def phase_profile(cfg, params, steps: int = 5):
         c, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    ours = {k: sum(c for n, (c, _) in by_name.items() if k in n)
-            for k in ("rmsnorm_kernel", "matmul_kernel", "flash_fwd_kernel")}
+    ours = {k: [(c, t) for n, (c, t) in by_name.items()
+                if any(f in n for f in frags)]
+            for k, frags in KERNEL_NAMES.items()}
     out = {
         "decode_ms_profiled": dec_ms,
         "device_busy_ms_per_step": busy / steps / 1e3,
         "device_span_ms_per_step": span / steps / 1e3,
         "device_idle_share": 1.0 - busy / span,
         "device_events_per_step": len(dev) / steps,
-        "port_kernels_per_step": {k: c / steps for k, c in ours.items()},
+        "port_kernels_per_step": {k: sum(c for c, _ in v) / steps
+                                  for k, v in ours.items()},
+        "port_kernel_ms_per_step": {k: sum(t for _, t in v) / steps / 1e3
+                                    for k, v in ours.items()},
         "top_device_time_per_step": [
             {"name": n[:80], "count": c / steps, "us": t / steps}
             for n, (c, t) in top],
@@ -456,7 +633,8 @@ def phase_profile(cfg, params, steps: int = 5):
           f"{out['device_idle_share']:.3f}); "
           f"{out['device_events_per_step']:.0f} device events per step, of "
           f"which ours "
-          f"{out['port_kernels_per_step']}")
+          f"{out['port_kernels_per_step']} taking "
+          f"{out['port_kernel_ms_per_step']} ms")
     for row in out["top_device_time_per_step"]:
         print(f"[profile]   {row['us']:9.1f} us  x{row['count']:5.1f}  "
               f"{row['name']}")
@@ -474,8 +652,10 @@ def main(argv=None) -> int:
     cfg = get_config("smollm-135m")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
-    card = phase_build()
+    card, ptxas = phase_build()
     rows = phase_kernels(cfg)
+    crossover = phase_crossover()
+    sweep = phase_sweep()
     serve_stats, params = phase_serve(cfg)
     serve_stats["profile"] = phase_profile(cfg, params)
 
@@ -499,7 +679,10 @@ def main(argv=None) -> int:
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": card, "kernels": kernels,
-                                        "cases": rows, "serve": serve_stats},
+                                        "cases": rows,
+                                        "crossover": crossover,
+                                        "sweep": sweep,
+                                        "ptxas": ptxas, "serve": serve_stats},
                                        indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

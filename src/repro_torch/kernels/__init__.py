@@ -7,8 +7,11 @@ Each kernel ships:
   ops.py           dispatch by device: kernel on CUDA, plain on CPU
 
 Kernels present (ports of the Pallas kernels in ``repro.kernels``):
-  matmul          shared-memory tiled GEMM, f32 FMA accumulation, strided B
-  flash_attention causal GQA flash attention (online softmax over KV tiles)
+  matmul          skinny-M streaming path (split-K summed in a fixed order
+                  in the launch) and pipelined tiles (bf16 on mma.sync);
+                  f32 accumulation, strided A and B
+  flash_attention causal GQA flash attention, one block per KV-head group
+                  (online softmax over cp.async double-buffered KV tiles)
   rmsnorm         fused RMS-norm, scale (1 + w)
 
 ``_build.py`` compiles ``csrc/*.cu`` with nvcc at first use.

@@ -1,6 +1,8 @@
 // Shared helpers for the port's CUDA kernels: element types and the
 // conversions that every kernel does at its loads and stores (f32 math,
-// storage in the caller's dtype).
+// storage in the caller's dtype), and the sm_80+ instructions the matmul
+// and flash-attention kernels are built from (cp.async, ldmatrix and the
+// bf16 mma.sync tensor-core product).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -22,4 +24,79 @@ __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// Elements of T in one 16-byte vector load.
+template <typename T>
+struct Vec { static constexpr int N = 16 / sizeof(T); };
+
+// 16 bytes of T (already in registers) as N floats.
+__device__ __forceinline__ void unpack16(const uint4& r, float* out,
+                                         float) {
+  out[0] = __uint_as_float(r.x); out[1] = __uint_as_float(r.y);
+  out[2] = __uint_as_float(r.z); out[3] = __uint_as_float(r.w);
+}
+__device__ __forceinline__ void unpack16(const uint4& r, float* out,
+                                         __nv_bfloat16) {
+  const uint32_t w[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __uint_as_float(w[i] << 16);
+    out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// -- cp.async: global -> shared without a register round trip --------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Copy `src_bytes` (0..16) bytes and zero-fill the rest of the 16-byte
+// destination.  With src_bytes == 0 nothing is read.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// -- ldmatrix / mma.sync (bf16 in, f32 accumulate) -------------------------
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r,
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// D = A(16x16, row) * B(16x8, col) + D, bf16 operands, f32 accumulators.
+__device__ __forceinline__ void mma_bf16_16816(float* d, const uint32_t* a,
+                                               uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats as a packed bf16x2 (low half = lo).
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
 }

@@ -4,39 +4,182 @@ Port of ``repro.kernels.matmul`` (Pallas ``_matmul_kernel``).  The plain
 version is ``ref.matmul_ref``; ``ops.matmul`` picks between the two by the
 tensors' device.  A and B are passed with their strides, so a transposed
 view (the tied head's ``embed.T``) is read in place, never copied.
+
+The kernel has two paths, and ``plan_matmul`` (plain Python, so the CPU
+tests reach it) picks one and its launch geometry from the shapes, strides,
+dtype and pointer alignment:
+
+* **skinny** (M <= ``SKINNY_MAX_M``): streams B once, MT rows of A per
+  block, with K split over ``splits`` blocks where N alone gives too few
+  blocks for the card; the splits' partials are summed in a fixed order
+  inside the same launch (scratch from ``_scratch``);
+* **tiled** (larger M): 128x128 tiles through a cp.async ring, bf16 on the
+  tensor cores, f32 on FMA.
+
+Choosing a path is not a fallback: a launch that fails raises, and no call
+is retried another way.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass, field, replace
+from typing import Dict, Tuple
 
 import torch
 
 from . import _build
 
-_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-             ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-             ctypes.c_int, ctypes.c_void_p]
+# the skinny path takes M <= this, per dtype: it beat the tiled path on the
+# H100 up to here (chip_smoke.py's crossover rows)
+SKINNY_MAX_M = {torch.float32: 128, torch.bfloat16: 32}
+NUM_SMS = 132                # H100 SXM
+TARGET_BLOCKS = 2 * NUM_SMS  # skinny: split K until the grid has this many
+# skinny: blocks per K split at most; each walks tiles / blocks output
+# tiles.  Two per SM measured fastest for the tied head (chip_smoke.py's
+# sweep rows).
+MAX_BLOCKS = 2 * NUM_SMS
+# skinny: at most this many rows of A per block where B fits twice in the
+# 50 MB L2 (the other row chunks then re-read B from L2, not HBM): at
+# M = 31, 4 rows beat 8 and 16 on every projection in the same sweep
+L2_REREAD_MT, L2_BYTES = 4, 50_000_000
+A_STAGE_FLOATS = 8192        # csrc kAStage: A floats a skinny block stages
+SK_WARPS = 8
+TILE = 128                   # tiled path: BM = BN
+ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
+# rows of A per skinny block, per dtype (bf16 vectors hold 8 values, so 16
+# rows would need 128 accumulators a thread)
+SKINNY_MT = {torch.float32: (1, 2, 4, 8, 16), torch.bfloat16: (1, 2, 4, 8)}
+
+# a, b, c, part, counters, the plan's parameters (int64[15]), stream
+_ARGTYPES = [ctypes.c_void_p] * 7
 
 
-def matmul_cuda(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+@dataclass(frozen=True)
+class MatmulPlan:
+    path: str                  # "skinny" or "tiled"
+    colb: bool                 # B read along K (unit stride along K)
+    vec: bool                  # 16-byte vector loads are aligned
+    grid: Tuple[int, int]      # (x, y) blocks; skinny: x walks the tiles
+    mt: int = 0                # skinny: rows of A per block
+    kchunk: int = 0            # skinny: depth of one K split
+    splits: int = 1            # skinny: K splits (blockIdx.y)
+    tiles: int = 0             # skinny: output tiles (split-K counters)
+    # the C entry's parameter block (csrc/matmul.cu), built once per plan
+    params: ctypes.Array = field(default=None, compare=False, repr=False)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _vec_ok(aligned: bool, unit: int, other: int, width: int) -> bool:
+    return aligned and unit == 1 and other % width == 0
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_matmul(M: int, K: int, N: int, strides_a, strides_b, dtype,
+                a_aligned: bool = True, b_aligned: bool = True,
+                skinny_max: int | None = None, mt: int | None = None,
+                target_blocks: int = TARGET_BLOCKS,
+                max_blocks: int | None = MAX_BLOCKS) -> MatmulPlan:
+    """The path and launch geometry for (M, K) x (K, N) with A and B at
+    16-byte aligned addresses or not, with strides ``(sam, sak)`` and
+    ``(sbk, sbn)``.  Cached: the serving path asks for a few shapes.  The
+    keywords after ``b_aligned`` override the defaults (chip_smoke.py
+    measures other geometries with them)."""
+    (sam, sak), (sbk, sbn) = strides_a, strides_b
+    V = 16 // ELEM_BYTES[dtype]
+    if skinny_max is None:
+        skinny_max = SKINNY_MAX_M[dtype]
+    colb = sbk == 1 and (sbn != 1 or N == 1)
+    b_vec = (_vec_ok(b_aligned, sbk, sbn, V) if colb
+             else _vec_ok(b_aligned, sbn, sbk, V))
+    if M > skinny_max:
+        vec = b_vec and _vec_ok(a_aligned, sak, sam, V)
+        grid = (_cdiv(N, TILE), _cdiv(M, TILE))
+        if grid[0] >= 2 ** 31 or grid[1] >= 2 ** 16:
+            raise ValueError(f"matmul: ({M}, {N}) exceeds the grid")
+        return _with_params(MatmulPlan("tiled", colb, vec, grid), M, N, K,
+                            strides_a, strides_b, dtype)
+    mts = SKINNY_MT[dtype]
+    if mt is None:
+        mt = next((m for m in mts if m >= M), mts[-1])
+        if 2 * K * N * ELEM_BYTES[dtype] <= L2_BYTES:
+            mt = min(mt, L2_REREAD_MT)
+    elif mt not in mts:
+        raise ValueError(f"matmul: {mt} rows per block not in {mts}")
+    mchunks = _cdiv(M, mt)
+    bn = SK_WARPS * (8 if mt <= 4 else 4) if colb else 32 * V  # csrc BN
+    tiles = mchunks * _cdiv(N, bn)
+    kmin = 32 * V if colb else 64
+    kcap = A_STAGE_FLOATS // mt // 32 * 32
+    splits = max(1, min(_cdiv(target_blocks, tiles), _cdiv(K, kmin)))
+    kchunk = min(kcap, max(32, _cdiv(_cdiv(K, splits), 32) * 32))
+    splits = max(1, _cdiv(K, kchunk))
+    if tiles >= 2 ** 31 or splits >= 2 ** 16:
+        raise ValueError(f"matmul: ({M}, {K}, {N}) exceeds the grid")
+    blocks = tiles if max_blocks is None else min(tiles, max_blocks)
+    return _with_params(MatmulPlan("skinny", colb, b_vec, (blocks, splits),
+                                   mt, kchunk, splits, tiles),
+                        M, N, K, strides_a, strides_b, dtype)
+
+
+def _with_params(plan: MatmulPlan, M, N, K, strides_a, strides_b, dtype):
+    """The plan with the C entry's parameter block (csrc/matmul.cu)."""
+    vals = (M, N, K, *strides_a, *strides_b, _build.DTYPE_CODES[dtype],
+            int(plan.path == "tiled"), int(plan.colb), int(plan.vec),
+            plan.mt, plan.kchunk, plan.splits, plan.grid[0])
+    return replace(plan, params=(ctypes.c_int64 * len(vals))(*vals))
+
+
+# split-K scratch per (device, stream): f32 partials and per-tile counters,
+# which the kernel returns to zero after each call
+_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _split_scratch(device, stream: int, n_part: int, n_tiles: int):
+    key = (device.index, stream)
+    part, cnt = _scratch.get(key, (None, None))
+    if part is None or part.numel() < n_part:
+        part = torch.empty(max(n_part, 1 << 16), dtype=torch.float32,
+                           device=device)
+    if cnt is None or cnt.numel() < n_tiles:
+        cnt = torch.zeros(max(n_tiles, 1 << 12), dtype=torch.int32,
+                          device=device)
+    _scratch[key] = (part, cnt)
+    return part, cnt
+
+
+def matmul_cuda(a: torch.Tensor, b: torch.Tensor,
+                plan: MatmulPlan | None = None) -> torch.Tensor:
     """a: (M, K), b: (K, N), CUDA tensors of one dtype (f32 or bf16), any
-    strides -> (M, N) contiguous in that dtype; f32 accumulation."""
+    strides -> (M, N) contiguous in that dtype; f32 accumulation.  ``plan``
+    overrides ``plan_matmul``'s choice (for measuring both paths)."""
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"matmul: shapes {tuple(a.shape)} x "
                          f"{tuple(b.shape)}")
     code = _build.check_inputs("matmul", a, b)
     (M, K), N = a.shape, b.shape[1]
-    if (M + 63) // 64 >= 2 ** 16 or (N + 63) // 64 >= 2 ** 31:
-        raise ValueError(f"matmul: ({M}, {N}) exceeds the grid")
+    if plan is None:
+        plan = plan_matmul(M, K, N, a.stride(), b.stride(), a.dtype,
+                           a.data_ptr() % 16 == 0, b.data_ptr() % 16 == 0)
+    elif tuple(plan.params[:8]) != (M, N, K, *a.stride(), *b.stride(), code):
+        raise ValueError("matmul: the plan was made for other tensors")
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)
     if M == 0 or N == 0:
         return c
+    stream = _build.stream()
+    part = cnt = None
+    if plan.path == "skinny" and plan.splits > 1:
+        part, cnt = _split_scratch(a.device, stream, plan.splits * M * N,
+                                   plan.tiles)
     launch = _build.entry("matmul", _ARGTYPES)
-    err = launch(a.data_ptr(), b.data_ptr(), c.data_ptr(), M, N, K,
-                 a.stride(0), a.stride(1), b.stride(0), b.stride(1), code,
-                 _build.stream())
+    err = launch(a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                 None if part is None else part.data_ptr(),
+                 None if cnt is None else cnt.data_ptr(),
+                 ctypes.addressof(plan.params), stream)
     _build.check(err, "matmul")
     _build.launches["matmul"] += 1
     return c

@@ -107,3 +107,145 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dims, dtype):
     want = ref.flash_attention_ref(q, k, v, causal=True)
     np.testing.assert_allclose(_np(got), _np(want), rtol=tol,
                                atol=tol)
+
+
+# -- the redesigned matmul: both paths, both B layouts, edges ----------------
+
+SKINNY_M = [1, 4, 31, "threshold", "threshold+1"]
+MAIN_KN = [(576, 576), (576, 192), (576, 1536), (1536, 576),   # projections
+           (576, 1), (577, 576)]                               # N = 1, K = 577
+
+
+def _m_value(m, dtype):
+    from repro_torch.kernels.matmul import SKINNY_MAX_M
+    t = SKINNY_MAX_M[dtype]
+    return {"threshold": t, "threshold+1": t + 1}.get(m, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", SKINNY_M)
+@pytest.mark.parametrize("kn", MAIN_KN)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_paths_match_plain(cuda_device, m, kn, dtype):
+    """Each M around the skinny threshold against the plain version, with B
+    row-major (the projections) and read along K (the tied head's embed.T),
+    and each output bit-identical on a repeat call (split-K sums its
+    partials in a fixed order)."""
+    tdt = DTYPES[dtype]
+    M, (K, N) = _m_value(m, tdt), kn
+    rng = np.random.default_rng(11)
+    a = _dev(rng.standard_normal((M, K), np.float32), tdt, cuda_device)
+    b = _dev(rng.standard_normal((K, N), np.float32) / np.sqrt(K), tdt,
+             cuda_device)
+    tol = 3e-2 if dtype == "bfloat16" else 1e-5
+    want = _np(ref.matmul_ref(a, b))
+    for bb in (b, b.T.contiguous().T):
+        n0 = ops.launches["matmul"]
+        got, again = ops.matmul(a, bb), ops.matmul(a, bb)
+        torch.cuda.synchronize()
+        assert ops.launches["matmul"] == n0 + 2
+        assert torch.equal(got, again)
+        np.testing.assert_allclose(_np(got), want, rtol=tol, atol=tol * 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", [(4, 576, 49152), (1, 576, 49152),
+                                 (2048, 576, 1536), (2048, 1536, 576),
+                                 (300, 577, 129), (1, 1, 1), (3, 7, 5)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_large_and_tiny_shapes(cuda_device, mkn, dtype):
+    """The tied head, the tiled path's timing shapes and tiny ragged ones,
+    with B as embed.T for the head, bit-identical on a repeat call.  B is
+    scaled by 1/sqrt(K), as the model's weights are, so that f32's order
+    of summation stays inside the tolerance at K = 1536."""
+    M, K, N = mkn
+    tdt = DTYPES[dtype]
+    rng = np.random.default_rng(12)
+    a = _dev(rng.standard_normal((M, K), np.float32), tdt, cuda_device)
+    b = _dev(rng.standard_normal((N, K), np.float32) / np.sqrt(K), tdt,
+             cuda_device).T
+    if N != 49152:
+        b = b.contiguous()
+    got, again = ops.matmul(a, b), ops.matmul(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    tol = 3e-2 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(_np(got), _np(ref.matmul_ref(a, b)),
+                               rtol=tol, atol=tol * 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [4, 200])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_misaligned_takes_scalar_loads(cuda_device, M, dtype):
+    """Views one element off 16-byte alignment take the scalar-load
+    variant of either path and still agree with the plain version."""
+    from repro_torch.kernels.matmul import plan_matmul
+    K, N = 96, 72
+    tdt = DTYPES[dtype]
+    rng = np.random.default_rng(13)
+    abuf = _dev(rng.standard_normal(M * K + 1, np.float32), tdt, cuda_device)
+    bbuf = _dev(rng.standard_normal(K * N + 1, np.float32), tdt, cuda_device)
+    a, b = abuf[1:].view(M, K), bbuf[1:].view(K, N)
+    plan = plan_matmul(M, K, N, a.stride(), b.stride(), tdt,
+                       a.data_ptr() % 16 == 0, b.data_ptr() % 16 == 0)
+    assert not plan.vec
+    got = ops.matmul(a, b)
+    torch.cuda.synchronize()
+    tol = 3e-2 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(_np(got), _np(ref.matmul_ref(a, b)),
+                               rtol=tol, atol=tol * 8)
+
+
+# -- the redesigned flash attention ------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(1, 64, 64, 4, 4, 128),      # G = 1
+                                  (1, 37, 37, 9, 3, 128),      # G = 3
+                                  (2, 50, 50, 16, 2, 128),     # G = 8
+                                  (1, 1, 77, 9, 3, 64),        # Sq = 1
+                                  (1, 20, 300, 8, 1, 128),     # Sq < Skv
+                                  (1, 2048, 2048, 9, 3, 64),   # S = 2048
+                                  (1, 33, 33, 72, 1, 32)])     # G > 64 rows
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_grouped_heads(cuda_device, dims, dtype):
+    B, Sq, Skv, H, KVH, d = dims
+    tdt = DTYPES[dtype]
+    rng = np.random.default_rng(14)
+    q = _dev(rng.standard_normal((B, Sq, H, d), np.float32), tdt, cuda_device)
+    k = _dev(rng.standard_normal((B, Skv, KVH, d), np.float32), tdt,
+             cuda_device)
+    v = _dev(rng.standard_normal((B, Skv, KVH, d), np.float32), tdt,
+             cuda_device)
+    got, again = (ops.flash_attention(q, k, v, causal=True),
+                  ops.flash_attention(q, k, v, causal=True))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    tol = 4e-2 if dtype == "bfloat16" else 3e-4
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_misaligned_and_strided(cuda_device, dtype):
+    """k/v one element off alignment (the scalar-load variant) and q as a
+    strided slice of a wider tensor (the cp.async variant)."""
+    from repro_torch.kernels.flash_attention import plan_flash
+    B, S, H, KVH, d = 1, 45, 6, 2, 32
+    tdt = DTYPES[dtype]
+    rng = np.random.default_rng(15)
+    q = _dev(rng.standard_normal((B, S, 2 * H, d), np.float32), tdt,
+             cuda_device)[:, :, :H]
+    n = B * S * KVH * d
+    kbuf = _dev(rng.standard_normal(2 * n + 1, np.float32), tdt, cuda_device)
+    k = kbuf[1:n + 1].view(B, S, KVH, d)
+    v = kbuf[n + 1:].view(B, S, KVH, d)
+    assert not plan_flash(q, k, v).vec
+    assert plan_flash(q, k.clone(), v.clone()).vec
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    tol = 4e-2 if dtype == "bfloat16" else 3e-4
+    for kk, vv in ((k, v), (k.clone(), v.clone())):
+        got = ops.flash_attention(q, kk, vv, causal=True)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)

@@ -19,8 +19,10 @@ from repro.kernels import rmsnorm as jax_rmsnorm
 from repro.kernels import ref as jax_ref
 from repro.models.layers import chunked_attention
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.flash_attention import flash_attention_cuda
-from repro_torch.kernels.matmul import matmul_cuda
+from repro_torch.kernels.flash_attention import (ROWS, flash_attention_cuda,
+                                                 plan_flash)
+from repro_torch.kernels.matmul import (A_STAGE_FLOATS, SKINNY_MAX_M,
+                                        matmul_cuda, plan_matmul)
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -157,3 +159,146 @@ def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
         _build._nvcc()
+
+
+# -- the wrappers' path and geometry choice (plain Python, no card) -----------
+
+# (M, K, N, B read along K): the serving path's shapes (smollm-135m: decode
+# M = 4, prefill M = 31, prefill head M = 1 through embed.T), the tiled
+# path's timing shapes, and awkward ones
+PLAN_SHAPES = [(4, 576, 576, False), (4, 576, 192, False),
+               (4, 576, 1536, False), (4, 1536, 576, False),
+               (4, 576, 49152, True), (31, 576, 576, False),
+               (31, 1536, 576, False), (1, 576, 49152, True),
+               (2048, 576, 1536, False), (2048, 1536, 576, False),
+               (1, 1, 1, False), (3, 7, 5, True), (4, 577, 576, False),
+               (4, 576, 1, False), (300, 577, 129, True),
+               (64, 100000, 8, False), (1 << 20, 64, 1 << 18, False)]
+TDTYPES = [torch.float32, torch.bfloat16]
+
+
+def _strides(M, K, N, colb):
+    return (K, 1), ((1, K) if colb else (N, 1))
+
+
+def _check_plan(plan, M, K, N):
+    assert plan.path in ("skinny", "tiled")
+    gx, gy = plan.grid
+    assert 1 <= gx < 2 ** 31 and 1 <= gy < 2 ** 16
+    if plan.path == "tiled":
+        assert (gx, gy) == (-(-N // 128), -(-M // 128))
+        return
+    assert plan.grid[1] == plan.splits and 1 <= plan.grid[0] <= plan.tiles
+    assert plan.kchunk % 32 == 0 and plan.mt * plan.kchunk <= A_STAGE_FLOATS
+    # the splits cover K exactly: none empty, none missing
+    assert plan.splits * plan.kchunk >= K
+    assert (plan.splits - 1) * plan.kchunk < max(K, 1)
+    assert plan.tiles >= -(-M // plan.mt)
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+@pytest.mark.parametrize("dtype", TDTYPES)
+def test_matmul_plan_gives_every_shape_a_path(shape, dtype):
+    M, K, N, colb = shape
+    sa, sb = _strides(M, K, N, colb)
+    plan = plan_matmul(M, K, N, sa, sb, dtype)
+    _check_plan(plan, M, K, N)
+    assert plan.path == ("skinny" if M <= SKINNY_MAX_M[dtype] else "tiled")
+
+
+@pytest.mark.parametrize("dtype", TDTYPES)
+@pytest.mark.parametrize("kn", [(576, 576), (1536, 576), (576, 49152)])
+def test_matmul_plan_threshold_sides(dtype, kn):
+    K, N = kn
+    t = SKINNY_MAX_M[dtype]
+    assert t >= 32       # covers decode (4), prefill (<= 31) and the head (1)
+    below = plan_matmul(t, K, N, (K, 1), (N, 1), dtype)
+    above = plan_matmul(t + 1, K, N, (K, 1), (N, 1), dtype)
+    assert (below.path, above.path) == ("skinny", "tiled")
+    assert plan_matmul(4, K, N, (K, 1), (N, 1), dtype,
+                       skinny_max=0).path == "tiled"
+
+
+@pytest.mark.parametrize("K", [1, 31, 32, 33, 64, 577, 1536, 4096, 100003])
+@pytest.mark.parametrize("N", [1, 192, 576, 49152])
+def test_matmul_plan_split_k_covers_k(K, N):
+    for dtype in TDTYPES:
+        for colb in (False, True):
+            sa, sb = _strides(4, K, N, colb)
+            plan = plan_matmul(4, K, N, sa, sb, dtype)
+            _check_plan(plan, 4, K, N)
+            if plan.tiles >= 264:         # enough blocks: no split needed
+                assert plan.splits == -(-K // plan.kchunk)
+
+
+def test_matmul_plan_overrides():
+    """The sweep's overrides: rows per block, split target, block cap."""
+    plan = plan_matmul(31, 576, 576, (576, 1), (576, 1), torch.float32, mt=8,
+                       target_blocks=132, max_blocks=7)
+    assert plan.mt == 8 and plan.tiles == 4 * 5 and plan.grid[0] == 7
+    _check_plan(plan, 31, 576, 576)
+    with pytest.raises(ValueError, match="rows per block"):
+        plan_matmul(4, 8, 8, (8, 1), (8, 1), torch.bfloat16, mt=16)
+
+
+def test_matmul_plan_small_n_splits_k_to_fill_the_card():
+    """Where N gives few tiles, K is split until the grid reaches two
+    blocks per SM or the splits reach their least depth (64 rows)."""
+    for N in (192, 576):
+        plan = plan_matmul(4, 1536, N, (1536, 1), (N, 1), torch.float32)
+        assert plan.splits > 1
+        assert plan.tiles * plan.splits >= min(264, plan.tiles * 1536 // 64)
+
+
+@pytest.mark.parametrize("M", [4, 200])
+@pytest.mark.parametrize("dtype", TDTYPES)
+def test_matmul_plan_misaligned_picks_scalar_loads(M, dtype):
+    K, N = 96, 72
+    ok = plan_matmul(M, K, N, (K, 1), (N, 1), dtype)
+    assert ok.vec
+    for args in ((True, False), (False, False)):
+        assert not plan_matmul(M, K, N, (K, 1), (N, 1), dtype, *args).vec
+    # a row stride that is no multiple of the 16-byte vector
+    assert not plan_matmul(M, K, 73, (K, 1), (73, 1), dtype).vec
+    # the tiled path also loads A by vectors; the skinny path stages A
+    # element by element and does not care
+    a_off = plan_matmul(M, K, N, (K, 1), (N, 1), dtype, False, True)
+    assert a_off.vec == (a_off.path == "skinny")
+
+
+def test_matmul_plan_tied_head_reads_along_k():
+    """The tied head's B is embed.T: unit stride along K, read in place."""
+    embed = torch.zeros(49152, 576)
+    w = embed.T
+    plan = plan_matmul(4, 576, 49152, (576, 1), w.stride(), torch.float32)
+    assert plan.colb and plan.vec and plan.path == "skinny"
+    rowb = plan_matmul(4, 576, 49152, (576, 1), (49152, 1), torch.float32)
+    assert not rowb.colb
+
+
+@pytest.mark.parametrize("hk", [(9, 3), (4, 4), (16, 2), (8, 1), (72, 1),
+                                (130, 1)])
+@pytest.mark.parametrize("Sq", [1, 31, 256, 2048])
+def test_flash_plan_groups_query_heads(hk, Sq):
+    """One block carries the query heads of a KV head's group (all of them
+    where they fit in its rows), and the grid covers every (position,
+    head) exactly."""
+    H, KVH = hk
+    G = H // KVH
+    q = torch.zeros(2, Sq, H, 64)
+    k = torch.zeros(2, Sq, KVH, 64)
+    plan = plan_flash(q, k, k)
+    assert plan.gh * plan.bq <= ROWS and plan.gh <= G
+    if G <= ROWS:
+        assert plan.gh == G
+    qtiles, gchunks = -(-Sq // plan.bq), -(-G // plan.gh)
+    assert plan.grid == (qtiles * gchunks, KVH, 2)
+    assert plan.vec
+
+
+def test_flash_plan_misaligned_picks_scalar_loads():
+    buf = torch.zeros(1 + 31 * 3 * 64)
+    k = buf[1:].view(1, 31, 3, 64)
+    q = torch.zeros(1, 31, 9, 64)
+    assert not plan_flash(q, k, k).vec
+    assert plan_flash(q, k.clone(), k.clone()).vec
