@@ -20,9 +20,8 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               totalling twice the L2, as the decode step reads 30 layers'
               weights from HBM ("cold" beside the warm-in-L2 time); then
               both matmul paths forced at M around the skinny threshold
-              ("crossover"), and other skinny geometries at the serving
-              shapes ("sweep": rows of A per block, split target, block
-              cap), each held against the plain version;
+              ("crossover", the reading that sets SKINNY_MAX_M), each held
+              against the plain version;
 3. serve   -- run `repro_torch.launch.serve` at full width (smollm-135m,
               30 layers, d_model 576, seeded random f32 weights; batch 4,
               s_max 256, 8 requests of 4-31 tokens, 16 new tokens each)
@@ -94,8 +93,8 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
-from repro_torch.kernels.matmul import (SKINNY_MAX_M, matmul_cuda,  # noqa: E402
-                                        plan_matmul)
+from repro_torch.kernels.matmul import (L2_BYTES, matmul_cuda,  # noqa: E402
+                                        plan_for, skinny_max_m)
 
 
 # -- helpers -----------------------------------------------------------------
@@ -333,7 +332,6 @@ LONG_CASES = [("matmul", "long prompt 2048x576x1536", (2048, 576, 1536, False)),
                (1, 256, 256, 9, 3, 64)),
               ("flash_attention", "prefill B1 S2048 H9/3 d64",
                (1, 2048, 2048, 9, 3, 64))]
-L2_BYTES = 50e6                 # H100 L2
 
 
 def cold_weights(b, n_min: int = 30):
@@ -356,9 +354,7 @@ def rotating(fn, a, bs):
 
 
 def matmul_path(a, b):
-    plan = plan_matmul(a.shape[0], a.shape[1], b.shape[1], a.stride(),
-                       b.stride(), a.dtype, a.data_ptr() % 16 == 0,
-                       b.data_ptr() % 16 == 0)
+    plan = plan_for(a, b)
     return plan.path + (f" x{plan.splits} splits" if plan.splits > 1 else "")
 
 
@@ -423,65 +419,43 @@ def phase_kernels(cfg):
     return rows
 
 
+# (K, N, B = embed.T, the M to time) per dtype: the MLP projections, whose
+# weights sit in L2, and the tied head, whose 49152-wide weight does not
+CROSSOVER = {
+    torch.float32: [(576, 1536, False, (16, 64, 256, 512, 768, 1024)),
+                    (1536, 576, False, (16, 64, 256, 512, 768, 1024)),
+                    (576, 49152, True, (4, 16, 32, 64))],
+    torch.bfloat16: [(576, 1536, False, (16, 32, 64, 128)),
+                     (1536, 576, False, (16, 32, 64, 128)),
+                     (576, 49152, True, (1, 4, 8, 16, 32))]}
+
+
 def phase_crossover():
     """Where the skinny path stops paying: both matmul paths forced at M
-    around SKINNY_MAX_M, each held against the plain version."""
+    around the skinny threshold (matmul.SKINNY_MAX_M), each held against
+    the plain version."""
     gen = torch.Generator().manual_seed(3)
     rows = []
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype, shapes in CROSSOVER.items():
         dn = str(dtype).split(".")[1]
-        for K, N in ((576, 1536), (1536, 576)):
-            for M in (16, 32, 64, 128, 192, 256):
-                a, b = matmul_case(M, K, N, dtype, gen)
+        for K, N, colb, ms in shapes:
+            for M in ms:
+                a, b = matmul_case(M, K, N, dtype, gen, strided_b=colb)
                 want = ref.matmul_ref(a, b)
-                row = {"M": M, "K": K, "N": N, "dtype": dn}
+                row = {"M": M, "K": K, "N": N, "embed_T": colb, "dtype": dn}
                 for path, smax in (("skinny", 1 << 30), ("tiled", 0)):
-                    plan = plan_matmul(M, K, N, a.stride(), b.stride(),
-                                       dtype, skinny_max=smax)
+                    plan = plan_for(a, b, skinny_max=smax)
                     check_close("matmul", matmul_cuda(a, b, plan), want, dn)
                     row[path + "_ms"], _ = time_ms(
                         lambda: matmul_cuda(a, b, plan))
                 row["library_ms"], _ = time_ms(lambda: torch.matmul(a, b))
-                print(f"[crossover] {dn} {M}x{K}x{N}: skinny "
+                print(f"[crossover] {dn} {M}x{K}x{N}"
+                      f"{' (B=embed.T)' if colb else ''}: skinny "
                       f"{row['skinny_ms']:.4f} tiled {row['tiled_ms']:.4f} "
                       f"library {row['library_ms']:.4f} ms (threshold "
-                      f"M <= {SKINNY_MAX_M[dtype]})")
+                      f"M <= {skinny_max_m(K, N, dtype)})")
                 rows.append(row)
-    return rows
-
-
-SWEEP_SHAPES = [("decode tied head", 4, 576, 49152, True),
-                ("prefill tied head", 1, 576, 49152, True),
-                ("prefill q/o", 31, 576, 576, False),
-                ("prefill gate/up", 31, 576, 1536, False),
-                ("prefill down", 31, 1536, 576, False)]
-
-
-def phase_sweep():
-    """Skinny geometries at the serving shapes (f32), each held against the
-    plain version: rows of A per block and the split target for the
-    projections, the cap on blocks (each walking several output tiles)
-    for the tied head."""
-    gen = torch.Generator().manual_seed(4)
-    rows = []
-    for label, M, K, N, colb in SWEEP_SHAPES:
-        a, b = matmul_case(M, K, N, torch.float32, gen, strided_b=colb)
-        want = ref.matmul_ref(a, b)
-        if colb:
-            variants = [dict(max_blocks=x) for x in (None, 132, 264, 528)]
-        else:
-            variants = [dict(mt=mt, target_blocks=t) for mt in (4, 8, 16)
-                        for t in (132, 264, 528)]
-        for v in variants:
-            plan = plan_matmul(M, K, N, a.stride(), b.stride(),
-                               torch.float32, **v)
-            check_close("matmul", matmul_cuda(a, b, plan), want, "float32")
-            ms, _ = time_ms(lambda: matmul_cuda(a, b, plan))
-            row = {"shape": label, **v, "grid": plan.grid, "mt": plan.mt,
-                   "splits": plan.splits, "ms": ms}
-            rows.append(row)
-            print(f"[sweep] {label:18s} {v} mt {plan.mt} grid {plan.grid} "
-                  f"splits {plan.splits}: {ms:.4f} ms")
+                del a, b, want
     return rows
 
 
@@ -655,7 +629,6 @@ def main(argv=None) -> int:
     card, ptxas = phase_build()
     rows = phase_kernels(cfg)
     crossover = phase_crossover()
-    sweep = phase_sweep()
     serve_stats, params = phase_serve(cfg)
     serve_stats["profile"] = phase_profile(cfg, params)
 
@@ -681,7 +654,6 @@ def main(argv=None) -> int:
         args.out.write_text(json.dumps({"card": card, "kernels": kernels,
                                         "cases": rows,
                                         "crossover": crossover,
-                                        "sweep": sweep,
                                         "ptxas": ptxas, "serve": serve_stats},
                                        indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -322,10 +322,13 @@ cudaError_t launch_skinny(const T* A, const T* B, T* C, float* part,
                           int* counters, int64_t M, int64_t N, int64_t K,
                           int64_t sam, int64_t sak, int64_t sbk, int64_t sbn,
                           int kchunk, int splits, int blocks,
+                          int64_t plan_tiles, int64_t plan_bn,
                           cudaStream_t s) {
   constexpr int BN = COLB ? kSkWarps * cols_per_warp(MT) : 32 * Vec<T>::N;
   const int64_t mchunks = (M + MT - 1) / MT, ntiles = (N + BN - 1) / BN;
   const int64_t tiles = mchunks * ntiles;
+  // the wrapper sized the counters from its own tile count: it must be ours
+  if (plan_tiles != tiles || plan_bn != BN) return cudaErrorInvalidValue;
   if ((int64_t)MT * kchunk > kAStage || kchunk % 32 || tiles >= (1LL << 31) ||
       blocks < 1 || blocks > tiles || splits < 1 || splits >= 65536 ||
       (int64_t)kchunk * splits < K)
@@ -349,12 +352,13 @@ template <typename T, bool COLB, bool VEC>
 cudaError_t skinny_mt(int mt, const T* A, const T* B, T* C, float* part,
                       int* counters, int64_t M, int64_t N, int64_t K,
                       int64_t sam, int64_t sak, int64_t sbk, int64_t sbn,
-                      int kchunk, int splits, int blocks, cudaStream_t s) {
+                      int kchunk, int splits, int blocks, int64_t tiles,
+                      int64_t bn, cudaStream_t s) {
 #define SKINNY(MT_)                                                        \
   case MT_:                                                                \
     return launch_skinny<T, MT_, COLB, VEC>(A, B, C, part, counters, M, N, \
                                             K, sam, sak, sbk, sbn, kchunk, \
-                                            splits, blocks, s);
+                                            splits, blocks, tiles, bn, s);
   switch (mt) {
     SKINNY(1) SKINNY(2) SKINNY(4) SKINNY(8)
     case 16:  // f32 only: bf16 vectors hold 8 values, so 16 rows would need
@@ -362,7 +366,7 @@ cudaError_t skinny_mt(int mt, const T* A, const T* B, T* C, float* part,
       if constexpr (sizeof(T) == 4)
         return launch_skinny<T, 16, COLB, VEC>(A, B, C, part, counters, M, N,
                                                K, sam, sak, sbk, sbn, kchunk,
-                                               splits, blocks, s);
+                                               splits, blocks, tiles, bn, s);
       else
         return cudaErrorInvalidValue;
     default:
@@ -663,8 +667,9 @@ template <typename T>
 cudaError_t dispatch(const void* a, const void* b, void* c, int64_t M,
                      int64_t N, int64_t K, int64_t sam, int64_t sak,
                      int64_t sbk, int64_t sbn, int path, int mt, int colb,
-                     int vec, int kchunk, int splits, int blocks, void* part,
-                     void* counters, cudaStream_t s) {
+                     int vec, int kchunk, int splits, int blocks,
+                     int64_t tiles, int64_t bn, void* part, void* counters,
+                     cudaStream_t s) {
   const T* A = static_cast<const T*>(a);
   const T* B = static_cast<const T*>(b);
   T* C = static_cast<T*>(c);
@@ -675,10 +680,10 @@ cudaError_t dispatch(const void* a, const void* b, void* c, int64_t M,
     if (splits > 1 && (P == nullptr || cnt == nullptr))
       return cudaErrorInvalidValue;
     switch (variant) {
-      case 0: return skinny_mt<T, false, false>(mt, A, B, C, P, cnt, M, N, K, sam, sak, sbk, sbn, kchunk, splits, blocks, s);
-      case 1: return skinny_mt<T, false, true>(mt, A, B, C, P, cnt, M, N, K, sam, sak, sbk, sbn, kchunk, splits, blocks, s);
-      case 2: return skinny_mt<T, true, false>(mt, A, B, C, P, cnt, M, N, K, sam, sak, sbk, sbn, kchunk, splits, blocks, s);
-      default: return skinny_mt<T, true, true>(mt, A, B, C, P, cnt, M, N, K, sam, sak, sbk, sbn, kchunk, splits, blocks, s);
+      case 0: return skinny_mt<T, false, false>(mt, A, B, C, P, cnt, M, N, K, sam, sak, sbk, sbn, kchunk, splits, blocks, tiles, bn, s);
+      case 1: return skinny_mt<T, false, true>(mt, A, B, C, P, cnt, M, N, K, sam, sak, sbk, sbn, kchunk, splits, blocks, tiles, bn, s);
+      case 2: return skinny_mt<T, true, false>(mt, A, B, C, P, cnt, M, N, K, sam, sak, sbk, sbn, kchunk, splits, blocks, tiles, bn, s);
+      default: return skinny_mt<T, true, true>(mt, A, B, C, P, cnt, M, N, K, sam, sak, sbk, sbn, kchunk, splits, blocks, tiles, bn, s);
     }
   }
   if (path == 1) {
@@ -706,6 +711,9 @@ cudaError_t dispatch(const void* a, const void* b, void* c, int64_t M,
 //            `splits` of them, `blocks` blocks per split walking the output
 //            tiles; part holds splits*M*N floats and counters one zeroed
 //            int per output tile when splits > 1.
+//   p[15..16] skinny: the output tiles the wrapper counted (the size of
+//            counters) and their width; a launch whose kernel derives
+//            other values fails with cudaErrorInvalidValue.
 // Returns cudaGetLastError().
 extern "C" int matmul(const void* a, const void* b, void* c, void* part,
                       void* counters, const int64_t* p, void* stream) {
@@ -714,16 +722,17 @@ extern "C" int matmul(const void* a, const void* b, void* c, void* part,
   const int path = (int)p[8], colb = (int)p[9], vec = (int)p[10],
             mt = (int)p[11], kchunk = (int)p[12], splits = (int)p[13],
             blocks = (int)p[14];
+  const int64_t tiles = p[15], bn = p[16];
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch ((int)p[7]) {
     case kFloat32:
       return dispatch<float>(a, b, c, M, N, K, sam, sak, sbk, sbn, path, mt,
-                             colb, vec, kchunk, splits, blocks, part,
-                             counters, s);
+                             colb, vec, kchunk, splits, blocks, tiles, bn,
+                             part, counters, s);
     case kBFloat16:
       return dispatch<__nv_bfloat16>(a, b, c, M, N, K, sam, sak, sbk, sbn,
                                      path, mt, colb, vec, kchunk, splits,
-                                     blocks, part, counters, s);
+                                     blocks, tiles, bn, part, counters, s);
     default:
       return cudaErrorInvalidValue;
   }

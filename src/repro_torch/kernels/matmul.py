@@ -9,7 +9,7 @@ The kernel has two paths, and ``plan_matmul`` (plain Python, so the CPU
 tests reach it) picks one and its launch geometry from the shapes, strides,
 dtype and pointer alignment:
 
-* **skinny** (M <= ``SKINNY_MAX_M``): streams B once, MT rows of A per
+* **skinny** (M <= ``skinny_max_m``): streams B once, MT rows of A per
   block, with K split over ``splits`` blocks where N alone gives too few
   blocks for the card; the splits' partials are summed in a fixed order
   inside the same launch (scratch from ``_scratch``);
@@ -31,18 +31,20 @@ import torch
 
 from . import _build
 
-# the skinny path takes M <= this, per dtype: it beat the tiled path on the
-# H100 up to here (chip_smoke.py's crossover rows)
-SKINNY_MAX_M = {torch.float32: 128, torch.bfloat16: 32}
-NUM_SMS = 132                # H100 SXM
-TARGET_BLOCKS = 2 * NUM_SMS  # skinny: split K until the grid has this many
-# skinny: blocks per K split at most; each walks tiles / blocks output
-# tiles.  Two per SM measured fastest for the tied head (chip_smoke.py's
-# sweep rows).
-MAX_BLOCKS = 2 * NUM_SMS
+# the skinny path takes M <= this, per dtype and per whether B fits twice
+# in the L2 (then the blocks of other rows of A re-read it there, not from
+# HBM): where it stops beating the tiled path on the H100 (chip_smoke.py's
+# crossover rows; PERF.md).  bf16 beyond the L2 takes the tiled path at
+# every M: it was faster there even at M = 1.
+SKINNY_MAX_M = {(torch.float32, True): 512, (torch.float32, False): 32,
+                (torch.bfloat16, True): 32, (torch.bfloat16, False): 0}
+H100_SMS = 132               # the SM count plans use where none is given
+# skinny: split K until the grid has 2 blocks per SM, and give each K split
+# at most 2 blocks per SM, each walking tiles / blocks output tiles (the
+# tied head's fastest cap; PERF.md)
+BLOCKS_PER_SM = 2
 # skinny: at most this many rows of A per block where B fits twice in the
-# 50 MB L2 (the other row chunks then re-read B from L2, not HBM): at
-# M = 31, 4 rows beat 8 and 16 on every projection in the same sweep
+# 50 MB L2: at M = 31, 4 rows beat 8 and 16 on every projection (PERF.md)
 L2_REREAD_MT, L2_BYTES = 4, 50_000_000
 A_STAGE_FLOATS = 8192        # csrc kAStage: A floats a skinny block stages
 SK_WARPS = 8
@@ -52,7 +54,7 @@ ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 # rows would need 128 accumulators a thread)
 SKINNY_MT = {torch.float32: (1, 2, 4, 8, 16), torch.bfloat16: (1, 2, 4, 8)}
 
-# a, b, c, part, counters, the plan's parameters (int64[15]), stream
+# a, b, c, part, counters, the plan's parameters (int64[17]), stream
 _ARGTYPES = [ctypes.c_void_p] * 7
 
 
@@ -66,6 +68,7 @@ class MatmulPlan:
     kchunk: int = 0            # skinny: depth of one K split
     splits: int = 1            # skinny: K splits (blockIdx.y)
     tiles: int = 0             # skinny: output tiles (split-K counters)
+    bn: int = 0                # skinny: output columns per tile
     # the C entry's parameter block (csrc/matmul.cu), built once per plan
     params: ctypes.Array = field(default=None, compare=False, repr=False)
 
@@ -78,21 +81,30 @@ def _vec_ok(aligned: bool, unit: int, other: int, width: int) -> bool:
     return aligned and unit == 1 and other % width == 0
 
 
+def b_in_l2(K: int, N: int, dtype) -> bool:
+    """B fits twice in the L2."""
+    return 2 * K * N * ELEM_BYTES[dtype] <= L2_BYTES
+
+
+def skinny_max_m(K: int, N: int, dtype) -> int:
+    """The largest M that takes the skinny path for a (K, N) B."""
+    return SKINNY_MAX_M[dtype, b_in_l2(K, N, dtype)]
+
+
 @functools.lru_cache(maxsize=4096)
 def plan_matmul(M: int, K: int, N: int, strides_a, strides_b, dtype,
                 a_aligned: bool = True, b_aligned: bool = True,
-                skinny_max: int | None = None, mt: int | None = None,
-                target_blocks: int = TARGET_BLOCKS,
-                max_blocks: int | None = MAX_BLOCKS) -> MatmulPlan:
+                skinny_max: int | None = None,
+                sms: int = H100_SMS) -> MatmulPlan:
     """The path and launch geometry for (M, K) x (K, N) with A and B at
     16-byte aligned addresses or not, with strides ``(sam, sak)`` and
-    ``(sbk, sbn)``.  Cached: the serving path asks for a few shapes.  The
-    keywords after ``b_aligned`` override the defaults (chip_smoke.py
-    measures other geometries with them)."""
+    ``(sbk, sbn)``, on a card with ``sms`` SMs.  ``skinny_max`` moves the
+    threshold (chip_smoke.py forces each path with it).  Cached: the
+    serving path asks for a few shapes."""
     (sam, sak), (sbk, sbn) = strides_a, strides_b
     V = 16 // ELEM_BYTES[dtype]
     if skinny_max is None:
-        skinny_max = SKINNY_MAX_M[dtype]
+        skinny_max = skinny_max_m(K, N, dtype)
     colb = sbk == 1 and (sbn != 1 or N == 1)
     b_vec = (_vec_ok(b_aligned, sbk, sbn, V) if colb
              else _vec_ok(b_aligned, sbn, sbk, V))
@@ -104,25 +116,22 @@ def plan_matmul(M: int, K: int, N: int, strides_a, strides_b, dtype,
         return _with_params(MatmulPlan("tiled", colb, vec, grid), M, N, K,
                             strides_a, strides_b, dtype)
     mts = SKINNY_MT[dtype]
-    if mt is None:
-        mt = next((m for m in mts if m >= M), mts[-1])
-        if 2 * K * N * ELEM_BYTES[dtype] <= L2_BYTES:
-            mt = min(mt, L2_REREAD_MT)
-    elif mt not in mts:
-        raise ValueError(f"matmul: {mt} rows per block not in {mts}")
-    mchunks = _cdiv(M, mt)
+    mt = next((m for m in mts if m >= M), mts[-1])
+    if b_in_l2(K, N, dtype):
+        mt = min(mt, L2_REREAD_MT)
     bn = SK_WARPS * (8 if mt <= 4 else 4) if colb else 32 * V  # csrc BN
-    tiles = mchunks * _cdiv(N, bn)
+    tiles = _cdiv(M, mt) * _cdiv(N, bn)
     kmin = 32 * V if colb else 64
     kcap = A_STAGE_FLOATS // mt // 32 * 32
-    splits = max(1, min(_cdiv(target_blocks, tiles), _cdiv(K, kmin)))
+    max_blocks = BLOCKS_PER_SM * sms
+    splits = max(1, min(_cdiv(max_blocks, tiles), _cdiv(K, kmin)))
     kchunk = min(kcap, max(32, _cdiv(_cdiv(K, splits), 32) * 32))
     splits = max(1, _cdiv(K, kchunk))
     if tiles >= 2 ** 31 or splits >= 2 ** 16:
         raise ValueError(f"matmul: ({M}, {K}, {N}) exceeds the grid")
-    blocks = tiles if max_blocks is None else min(tiles, max_blocks)
-    return _with_params(MatmulPlan("skinny", colb, b_vec, (blocks, splits),
-                                   mt, kchunk, splits, tiles),
+    return _with_params(MatmulPlan("skinny", colb, b_vec,
+                                   (min(tiles, max_blocks), splits),
+                                   mt, kchunk, splits, tiles, bn),
                         M, N, K, strides_a, strides_b, dtype)
 
 
@@ -130,8 +139,23 @@ def _with_params(plan: MatmulPlan, M, N, K, strides_a, strides_b, dtype):
     """The plan with the C entry's parameter block (csrc/matmul.cu)."""
     vals = (M, N, K, *strides_a, *strides_b, _build.DTYPE_CODES[dtype],
             int(plan.path == "tiled"), int(plan.colb), int(plan.vec),
-            plan.mt, plan.kchunk, plan.splits, plan.grid[0])
+            plan.mt, plan.kchunk, plan.splits, plan.grid[0], plan.tiles,
+            plan.bn)
     return replace(plan, params=(ctypes.c_int64 * len(vals))(*vals))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def plan_for(a: torch.Tensor, b: torch.Tensor,
+             skinny_max: int | None = None) -> MatmulPlan:
+    """``plan_matmul`` for these CUDA tensors on their card."""
+    return plan_matmul(a.shape[0], a.shape[1], b.shape[1], a.stride(),
+                       b.stride(), a.dtype, a.data_ptr() % 16 == 0,
+                       b.data_ptr() % 16 == 0, skinny_max,
+                       _sms(a.device.index))
 
 
 # split-K scratch per (device, stream): f32 partials and per-tile counters,
@@ -163,8 +187,7 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor,
     code = _build.check_inputs("matmul", a, b)
     (M, K), N = a.shape, b.shape[1]
     if plan is None:
-        plan = plan_matmul(M, K, N, a.stride(), b.stride(), a.dtype,
-                           a.data_ptr() % 16 == 0, b.data_ptr() % 16 == 0)
+        plan = plan_for(a, b)
     elif tuple(plan.params[:8]) != (M, N, K, *a.stride(), *b.stride(), code):
         raise ValueError("matmul: the plan was made for other tensors")
     c = torch.empty((M, N), dtype=a.dtype, device=a.device)

@@ -10,6 +10,9 @@ path's full-width ones (smollm-135m: d_model 576, 9/3 heads of 64, the
 49152-wide tied head read through a transposed view), at its tolerances.
 """
 
+import ctypes
+from dataclasses import replace
+
 import numpy as np
 import pytest
 import torch
@@ -116,9 +119,9 @@ MAIN_KN = [(576, 576), (576, 192), (576, 1536), (1536, 576),   # projections
            (576, 1), (577, 576)]                               # N = 1, K = 577
 
 
-def _m_value(m, dtype):
-    from repro_torch.kernels.matmul import SKINNY_MAX_M
-    t = SKINNY_MAX_M[dtype]
+def _m_value(m, dtype, K, N):
+    from repro_torch.kernels.matmul import skinny_max_m
+    t = skinny_max_m(K, N, dtype)
     return {"threshold": t, "threshold+1": t + 1}.get(m, m)
 
 
@@ -132,7 +135,8 @@ def test_matmul_paths_match_plain(cuda_device, m, kn, dtype):
     and each output bit-identical on a repeat call (split-K sums its
     partials in a fixed order)."""
     tdt = DTYPES[dtype]
-    M, (K, N) = _m_value(m, tdt), kn
+    K, N = kn
+    M = _m_value(m, tdt, K, N)
     rng = np.random.default_rng(11)
     a = _dev(rng.standard_normal((M, K), np.float32), tdt, cuda_device)
     b = _dev(rng.standard_normal((K, N), np.float32) / np.sqrt(K), tdt,
@@ -180,21 +184,42 @@ def test_matmul_large_and_tiny_shapes(cuda_device, mkn, dtype):
 def test_matmul_misaligned_takes_scalar_loads(cuda_device, M, dtype):
     """Views one element off 16-byte alignment take the scalar-load
     variant of either path and still agree with the plain version."""
-    from repro_torch.kernels.matmul import plan_matmul
+    from repro_torch.kernels.matmul import plan_for
     K, N = 96, 72
     tdt = DTYPES[dtype]
     rng = np.random.default_rng(13)
     abuf = _dev(rng.standard_normal(M * K + 1, np.float32), tdt, cuda_device)
     bbuf = _dev(rng.standard_normal(K * N + 1, np.float32), tdt, cuda_device)
     a, b = abuf[1:].view(M, K), bbuf[1:].view(K, N)
-    plan = plan_matmul(M, K, N, a.stride(), b.stride(), tdt,
-                       a.data_ptr() % 16 == 0, b.data_ptr() % 16 == 0)
-    assert not plan.vec
+    assert not plan_for(a, b).vec
     got = ops.matmul(a, b)
     torch.cuda.synchronize()
     tol = 3e-2 if dtype == "bfloat16" else 1e-5
     np.testing.assert_allclose(_np(got), _np(ref.matmul_ref(a, b)),
                                rtol=tol, atol=tol * 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("colb", [False, True])
+def test_matmul_rejects_a_plan_with_other_tiles(cuda_device, colb):
+    """The split-K counters are sized from the plan's tile count: a plan
+    whose tile count or width differs from the kernel's own fails the
+    launch instead of writing past the counters."""
+    from repro_torch.kernels.matmul import matmul_cuda, plan_for
+    K, N = 1536, 576
+    a = torch.randn(4, K, device=cuda_device)
+    b = torch.randn(N, K, device=cuda_device).T if colb else \
+        torch.randn(K, N, device=cuda_device)
+    plan = plan_for(a, b)
+    assert plan.path == "skinny" and plan.splits > 1
+    for i in (15, 16):
+        bad = replace(plan, params=(ctypes.c_int64 * len(plan.params))(
+            *plan.params))
+        bad.params[i] += 1
+        with pytest.raises(RuntimeError, match="launch failed"):
+            matmul_cuda(a, b, bad)
+    torch.testing.assert_close(matmul_cuda(a, b, plan), ref.matmul_ref(a, b),
+                               rtol=1e-5, atol=8e-5)
 
 
 # -- the redesigned flash attention ------------------------------------------

@@ -22,7 +22,8 @@ from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash_attention import (ROWS, flash_attention_cuda,
                                                  plan_flash)
 from repro_torch.kernels.matmul import (A_STAGE_FLOATS, SKINNY_MAX_M,
-                                        matmul_cuda, plan_matmul)
+                                        matmul_cuda, plan_matmul,
+                                        skinny_max_m)
 from repro_torch.kernels.rmsnorm import rmsnorm_cuda
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
@@ -203,18 +204,22 @@ def test_matmul_plan_gives_every_shape_a_path(shape, dtype):
     sa, sb = _strides(M, K, N, colb)
     plan = plan_matmul(M, K, N, sa, sb, dtype)
     _check_plan(plan, M, K, N)
-    assert plan.path == ("skinny" if M <= SKINNY_MAX_M[dtype] else "tiled")
+    assert plan.path == ("skinny" if M <= skinny_max_m(K, N, dtype)
+                         else "tiled")
 
 
 @pytest.mark.parametrize("dtype", TDTYPES)
 @pytest.mark.parametrize("kn", [(576, 576), (1536, 576), (576, 49152)])
 def test_matmul_plan_threshold_sides(dtype, kn):
     K, N = kn
-    t = SKINNY_MAX_M[dtype]
-    assert t >= 32       # covers decode (4), prefill (<= 31) and the head (1)
-    below = plan_matmul(t, K, N, (K, 1), (N, 1), dtype)
-    above = plan_matmul(t + 1, K, N, (K, 1), (N, 1), dtype)
-    assert (below.path, above.path) == ("skinny", "tiled")
+    t = skinny_max_m(K, N, dtype)
+    assert t == SKINNY_MAX_M[dtype, 2 * K * N * (dtype.itemsize) <= 50e6]
+    if dtype == torch.float32 or N != 49152:
+        # the serving path's decode (4), prefill (<= 31) and head (1)
+        assert t >= 32
+    assert plan_matmul(t + 1, K, N, (K, 1), (N, 1), dtype).path == "tiled"
+    if t:
+        assert plan_matmul(t, K, N, (K, 1), (N, 1), dtype).path == "skinny"
     assert plan_matmul(4, K, N, (K, 1), (N, 1), dtype,
                        skinny_max=0).path == "tiled"
 
@@ -231,14 +236,36 @@ def test_matmul_plan_split_k_covers_k(K, N):
                 assert plan.splits == -(-K // plan.kchunk)
 
 
-def test_matmul_plan_overrides():
-    """The sweep's overrides: rows per block, split target, block cap."""
-    plan = plan_matmul(31, 576, 576, (576, 1), (576, 1), torch.float32, mt=8,
-                       target_blocks=132, max_blocks=7)
-    assert plan.mt == 8 and plan.tiles == 4 * 5 and plan.grid[0] == 7
-    _check_plan(plan, 31, 576, 576)
-    with pytest.raises(ValueError, match="rows per block"):
-        plan_matmul(4, 8, 8, (8, 1), (8, 1), torch.bfloat16, mt=16)
+@pytest.mark.parametrize("shape", PLAN_SHAPES)
+@pytest.mark.parametrize("dtype", TDTYPES)
+def test_matmul_plan_params_carry_the_kernels_tiles(shape, dtype):
+    """The C parameter block holds the tile count that sizes the split-K
+    counters and the tile width the kernel derives (csrc BN), so a launch
+    can refuse a plan that disagrees with the kernel."""
+    M, K, N, colb = shape
+    sa, sb = _strides(M, K, N, colb)
+    plan = plan_matmul(M, K, N, sa, sb, dtype)
+    assert len(plan.params) == 17
+    assert tuple(plan.params[15:]) == (plan.tiles, plan.bn)
+    if plan.path == "skinny":
+        V = 16 // torch.empty((), dtype=dtype).element_size()
+        bn = (8 * (8 if plan.mt <= 4 else 4)) if plan.colb else 32 * V
+        assert plan.bn == bn
+        assert plan.tiles == -(-M // plan.mt) * -(-N // bn)
+
+
+@pytest.mark.parametrize("sms", [1, 66, 132, 144])
+def test_matmul_plan_follows_the_sm_count(sms):
+    """The skinny grid is sized from the card's SM count: at most two
+    blocks per SM for each K split, and K split until the grid has about
+    that many."""
+    for M, K, N, colb in PLAN_SHAPES:
+        if M > skinny_max_m(K, N, torch.float32):
+            continue
+        sa, sb = _strides(M, K, N, colb)
+        plan = plan_matmul(M, K, N, sa, sb, torch.float32, sms=sms)
+        _check_plan(plan, M, K, N)
+        assert plan.grid[0] == min(plan.tiles, 2 * sms)
 
 
 def test_matmul_plan_small_n_splits_k_to_fill_the_card():
