@@ -14,14 +14,17 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               kernel, the plain version and one PyTorch library call at
               the main-path shapes (f32) and at long-prompt shapes (f32 and
               bf16; CUDA events), and compute each shape's bound (bytes over
-              HBM bandwidth vs flops over peak).  Each matmul row names the
-              path the wrapper chose.  The decode matmuls are also timed
-              with cold weights: a rotation of distinct copies of B
-              totalling twice the L2, as the decode step reads 30 layers'
-              weights from HBM ("cold" beside the warm-in-L2 time); then
-              both matmul paths forced at M around the skinny threshold
-              ("crossover", the reading that sets SKINNY_MAX_M), each held
-              against the plain version;
+              HBM bandwidth vs flops over peak), beside an empty kernel's
+              time ("floor").  Each matmul row names the path the wrapper
+              chose, each RMSNorm row its variant.  The decode matmuls are
+              also timed with cold weights: a rotation of distinct copies
+              of B totalling twice the L2, as the decode step reads 30
+              layers' weights from HBM ("cold" beside the warm-in-L2
+              time); then every RMSNorm variant forced at each shape it
+              takes ("variants", f32 and bf16 x with either dtype of w)
+              and both matmul paths forced at M around the skinny
+              threshold ("crossover", the reading that sets
+              SKINNY_MAX_M), each held against the plain version;
 3. serve   -- run `repro_torch.launch.serve` at full width (smollm-135m,
               30 layers, d_model 576, seeded random f32 weights; batch 4,
               s_max 256, 8 requests of 4-31 tokens, 16 new tokens each)
@@ -95,6 +98,9 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.matmul import (L2_BYTES, matmul_cuda,  # noqa: E402
                                         plan_for, skinny_max_m)
+from repro_torch.kernels.rmsnorm import (VARIANTS, plan_for as  # noqa: E402
+                                         rms_plan_for, rmsnorm_cuda,
+                                         variants_for)
 
 
 # -- helpers -----------------------------------------------------------------
@@ -242,7 +248,8 @@ def cost(name, args):
         return (M * K + K * N + M * N) * es, 2 * M * N * K
     if name == "rmsnorm":
         x, w = args
-        return 2 * x.numel() * es + w.numel() * es, 4 * x.numel()
+        return 2 * x.numel() * es + w.numel() * w.element_size(), \
+            4 * x.numel()
     q, k, v = args
     B, Sq, H, d = q.shape
     return ((2 * q.numel() + k.numel() + v.numel()) * es,
@@ -268,7 +275,8 @@ def library_call(name, args):
 
 
 # the CUDA entry functions of each kernel, as the profiler names them
-KERNEL_NAMES = {"rmsnorm": ("rmsnorm_kernel",),
+KERNEL_NAMES = {"rmsnorm": ("rmsnorm_warp_kernel", "rmsnorm_block_kernel",
+                            "rmsnorm_scalar_kernel"),
                 "matmul": ("skinny_rowb_kernel", "skinny_colb_kernel",
                            "tiled_f32_kernel", "tiled_bf16_kernel"),
                 "flash_attention": ("flash_fwd_f32_kernel",
@@ -306,6 +314,7 @@ AWKWARD = [("matmul", (8, 8, 8, False)), ("matmul", (64, 96, 32, False)),
            ("matmul", (512, 128, 256, False)),
            ("rmsnorm", (4 * 64, 128)), ("rmsnorm", (3 * 37, 96)),
            ("rmsnorm", (1, 8)), ("rmsnorm", (2 * 200, 256)),
+           ("rmsnorm", (37, 577)), ("rmsnorm", (3, 7168)),
            ("flash_attention", (2, 128, 128, 4, 2, 64)),
            ("flash_attention", (1, 64, 256, 8, 8, 32)),
            ("flash_attention", (2, 256, 256, 6, 2, 64)),
@@ -324,10 +333,13 @@ def make_args(name, spec, dtype, gen):
 
 
 # timing rows beyond the serving path's shapes (not served): the tiled
-# matmul path at a 2048-token prompt and flash attention at long prompts,
-# timed in f32 and bf16
+# matmul path and RMSNorm at a 2048-token prompt, RMSNorm at 8192 rows of
+# the 4096-wide configurations (granite-3-8b, phi-3.5-moe), where its HBM
+# bound binds, and flash attention at long prompts, timed in f32 and bf16
 LONG_CASES = [("matmul", "long prompt 2048x576x1536", (2048, 576, 1536, False)),
               ("matmul", "long prompt 2048x1536x576", (2048, 1536, 576, False)),
+              ("rmsnorm", "long prompt 2048x576", (2048, 576)),
+              ("rmsnorm", "wide 8192x4096", (8192, 4096)),
               ("flash_attention", "prefill B1 S256 H9/3 d64",
                (1, 256, 256, 9, 3, 64)),
               ("flash_attention", "prefill B1 S2048 H9/3 d64",
@@ -356,6 +368,14 @@ def rotating(fn, a, bs):
 def matmul_path(a, b):
     plan = plan_for(a, b)
     return plan.path + (f" x{plan.splits} splits" if plan.splits > 1 else "")
+
+
+def rms_path(plan):
+    if plan.variant == "scalar":
+        return f"scalar {plan.threads} threads"
+    per = (f"{plan.rows_per_block} rows a block" if plan.variant == "warp"
+           else f"{plan.threads} threads a row")
+    return f"{plan.variant} nv{plan.nv} {per}"
 
 
 def time_row(row, name, args, dn):
@@ -393,6 +413,10 @@ def phase_kernels(cfg):
     gen = torch.Generator().manual_seed(0)
     rows, worst = [], {}
     f32 = torch.float32
+    floor = dict(zip(("ms", "host_ms"), time_ms(lambda: torch.cuda._sleep(0))))
+    print(f"[kernels] floor: an empty kernel (torch.cuda._sleep(0), a "
+          f"yardstick only) device ms {floor['ms']:.4f} host ms "
+          f"{floor['host_ms']:.4f}")
     cases = ([(n, lab, sp, (f32,)) for n, lab, sp in main_path_cases(cfg)]
              + [(n, lab, sp, (f32, torch.bfloat16))
                 for n, lab, sp in LONG_CASES]
@@ -410,12 +434,54 @@ def phase_kernels(cfg):
                    "max_abs_err": err}
             if name == "matmul":
                 row["path"] = matmul_path(*args)
+            if name == "rmsnorm":
+                row["path"] = rms_path(rms_plan_for(*args))
             if dtype in timed:
                 time_row(row, name, args, dn)
             rows.append(row)
             del args, got, want
     print(f"[kernels] {len(rows)} cases agree; max abs err per kernel: "
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    return rows, floor
+
+
+# every RMSNorm variant forced at each shape it can take, with w in either
+# dtype beside x in either, held against the plain version; the shapes in
+# RMS_TIMED also timed per variant with w in x's dtype (the reading behind
+# plan_rmsnorm's choice)
+RMS_VARIANT_SHAPES = [(4, 576), (31, 576), (2048, 576), (8192, 4096),
+                      (37, 577), (3, 7168), (1, 8), (5, 96)]
+RMS_TIMED = {(4, 576), (31, 576), (2048, 576), (8192, 4096)}
+
+
+def phase_rms_variants():
+    gen = torch.Generator().manual_seed(4)
+    rows, dts = [], (torch.float32, torch.bfloat16)
+    for (n, D), xd, wd in itertools.product(RMS_VARIANT_SHAPES, dts, dts):
+        dn, wn = (str(t).split(".")[1] for t in (xd, wd))
+        x, w = randn((n, D), xd, 1.0, gen), randn((D,), wd, 0.1, gen)
+        want = ref.rmsnorm_ref(x, w)
+        timed = (n, D) in RMS_TIMED and xd == wd
+        row = {"shape": f"{n}x{D}", "dtype": dn, "w_dtype": wn,
+               "plan": rms_path(rms_plan_for(x, w))}
+        for variant in variants_for(D, D, xd):
+            plan = rms_plan_for(x, w, variant)
+            got = rmsnorm_cuda(x, w, plan=plan)
+            row[variant] = {"path": rms_path(plan),
+                            "max_abs_err": check_close("rmsnorm", got, want,
+                                                       dn)}
+            if timed:
+                row[variant]["ms"], row[variant]["host_ms"] = time_ms(
+                    lambda: rmsnorm_cuda(x, w, plan=plan))
+        rows.append(row)
+        if timed:
+            print(f"[variants] rmsnorm {dn} {row['shape']} (plan: "
+                  f"{row['plan']}) device ms: " + ", ".join(
+                      f"{v} {row[v]['ms']:.4f} [{row[v]['path']}]"
+                      for v in VARIANTS if v in row))
+        del x, w, want
+    print(f"[variants] {len(rows)} RMSNorm cases agree in every variant "
+          f"that takes them")
     return rows
 
 
@@ -627,7 +693,8 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
     card, ptxas = phase_build()
-    rows = phase_kernels(cfg)
+    rows, floor = phase_kernels(cfg)
+    variants = phase_rms_variants()
     crossover = phase_crossover()
     serve_stats, params = phase_serve(cfg)
     serve_stats["profile"] = phase_profile(cfg, params)
@@ -652,7 +719,8 @@ def main(argv=None) -> int:
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": card, "kernels": kernels,
-                                        "cases": rows,
+                                        "cases": rows, "floor": floor,
+                                        "rms_variants": variants,
                                         "crossover": crossover,
                                         "ptxas": ptxas, "serve": serve_stats},
                                        indent=1))

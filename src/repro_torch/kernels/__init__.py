@@ -12,7 +12,10 @@ Kernels present (ports of the Pallas kernels in ``repro.kernels``):
                   f32 accumulation, strided A and B
   flash_attention causal GQA flash attention, one block per KV-head group
                   (online softmax over cp.async double-buffered KV tiles)
-  rmsnorm         fused RMS-norm, scale (1 + w)
+  rmsnorm         fused RMS-norm, scale (1 + w): the row in registers (x
+                  read once, 16-byte loads), a warp per row up to D 1024
+                  f32 / 2048 bf16, 128-512 threads a row beyond, element
+                  loads where unaligned; w read in its own dtype
 
 ``_build.py`` compiles ``csrc/*.cu`` with nvcc at first use.
 """

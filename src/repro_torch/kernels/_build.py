@@ -15,6 +15,7 @@ plus the stream of ``torch.cuda.current_stream()``, and returns
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -34,6 +35,7 @@ launches: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0, "matmul": 0}
 
 # element types the kernels take (csrc/common.cuh enum DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+H100_SMS = 132               # the SM count plans use where none is given
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _entries: Dict[str, Callable[..., int]] = {}
@@ -119,6 +121,12 @@ def check_inputs(name: str, *tensors: torch.Tensor) -> int:
                             f"{list(DTYPE_CODES)}, got "
                             f"{[x.dtype for x in tensors]}")
     return code
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """SMs of CUDA device ``index`` (the plans size their grids by it)."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream() -> int:

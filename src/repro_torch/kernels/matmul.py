@@ -38,7 +38,6 @@ from . import _build
 # every M: it was faster there even at M = 1.
 SKINNY_MAX_M = {(torch.float32, True): 512, (torch.float32, False): 32,
                 (torch.bfloat16, True): 32, (torch.bfloat16, False): 0}
-H100_SMS = 132               # the SM count plans use where none is given
 # skinny: split K until the grid has 2 blocks per SM, and give each K split
 # at most 2 blocks per SM, each walking tiles / blocks output tiles (the
 # tied head's fastest cap; PERF.md)
@@ -95,7 +94,7 @@ def skinny_max_m(K: int, N: int, dtype) -> int:
 def plan_matmul(M: int, K: int, N: int, strides_a, strides_b, dtype,
                 a_aligned: bool = True, b_aligned: bool = True,
                 skinny_max: int | None = None,
-                sms: int = H100_SMS) -> MatmulPlan:
+                sms: int = _build.H100_SMS) -> MatmulPlan:
     """The path and launch geometry for (M, K) x (K, N) with A and B at
     16-byte aligned addresses or not, with strides ``(sam, sak)`` and
     ``(sbk, sbn)``, on a card with ``sms`` SMs.  ``skinny_max`` moves the
@@ -144,18 +143,13 @@ def _with_params(plan: MatmulPlan, M, N, K, strides_a, strides_b, dtype):
     return replace(plan, params=(ctypes.c_int64 * len(vals))(*vals))
 
 
-@functools.lru_cache(maxsize=None)
-def _sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def plan_for(a: torch.Tensor, b: torch.Tensor,
              skinny_max: int | None = None) -> MatmulPlan:
     """``plan_matmul`` for these CUDA tensors on their card."""
     return plan_matmul(a.shape[0], a.shape[1], b.shape[1], a.stride(),
                        b.stride(), a.dtype, a.data_ptr() % 16 == 0,
                        b.data_ptr() % 16 == 0, skinny_max,
-                       _sms(a.device.index))
+                       _build.sm_count(a.device.index))
 
 
 # split-K scratch per (device, stream): f32 partials and per-tile counters,

@@ -274,3 +274,96 @@ def test_flash_attention_misaligned_and_strided(cuda_device, dtype):
         got = ops.flash_attention(q, kk, vv, causal=True)
         torch.cuda.synchronize()
         np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+# -- the redesigned RMSNorm: every variant, strides, alignment, w dtypes ------
+
+RMS_D = [8, 96, 576, 577, 4096, 7168]
+
+
+def _rms_cases():
+    """(D, x dtype, variant) for each variant that can take D (plain
+    Python: the plan's own rule, no card needed to list them)."""
+    from repro_torch.kernels.rmsnorm import variants_for
+    return [(D, dn, v) for D in RMS_D for dn, t in DTYPES.items()
+            for v in variants_for(D, D, t)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _rms_cases())
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+def test_rmsnorm_variants_match_plain(cuda_device, case, w_dtype):
+    """Each variant forced at each D it takes, with w in either dtype
+    (read in its own, never converted), one launch a call, the same bits
+    on a repeat call."""
+    from repro_torch.kernels.rmsnorm import plan_for, rmsnorm_cuda
+    D, dtype, variant = case
+    tdt = DTYPES[dtype]
+    rng = np.random.default_rng(16)
+    x = _dev(rng.standard_normal((5, D), np.float32), tdt, cuda_device)
+    w = _dev((rng.standard_normal(D) * 0.1).astype(np.float32),
+             DTYPES[w_dtype], cuda_device)
+    plan = plan_for(x, w, variant)
+    assert plan.variant == variant
+    n0 = ops.launches["rmsnorm"]
+    got, again = rmsnorm_cuda(x, w, plan=plan), rmsnorm_cuda(x, w, plan=plan)
+    torch.cuda.synchronize()
+    assert ops.launches["rmsnorm"] == n0 + 2
+    assert torch.equal(got, again)
+    tol = 3e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(_np(got), _np(ref.rmsnorm_ref(x, w)),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [96, 576, 4096])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_strided_and_misaligned(cuda_device, D, dtype):
+    """x as a strided view (big[:, :D], read in place by the vector
+    variants) and as a view one element off 16-byte alignment (the scalar
+    variant), and a strided w."""
+    from repro_torch.kernels.rmsnorm import plan_for
+    tdt = DTYPES[dtype]
+    rng = np.random.default_rng(17)
+    big = _dev(rng.standard_normal((7, 2 * D + 16), np.float32), tdt,
+               cuda_device)
+    buf = _dev(rng.standard_normal(7 * D + 1, np.float32), tdt, cuda_device)
+    w2 = _dev((rng.standard_normal(2 * D) * 0.1).astype(np.float32), tdt,
+              cuda_device)
+    strided, off = big[:, :D], buf[1:].view(7, D)
+    assert plan_for(strided, w2[::2].contiguous()).variant != "scalar"
+    assert plan_for(off, w2[::2].contiguous()).variant == "scalar"
+    tol = 3e-2 if dtype == "bfloat16" else 2e-5
+    for x in (strided, off):
+        for w in (w2[::2], w2[1::2].contiguous()):
+            got = ops.rmsnorm(x, w)
+            torch.cuda.synchronize()
+            np.testing.assert_allclose(_np(got), _np(ref.rmsnorm_ref(x, w)),
+                                       rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_rejects_a_plan_with_other_geometry(cuda_device):
+    """A plan whose vectors a thread, threads or rows a block differ from
+    what the kernel derives, or whose vector variant meets a misaligned
+    pointer, fails the launch instead of reading past the row."""
+    from repro_torch.kernels.rmsnorm import plan_for, rmsnorm_cuda
+    x = torch.randn(4, 576, device=cuda_device)
+    w = torch.randn(576, device=cuda_device) * 0.1
+    plan = plan_for(x, w)
+    assert plan.variant == "warp"
+    for i, step in ((7, 1), (8, 32), (9, 1), (6, 1)):
+        bad = replace(plan, params=(ctypes.c_int64 * len(plan.params))(
+            *plan.params))
+        bad.params[i] += step
+        with pytest.raises(RuntimeError, match="launch failed"):
+            rmsnorm_cuda(x, w, plan=bad)
+    buf = torch.randn(4 * 576 + 4, device=cuda_device)
+    off = buf[1:4 * 576 + 1].view(4, 576)       # 4 bytes off 16
+    assert plan_for(off, w).variant == "scalar"
+    with pytest.raises(RuntimeError, match="launch failed"):
+        rmsnorm_cuda(off, w, plan=plan)
+    with pytest.raises(ValueError, match="other tensors"):
+        rmsnorm_cuda(x[:3], w, plan=plan)
+    torch.testing.assert_close(rmsnorm_cuda(x, w, plan=plan),
+                               ref.rmsnorm_ref(x, w), rtol=2e-5, atol=2e-5)

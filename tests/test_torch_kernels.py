@@ -24,7 +24,8 @@ from repro_torch.kernels.flash_attention import (ROWS, flash_attention_cuda,
 from repro_torch.kernels.matmul import (A_STAGE_FLOATS, SKINNY_MAX_M,
                                         matmul_cuda, plan_matmul,
                                         skinny_max_m)
-from repro_torch.kernels.rmsnorm import rmsnorm_cuda
+from repro_torch.kernels.rmsnorm import (MAX_NV, VARIANTS, plan_rmsnorm,
+                                         rmsnorm_cuda, variants_for)
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -329,3 +330,132 @@ def test_flash_plan_misaligned_picks_scalar_loads():
     q = torch.zeros(1, 31, 9, 64)
     assert not plan_flash(q, k, k).vec
     assert plan_flash(q, k.clone(), k.clone()).vec
+
+
+# -- the RMSNorm plan: variant and geometry (plain Python, no card) ----------
+
+RMS_D = [1, 8, 96, 576, 577, 3072, 4096, 7168, 8192, 12000]
+RMS_ROWS = [1, 4, 31, 2048, 8192]
+
+
+def _rms_vec(dtype) -> int:
+    return 16 // dtype.itemsize
+
+
+def _check_rms_plan(plan, rows, D, dtype):
+    """Each element of a row is taken by exactly one thread: the vector
+    variants give each row the fewest vectors a thread that reach D, the
+    scalar variant strides over D with no warp left idle."""
+    assert plan.variant in VARIANTS
+    assert 32 <= plan.threads <= 512 and plan.threads % 32 == 0
+    assert 1 <= plan.grid <= -(-rows // plan.rows_per_block)
+    if plan.variant == "scalar":
+        assert plan.nv == 0 and plan.rows_per_block == 1
+        assert plan.threads <= -(-D // 32) * 32
+        return
+    V = _rms_vec(dtype)
+    per_row = 32 if plan.variant == "warp" else plan.threads
+    assert D % V == 0 and 1 <= plan.nv <= MAX_NV
+    assert per_row * (plan.nv - 1) * V < D <= per_row * plan.nv * V
+    if plan.variant == "warp":
+        assert plan.threads == 32 * plan.rows_per_block
+        assert plan.rows_per_block <= min(8, rows)
+    else:
+        assert plan.rows_per_block == 1
+
+
+@pytest.mark.parametrize("D", RMS_D)
+@pytest.mark.parametrize("dtype", TDTYPES)
+def test_rmsnorm_plan_covers_each_element_once(D, dtype):
+    V = _rms_vec(dtype)
+    for rows in RMS_ROWS:
+        for w_dtype in TDTYPES:
+            plan = plan_rmsnorm(rows, D, D, dtype, w_dtype)
+            _check_rms_plan(plan, rows, D, dtype)
+            # the warp variant while a row fits a warp's registers, the
+            # block variant beyond, element loads where D is no multiple
+            # of the 16-byte vector
+            want = ("scalar" if D % V else
+                    "warp" if D // V <= 32 * MAX_NV else "block")
+            assert plan.variant == want
+        for variant in variants_for(D, D, dtype):
+            _check_rms_plan(plan_rmsnorm(rows, D, D, dtype, dtype,
+                                         variant=variant), rows, D, dtype)
+
+
+def test_rmsnorm_plan_serving_shapes_take_a_warp_per_row():
+    """smollm-135m's norms (decode 4 rows, prefill up to 31, of 576): a
+    warp per row, 5 f32 vectors a lane (144 over 32 lanes, the last on
+    half the lanes masked), 3 in bf16, decode in one block."""
+    for dtype, nv in ((torch.float32, 5), (torch.bfloat16, 3)):
+        dec = plan_rmsnorm(4, 576, 576, dtype, dtype)
+        assert (dec.variant, dec.nv, dec.rows_per_block, dec.grid) == \
+            ("warp", nv, 4, 1)
+        pre = plan_rmsnorm(31, 576, 576, dtype, dtype)
+        assert (pre.variant, pre.nv, pre.grid) == ("warp", nv, 8)
+
+
+@pytest.mark.parametrize("dtype", TDTYPES)
+def test_rmsnorm_plan_misaligned_picks_scalar_loads(dtype):
+    V = _rms_vec(dtype)
+    D = 64 * V
+    assert plan_rmsnorm(4, D, D, dtype, dtype).variant == "warp"
+    # a pointer off 16 bytes, a row stride no multiple of the vector, and
+    # a D no multiple of it
+    assert plan_rmsnorm(4, D, D, dtype, dtype, False).variant == "scalar"
+    assert plan_rmsnorm(4, D, D + 1, dtype, dtype).variant == "scalar"
+    assert plan_rmsnorm(4, D + 1, D + 1, dtype, dtype).variant == "scalar"
+    # a strided view whose stride keeps the vectors aligned stays vector
+    assert plan_rmsnorm(4, D, 3 * D, dtype, dtype).variant == "warp"
+    assert variants_for(D, D + 1, dtype) == ("scalar",)
+    with pytest.raises(ValueError, match="warp variant cannot"):
+        plan_rmsnorm(4, D, D, dtype, dtype, False, variant="warp")
+    with pytest.raises(ValueError, match="block variant cannot"):
+        plan_rmsnorm(4, 4096 * V + V, 4096 * V + V, dtype, dtype,
+                     variant="block")
+
+
+@pytest.mark.parametrize("sms", [1, 66, 132, 144])
+def test_rmsnorm_plan_follows_the_sm_count(sms):
+    """The grid walks rows with a grid-stride loop and stops at what the
+    SMs hold (2048 threads each), so it fills the card at many rows."""
+    for D in (576, 577, 4096):
+        for rows in (4, 31, 2048, 8192, 1 << 20):
+            plan = plan_rmsnorm(rows, D, D, torch.float32, torch.float32,
+                                sms=sms)
+            _check_rms_plan(plan, rows, D, torch.float32)
+            assert plan.grid == min(-(-rows // plan.rows_per_block),
+                                    sms * (2048 // plan.threads))
+    # 8-warp blocks once the rows fill every SM that way, else 4 warps
+    many = plan_rmsnorm(8 * sms, 576, 576, torch.float32, torch.float32,
+                        sms=sms)
+    few = plan_rmsnorm(4 * sms, 576, 576, torch.float32, torch.float32,
+                       sms=sms)
+    assert (many.rows_per_block, few.rows_per_block) == (8, 4)
+
+
+@pytest.mark.parametrize("shape", [(4, 576, 576), (31, 576, 1152),
+                                   (37, 577, 577), (3, 7168, 7168),
+                                   (8192, 4096, 4096), (1, 8, 8)])
+@pytest.mark.parametrize("dtypes", [(torch.float32, torch.float32),
+                                    (torch.float32, torch.bfloat16),
+                                    (torch.bfloat16, torch.float32),
+                                    (torch.bfloat16, torch.bfloat16)])
+def test_rmsnorm_plan_params_carry_the_plan(shape, dtypes):
+    """The C parameter block holds the shape, both dtypes (w is read in
+    its own) and the plan's geometry, which the launch checks against what
+    the kernel derives."""
+    rows, D, stride = shape
+    dtype, w_dtype = dtypes
+    plan = plan_rmsnorm(rows, D, stride, dtype, w_dtype)
+    assert tuple(plan.params) == (
+        rows, D, stride, D, _build.DTYPE_CODES[dtype],
+        _build.DTYPE_CODES[w_dtype], VARIANTS[plan.variant], plan.nv,
+        plan.threads, plan.rows_per_block, plan.grid)
+
+
+def test_rmsnorm_wrapper_refuses_other_weight_dtypes():
+    with pytest.raises(ValueError, match="CUDA"):
+        rmsnorm_cuda(torch.ones(4, 8), torch.zeros(8, dtype=torch.float16))
+    with pytest.raises(ValueError, match="w shape"):
+        rmsnorm_cuda(torch.ones(4, 8), torch.zeros(9))
