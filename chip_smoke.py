@@ -33,7 +33,26 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               prefill and teacher-forced decode logits against the port's
               CPU run on the same weights;
 4. profile -- torch.profiler over 5 decode steps of a full batch: device
-              busy time and idle share per step, device work by kernel.
+              busy time and idle share per step, device work by kernel;
+5. grads   -- each backward kernel (flash attention's dQ/dK/dV, RMSNorm's
+              dx/dw, and the matmul backward's products on transposed
+              views) against its plain version at the tuning loop's
+              full-width shapes (batch 2 and 1 of 32 tokens, KV chunk 16
+              and 64), at a 2048-token prompt and at 8192x4096, with two
+              runs compared bit for bit, timed beside its bound, plain
+              version and library call (SDPA's and F.rms_norm's backward
+              by autograd, torch.matmul); then one full-width attn_fb,
+              dense_fb and embed_loss_fb gradient of the study on the
+              card against the port's CPU run;
+6. tune    -- LMStudy("smollm-135m", reduced=False, batch=2, seq=32) on
+              the card: a 12-point conditional session (tolerance 0.25,
+              trials 3) and a race, with the launch counters zeroed just
+              before and read just after (every kernel, forward and
+              backward, must launch; no plain version may run); per
+              configuration the predicted and full-reference step, the
+              executed and skipped kernels; chosen vs true best; launches
+              per thunk by kernel; one step of the chosen configuration
+              broken down by thunk and under the profiler.
 
 It prints the kernels as one JSON line, then the last line
 ``{"ok": true, "device": {...}}``.  ``--out PATH`` also writes the full
@@ -78,7 +97,15 @@ KERNELS = {
                 "src/repro/kernels/rmsnorm.py:19"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention.py:29"),
+    # the backward kernels: gradients of the TPU kernels above, which have
+    # none of their own (JAX differentiates the plain layers)
+    "flash_attention_bwd": (
+        "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        "src/repro/kernels/flash_attention.py:29"),
+    "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+                    "src/repro/kernels/rmsnorm.py:19"),
 }
+FORWARD = ("matmul", "rmsnorm", "flash_attention")   # the serving path's
 
 
 def fail(msg: str) -> None:
@@ -140,8 +167,10 @@ def bound(nbytes: float, flops: float, dtype: str):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_close(name, got, want, dtype) -> float:
-    rtol, atol = TOL[name][dtype]
+def check_close(name, got, want, dtype, tol=None) -> float:
+    """Max abs error of ``got`` against ``want``; raises beyond ``tol``
+    (rtol, atol), by default the kernel's ``TOL``."""
+    rtol, atol = tol or TOL[name][dtype]
     g, w = got.float(), want.float()
     err = (g - w).abs()
     bad = bool((err > atol + rtol * w.abs()).any())
@@ -280,7 +309,11 @@ KERNEL_NAMES = {"rmsnorm": ("rmsnorm_warp_kernel", "rmsnorm_block_kernel",
                 "matmul": ("skinny_rowb_kernel", "skinny_colb_kernel",
                            "tiled_f32_kernel", "tiled_bf16_kernel"),
                 "flash_attention": ("flash_fwd_f32_kernel",
-                                    "flash_fwd_bf16_kernel")}
+                                    "flash_fwd_bf16_kernel"),
+                "flash_attention_bwd": ("flash_bwd_kernel",),
+                "rmsnorm_bwd": ("rmsnorm_bwd_dx_kernel",
+                                "rmsnorm_bwd_dw_partial_kernel",
+                                "rmsnorm_bwd_dw_final_kernel")}
 KERNEL_FN = {"matmul": ops.matmul, "rmsnorm": ops.rmsnorm,
              "flash_attention": ops.flash_attention}
 PLAIN_FN = {"matmul": ref.matmul_ref, "rmsnorm": ref.rmsnorm_ref,
@@ -486,14 +519,17 @@ def phase_rms_variants():
 
 
 # (K, N, B = embed.T, the M to time) per dtype: the MLP projections, whose
-# weights sit in L2, and the tied head, whose 49152-wide weight does not
+# weights sit in L2, the tied head, whose 49152-wide weight does not, and
+# the tied head's backward dX = dC embed (row-major B beyond the L2)
 CROSSOVER = {
     torch.float32: [(576, 1536, False, (16, 64, 256, 512, 768, 1024)),
                     (1536, 576, False, (16, 64, 256, 512, 768, 1024)),
-                    (576, 49152, True, (4, 16, 32, 64))],
+                    (576, 49152, True, (4, 16, 32, 64)),
+                    (49152, 576, False, (16, 32, 64, 128, 256, 512))],
     torch.bfloat16: [(576, 1536, False, (16, 32, 64, 128)),
                      (1536, 576, False, (16, 32, 64, 128)),
-                     (576, 49152, True, (1, 4, 8, 16, 32))]}
+                     (576, 49152, True, (1, 4, 8, 16, 32)),
+                     (49152, 576, False, (16, 32, 64, 128))]}
 
 
 def phase_crossover():
@@ -519,7 +555,7 @@ def phase_crossover():
                       f"{' (B=embed.T)' if colb else ''}: skinny "
                       f"{row['skinny_ms']:.4f} tiled {row['tiled_ms']:.4f} "
                       f"library {row['library_ms']:.4f} ms (threshold "
-                      f"M <= {skinny_max_m(K, N, dtype)})")
+                      f"M <= {skinny_max_m(K, N, dtype, colb)})")
                 rows.append(row)
                 del a, b, want
     return rows
@@ -545,6 +581,10 @@ def phase_serve(cfg):
     wall = time.perf_counter() - t0
     launches = dict(ops.launches)
     print(f"[serve] launches on the main path: {launches}")
+    if any(launches[k] for k in launches if k not in FORWARD):
+        raise AssertionError(f"serving launched a backward kernel: "
+                             f"{launches}")
+    launches = {k: launches[k] for k in FORWARD}
     missing = [k for k, n in launches.items() if n <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -681,6 +721,382 @@ def phase_profile(cfg, params, steps: int = 5):
     return out
 
 
+# -- phase 5: gradients (the backward kernels) --------------------------------
+
+STUDY = dict(batch=2, seq=32)       # the tuning loop's traffic
+GRAD_TOL = (1e-4, 1e-4)             # f32 backward kernel vs plain version
+# a CUDA study's gradients against the port's CPU run: f32 sums in another
+# order; atol scales with the tensor's largest magnitude (tests/
+# test_torch_cuda.py test_study_thunk_grads_match_cpu_port)
+STUDY_TOL = (1e-4, 1e-5)
+
+
+def flash_bwd_cost(q, k):
+    """(bytes, flops) of the attention backward on these inputs: q, k, v,
+    o, dO and lse read once, dq, dk, dv written once; per visible (query,
+    key) pair of each query head 5 products of 2 d flops (S recomputed, dP,
+    dV, dK, dQ)."""
+    B, Sq, H, d = q.shape
+    es = elem(q.dtype)
+    nbytes = (4 * q.numel() + 4 * k.numel()) * es + B * H * Sq * 4
+    return nbytes, 10 * d * B * H * causal_pairs(Sq, k.shape[1])
+
+
+def rms_bwd_cost(x, w):
+    """x and dy read, dx written, w read and dw written once; ~8 flops an
+    element."""
+    es = elem(x.dtype)
+    return 3 * x.numel() * es + 2 * w.numel() * w.element_size(), \
+        8 * x.numel()
+
+
+def grad_case_flash(label, dims, bk, gen, timed=True):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda, kv_tile)
+    B, Sq, Skv, H, KVH, d = dims
+    q, k, v = flash_case(B, Sq, Skv, H, KVH, d, torch.float32, gen)
+    do = randn((B, Sq, H, d), torch.float32, 1.0, gen)
+    o, lse = flash_attention_cuda(q, k, v, bk=bk, with_lse=True)
+    run = lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do,  # noqa: E731
+                                           bk=bk)
+    got, again = run(), run()
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    row = {"kernel": "flash_attention_bwd", "shape": label, "dtype": "float32",
+           "tile": kv_tile(bk, Skv, q.dtype), "bk": bk,
+           "bit_identical": all(torch.equal(a, b) for a, b in zip(got, again)),
+           "max_abs_err": max(check_close(label, g, w, "float32", GRAD_TOL)
+                              for g, w in zip(got, want))}
+    if not row["bit_identical"]:
+        raise AssertionError(f"flash_attention_bwd {label}: two runs differ")
+    if timed:
+        nbytes, flops = flash_bwd_cost(q, k)
+        plain = lambda: ref.flash_attention_bwd_ref(  # noqa: E731
+            q, k, v, o, lse, do)
+        # library: SDPA's backward alone (autograd of one forward), on the
+        # heads expanded to H as SDPA takes them
+        G = H // KVH
+        lq = q.transpose(1, 2).contiguous().requires_grad_()
+        lk = k.repeat_interleave(G, 2).transpose(1, 2).contiguous() \
+            .requires_grad_()
+        lv = v.repeat_interleave(G, 2).transpose(1, 2).contiguous() \
+            .requires_grad_()
+        assert Sq == Skv          # is_causal aligns top-left
+        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+        ldo = do.transpose(1, 2).contiguous()
+        lib = lambda: torch.autograd.grad(  # noqa: E731
+            lo, (lq, lk, lv), ldo, retain_graph=True)
+        grad_timing(row, run, plain, lib, nbytes, flops)
+    return row
+
+
+def grad_case_rms(label, rows_, D, dtype, gen, timed=True):
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
+    x, w = rms_case(rows_, D, dtype, gen)
+    dy = randn((rows_, D), dtype, 1.0, gen)
+    run = lambda: rmsnorm_bwd_cuda(x, w, dy)  # noqa: E731
+    got, again = run(), run()
+    want = ref.rmsnorm_bwd_ref(x, w, dy)
+    torch.cuda.synchronize()
+    dn = str(dtype).split(".")[1]
+    tol = GRAD_TOL if dtype == torch.float32 else TOL["rmsnorm"]["bfloat16"]
+    # dw sums its column over the rows: its tolerance scales with it
+    scale = max(1.0, float(want[1].float().abs().max()))
+    row = {"kernel": "rmsnorm_bwd", "shape": label, "dtype": dn,
+           "bit_identical": all(torch.equal(a, b) for a, b in zip(got, again)),
+           "max_abs_err": max(check_close(label, got[0], want[0], dn, tol),
+                              check_close(label, got[1], want[1], dn,
+                                          (tol[0], tol[1] * scale)))}
+    if not row["bit_identical"]:
+        raise AssertionError(f"rmsnorm_bwd {label}: two runs differ")
+    if timed:
+        nbytes, flops = rms_bwd_cost(x, w)
+        lx = x.clone().requires_grad_()
+        lw = (1.0 + w).detach().requires_grad_()
+        ly = F.rms_norm(lx, (D,), weight=lw, eps=1e-5)
+        lib = lambda: torch.autograd.grad(  # noqa: E731
+            ly, (lx, lw), dy, retain_graph=True)
+        grad_timing(row, run, lambda: ref.rmsnorm_bwd_ref(x, w, dy), lib,
+                    nbytes, flops)
+    return row
+
+
+def grad_case_matmul(label, a, b, timed=True):
+    """One product of a matmul backward (dA = dC B^T or dB = A^T dC) on
+    transposed views, through the forward kernel."""
+    got = ops.matmul(a, b)
+    again = ops.matmul(a, b)
+    want = ref.matmul_ref(a, b)
+    torch.cuda.synchronize()
+    row = {"kernel": "matmul", "shape": label, "dtype": "float32",
+           "path": matmul_path(a, b),
+           "bit_identical": torch.equal(got, again),
+           "max_abs_err": check_close("matmul", got, want, "float32")}
+    if not row["bit_identical"]:
+        raise AssertionError(f"matmul {label}: two runs differ")
+    if timed:
+        nbytes, flops = cost("matmul", (a, b))
+        grad_timing(row, lambda: ops.matmul(a, b),
+                    lambda: ref.matmul_ref(a, b),
+                    lambda: torch.matmul(a, b), nbytes, flops)
+    return row
+
+
+def grad_timing(row, run, plain, lib, nbytes, flops):
+    row["bound_ms"], row["bound_by"] = bound(nbytes, flops, row["dtype"])
+    row["ms"], row["host_ms"] = time_ms(run)
+    row["plain_ms"], _ = time_ms(plain, reps=5)
+    row["library_ms"], row["library_host_ms"] = time_ms(lib)
+    tile = f" [tile {row['tile']}]" if "tile" in row else \
+        (f" [{row['path']}]" if "path" in row else "")
+    print(f"[grads] {row['kernel']:19s} {row['shape']:44s} {row['dtype']} "
+          f"err {row['max_abs_err']:.2e}{tile} same bits on repeat: "
+          f"{row['bit_identical']}  device ms: kernel {row['ms']:.4f} plain "
+          f"{row['plain_ms']:.4f} library {row['library_ms']:.4f} bound "
+          f"{row['bound_ms']:.5f} ({row['bound_by']});  host ms: kernel "
+          f"{row['host_ms']:.4f} library {row['library_host_ms']:.4f}")
+
+
+def _random_norms(study, seed):
+    gen = torch.Generator().manual_seed(seed)
+    for sub in study.params.values():
+        for nm, t in sub.items():
+            if nm.endswith("ln"):
+                t.copy_((torch.randn(t.shape, generator=gen) * 0.1)
+                        .to(t.device))
+
+
+def phase_grads(cfg):
+    """Each backward kernel against its plain version at the tuning loop's
+    full-width shapes (and long-prompt and wide rows), timed beside its
+    bound, plain version and one PyTorch library call; then one
+    full-width attn_fb, dense_fb and embed_loss_fb gradient of the study
+    on the card against the port's CPU run."""
+    from repro_torch.tune.lm_study import LMStudy, StepKnobs, _flatten
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(5)
+    H, KVH, d, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    F_, V = cfg.d_ff, cfg.vocab
+    S = STUDY["seq"]
+    rows = []
+    for mb in (2, 1):
+        for bk in (16, 64):
+            rows.append(grad_case_flash(
+                f"study mb{mb} S{S} H{H}/{KVH} d{d} kv{bk}",
+                (mb, S, S, H, KVH, d), bk, gen))
+    rows.append(grad_case_flash(f"long prompt B1 S2048 H{H}/{KVH} d{d} kv64",
+                                (1, 2048, 2048, H, KVH, d), 64, gen))
+    for n in (2 * S, S):
+        rows.append(grad_case_rms(f"study {n}x{D}", n, D, torch.float32, gen))
+    for dt in (torch.float32, torch.bfloat16):
+        rows.append(grad_case_rms("wide 8192x4096", 8192, 4096, dt, gen))
+    # the matmul backward's products at mb 2 (M = 64 tokens): dA = dC W^T
+    # and dW = A^T dC per projection, and the tied head's dX = dC embed and
+    # d(embed^T) = X^T dC
+    M = 2 * S
+    for what, K, N in (("q/o", D, H * d), ("k/v", D, KVH * d),
+                       ("gate/up", D, F_), ("down", F_, D)):
+        w = randn((K, N), torch.float32, 1.0 / math.sqrt(K), gen)
+        x = randn((M, K), torch.float32, 1.0, gen)
+        dc = randn((M, N), torch.float32, 1.0, gen)
+        rows.append(grad_case_matmul(f"{what} dA = dC W^T {M}x{N}x{K}",
+                                     dc, w.T))
+        rows.append(grad_case_matmul(f"{what} dW = A^T dC {K}x{M}x{N}",
+                                     x.T, dc))
+    emb = randn((V, D), torch.float32, 0.02, gen)
+    x = randn((M, D), torch.float32, 1.0, gen)
+    dc = randn((M, V), torch.float32, 1e-3, gen)
+    rows.append(grad_case_matmul(f"tied head dX = dC embed {M}x{V}x{D}",
+                                 dc, emb))
+    rows.append(grad_case_matmul(f"tied head dE^T = X^T dC {D}x{M}x{V}",
+                                 x.T, dc))
+    del emb, x, dc
+    print(f"[grads] {len(rows)} backward cases agree with their plain "
+          f"versions, each with the same bits on a second run")
+
+    # one full-width gradient of each kind, card against the port's CPU run
+    studies = [LMStudy("smollm-135m", reduced=False, device=dv, **STUDY)
+               for dv in ("cuda", "cpu")]
+    for st in studies:
+        _random_norms(st, 11)
+    checks = []
+    rtol, atol = STUDY_TOL
+    for kind, mk in (
+            ("attn_fb kv16 remat full", lambda st: st._mixer_kernel(
+                "attn", 0, StepKnobs("k", remat="full", kv_chunk=16), 2)),
+            ("dense_fb", lambda st: st._ffn_kernel(
+                "dense", 0, StepKnobs("k"), 2)),
+            ("embed_loss_fb", lambda st: st._embed_loss_kernel(
+                StepKnobs("k"), 2))):
+        out = []
+        for st in studies:
+            fn, args = mk(st)[1]()
+            out.append(fn(*args))
+        worst = 0.0
+        for (path, g), (_, c) in zip(_flatten(out[0]), _flatten(out[1])):
+            g = g.cpu()
+            err = (g - c).abs()
+            lim = atol * max(1.0, float(c.abs().max())) + rtol * c.abs()
+            if not torch.isfinite(g).all() or bool((err > lim).any()):
+                raise AssertionError(f"[grads] {kind} {'/'.join(path)}: card "
+                                     f"vs CPU max abs err "
+                                     f"{float(err.max()):.3e}")
+            worst = max(worst, float((err / c.abs().max().clamp(min=1))
+                                     .max()))
+        checks.append({"kernel": kind, "max_err_over_scale": worst})
+        print(f"[grads] full-width {kind}: card vs the port's CPU run, every "
+              f"gradient within rtol {rtol} and atol {atol} x its largest "
+              f"magnitude (max err / scale {worst:.2e})")
+    del studies
+    torch.cuda.empty_cache()
+    return rows, checks
+
+
+# -- phase 6: the wall-clock tuning loop --------------------------------------
+
+def _zero_counts():
+    for k in ops.launches:
+        ops.launches[k] = 0
+        ops.plain_calls[k] = 0
+
+
+def phase_tune(cfg):
+    """LMStudy at full width on the card: a 12-point conditional session
+    (trials 3) and a race, with the launch counters zeroed just before and
+    read just after; then launches per thunk and one step's breakdown."""
+    from repro_torch.tune.lm_study import LMStudy, lm_config_space
+    study = LMStudy("smollm-135m", reduced=False, **STUDY)
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = study.session(policy="conditional", tolerance=0.25,
+                        trials=3).run()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(ops.launches), dict(ops.plain_calls)
+    print(f"[tune] session launches: {launches}; plain calls: {plain}")
+    if any(plain.values()):
+        raise AssertionError(f"the tuning loop called plain versions: {plain}")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the tuning loop: "
+                             f"{missing}")
+    if len(res.records) != 12:
+        raise AssertionError(f"{len(res.records)} configurations, not 12")
+    for r in res.records:
+        if not (math.isfinite(r.predicted) and r.predicted > 0
+                and r.full_time > 0):
+            raise AssertionError(f"[tune] {r.name}: bad times {r.to_json()}")
+        print(f"[tune] {r.name:26s} predicted {1e3 * r.predicted:8.3f} ms "
+              f"full reference {1e3 * r.full_time:8.3f} ms (rel err "
+              f"{r.rel_error:+.3f}) executed {r.executed:5d} skipped "
+              f"{r.skipped:5d} cost {1e3 * r.selective_cost:8.2f} ms")
+    print(f"[tune] chosen {res.chosen.name} true best {res.true_best.name} "
+          f"(optimum quality {res.optimum_quality:.4f}); speedup "
+          f"{res.speedup:.3f}x (full {res.full_tuning_time:.3f} s, selective "
+          f"{res.selective_tuning_time:.3f} s); session wall {wall:.1f} s")
+    session = {"records": [r.to_json() for r in res.records],
+               "chosen": res.chosen.name, "true_best": res.true_best.name,
+               "speedup": res.speedup,
+               "optimum_quality": res.optimum_quality,
+               "full_tuning_time_s": res.full_tuning_time,
+               "selective_tuning_time_s": res.selective_tuning_time,
+               "wall_s": wall, "launches": launches}
+
+    _zero_counts()
+    t0 = time.perf_counter()
+    race = study.race(policy="conditional", tolerance=0.25)
+    race_wall = time.perf_counter() - t0
+    race_launches, plain = dict(ops.launches), dict(ops.plain_calls)
+    if any(plain.values()):
+        raise AssertionError(f"the race called plain versions: {plain}")
+    best = race.extra.get("best")
+    print(f"[tune] race: winner {best} cost {race.selective_tuning_time:.3f} "
+          f"s over {len(race.records)} configurations (wall "
+          f"{race_wall:.1f} s); launches {race_launches}")
+
+    # launches per thunk, by kernel name, and one step of the chosen config
+    knobs = {k.name: k for k in lm_config_space(study.cfg)}
+    per_thunk = {}
+    for name in (res.chosen.name, "ga1-full-kv64-sort-ssm16"):
+        for sig, thunk, freq in study.kernels_of(knobs[name]):
+            if str(sig) in per_thunk:
+                continue
+            _zero_counts()
+            thunk()
+            per_thunk[str(sig)] = {k: v for k, v in ops.launches.items()
+                                   if v}
+    for sig, counts in per_thunk.items():
+        print(f"[tune] launches per thunk {sig}: {counts}")
+    step = tune_step_breakdown(study, knobs[res.chosen.name])
+    return {"session": session, "race": {
+        "winner": best, "cost_s": race.selective_tuning_time,
+        "configs": len(race.records), "wall_s": race_wall,
+        "launches": race_launches}, "launches_per_thunk": per_thunk,
+        "step": step}
+
+
+def tune_step_breakdown(study, knobs, reps: int = 3):
+    """Where one full step of a configuration goes: each thunk's host-clock
+    ms (each ends in a synchronize) times its occurrences, least of
+    ``reps``; and torch.profiler over one step (device busy, idle share,
+    device time by kernel)."""
+    from torch.profiler import ProfilerActivity, profile
+    seq = study.kernels_of(knobs)
+    by_sig = {}
+    for sig, thunk, freq in seq:
+        if str(sig) in by_sig:
+            continue
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            thunk()
+            ts.append(time.perf_counter() - t0)
+        by_sig[str(sig)] = {"ms": 1e3 * min(ts), "freq": freq}
+    step_ms = sum(v["ms"] for sig, thunk, freq in seq
+                  for v in [by_sig[str(sig)]])
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for sig, thunk, freq in seq:
+            thunk()
+        prof_ms = 1e3 * (time.perf_counter() - t0)
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {"config": knobs.name, "thunks": by_sig,
+           "step_ms_sum_of_thunks": step_ms, "step_ms_profiled": prof_ms}
+    for sig, v in by_sig.items():
+        print(f"[tune] step {knobs.name}: {sig} {v['ms']:.3f} ms x "
+              f"{v['freq']} = {v['ms'] * v['freq']:.2f} ms")
+    if not dev:
+        print("[tune] the profiler recorded no device events; device busy "
+              "share not measured")
+        return out
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    span = (max(e.time_range.end for e in dev)
+            - min(e.time_range.start for e in dev)) / 1e3
+    by_name = {}
+    for e in dev:
+        c, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, t + e.time_range.elapsed_us() / 1e3)
+    ours = {k: sum(t for n, (c, t) in by_name.items()
+                   if any(f in n for f in frags))
+            for k, frags in KERNEL_NAMES.items()}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
+    out.update({"device_busy_ms": busy, "device_span_ms": span,
+                "device_idle_share": 1.0 - busy / span,
+                "device_events": len(dev), "port_kernel_ms": ours,
+                "top_device_ms": [{"name": n[:80], "count": c, "ms": t}
+                                  for n, (c, t) in top]})
+    print(f"[tune] step {knobs.name}: sum of thunks {step_ms:.2f} ms; "
+          f"profiled step {prof_ms:.2f} ms, device busy {busy:.3f} ms of a "
+          f"{span:.3f} ms span (idle share {1.0 - busy / span:.3f}), "
+          f"{len(dev)} device events; ours (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in ours.items()))
+    for row in out["top_device_ms"]:
+        print(f"[tune]   {row['ms']:8.3f} ms  x{row['count']:5d}  "
+              f"{row['name']}")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -698,31 +1114,48 @@ def main(argv=None) -> int:
     crossover = phase_crossover()
     serve_stats, params = phase_serve(cfg)
     serve_stats["profile"] = phase_profile(cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    grad_rows, grad_checks = phase_grads(cfg)
+    tune = phase_tune(cfg)
 
-    # one entry per kernel: its largest main-path shape at f32
+    # one entry per kernel: its largest main-path shape at f32 (forward:
+    # the serving path's, launches counted there; backward: the tuning
+    # loop's, launches counted over its session)
     rep = {"matmul": "decode tied head", "rmsnorm": "decode",
-           "flash_attention": "prefill"}
+           "flash_attention": "prefill",
+           "flash_attention_bwd": "study mb2 S32 H9/3 d64 kv16",
+           "rmsnorm_bwd": "study 64x576"}
     kernels = []
     for name, (source, replaces) in KERNELS.items():
-        row = next(r for r in rows if r["kernel"] == name
+        table = rows if name in FORWARD else grad_rows
+        row = next(r for r in table if r["kernel"] == name
                    and r["dtype"] == "float32"
                    and r["shape"].startswith(rep[name]))
+        launches = (serve_stats["launches"][name] if name in FORWARD
+                    else tune["session"]["launches"][name])
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": serve_stats["launches"][name],
-            "max_abs_err": max(r["max_abs_err"] for r in rows
+            "replaces": replaces, "launches": launches,
+            "launches_tune": tune["session"]["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in table
                                if r["kernel"] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"], "shape": row["shape"],
-            "status": "ported, agrees with its plain version"})
+            "status": "ported, agrees with its plain version"
+            if name in FORWARD else
+            "backward of the TPU kernel, agrees with its plain version"})
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": card, "kernels": kernels,
                                         "cases": rows, "floor": floor,
                                         "rms_variants": variants,
                                         "crossover": crossover,
-                                        "ptxas": ptxas, "serve": serve_stats},
+                                        "ptxas": ptxas, "serve": serve_stats,
+                                        "grads": grad_rows,
+                                        "grad_checks": grad_checks,
+                                        "tune": tune},
                                        indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,9 +17,20 @@ Kernels present (ports of the Pallas kernels in ``repro.kernels``):
                   f32 / 2048 bf16, 128-512 threads a row beyond, element
                   loads where unaligned; w read in its own dtype
 
+Backward kernels (no Pallas counterpart: JAX differentiates the plain
+layers), behind ``torch.autograd.Function``s in ``ops.py``:
+  flash_attention_bwd  FlashAttention-2 recompute from the forward's
+                  log-sum-exp, one launch: dK/dV a block per KV tile
+                  carrying the group's query heads, dQ a block per 64
+                  query rows (f32)
+  rmsnorm_bwd     dx a warp per row; dw per-chunk partials summed in a
+                  fixed order by a second kernel
+  (matmul's backward is the forward kernel on transposed views)
+
 ``_build.py`` compiles ``csrc/*.cu`` with nvcc at first use.
 """
 
-from .ops import flash_attention, launches, matmul, rmsnorm
+from .ops import flash_attention, launches, matmul, plain_calls, rmsnorm
 
-__all__ = ["matmul", "flash_attention", "rmsnorm", "launches"]
+__all__ = ["matmul", "flash_attention", "rmsnorm", "launches",
+           "plain_calls"]

@@ -31,7 +31,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # Launches per kernel: each wrapper adds one where it launches its kernel.
-launches: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0, "matmul": 0}
+launches: Dict[str, int] = {"rmsnorm": 0, "flash_attention": 0, "matmul": 0,
+                            "rmsnorm_bwd": 0, "flash_attention_bwd": 0}
 
 # element types the kernels take (csrc/common.cuh enum DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

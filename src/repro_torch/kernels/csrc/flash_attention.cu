@@ -6,7 +6,10 @@
 // causal mask aligned to the end of the KV sequence (query i sits at
 // absolute position (Skv - Sq) + i), masked scores -1e30, scale 1/sqrt(d),
 // output acc / max(l, 1e-30) in q's dtype.  KV head of query head h is
-// h / (H / KVH).
+// h / (H / KVH).  For the backward pass (csrc/flash_attention_bwd.cu) it
+// also writes each row's log-sum-exp m + log(l) of the scaled scores, f32
+// (B, H, Sq), where the caller passes a pointer for it (serving passes
+// none).
 //
 // Bound on the H100: at the serving path's prefill (one prompt of <= 32
 // tokens, head_dim 64) it is a few hundred kilobytes of q/k/v/o and under a
@@ -19,9 +22,11 @@
 // (row r = position r / GH, head r % GH; GH = G where G <= 64), so each K/V
 // tile is read once per group, not once per query head.  The TPU walked the
 // KV tiles as a sequential grid axis carrying m, l and acc in VMEM scratch;
-// here a loop inside the block walks KV tiles (32 keys in f32, 64 in
-// bf16), double-buffered in shared memory with cp.async so the next tile
-// loads while this one computes.  Tiles wholly above the block's causal
+// here a loop inside the block walks KV tiles, double-buffered in shared
+// memory with cp.async so the next tile loads while this one computes.  The
+// tile's keys BK are a template parameter (16, 32 or 64), the Pallas
+// kernel's bk: the tuning loop's kv_chunk picks it; serving takes 32 in
+// f32 and 64 in bf16.  Tiles wholly above the block's causal
 // diagonal are never loaded, a warp skips the tiles above its own rows'
 // diagonal, and the query tiles with the most keys are launched first.
 //   - bf16: 4 warps of 16 rows.  S = Q K^T and O = P V run on the tensor
@@ -29,10 +34,11 @@
 //     stays in registers, the S accumulators repacked as the A operand of
 //     P V (FlashAttention-2).  Row max and sum reduce over the 4 lanes that
 //     share a row.
-//   - f32: 8 warps of 8 rows, FMA.  For S a lane owns one key of the tile
-//     and runs the dot products over d from shared memory; the row max is a
-//     shuffle butterfly; P goes to shared memory, and for P V a lane owns
-//     d / 32 output dims.  No TF32, so it keeps f32 accuracy.
+//   - f32: 8 warps of 8 rows, FMA.  For S a lane owns BK / 32 keys of the
+//     tile (one at BK 32; at BK 16 half the lanes idle) and runs the dot
+//     products over d from shared memory; the row max is a shuffle
+//     butterfly; P goes to shared memory, and for P V a lane owns d / 32
+//     output dims.  No TF32, so it keeps f32 accuracy.
 // Ragged Sq/Skv edges and unused rows are zero-filled and masked, so any
 // length works.  head_dim is a template parameter (8, 16, 32, 64, 128); bf16
 // pads d = 8 to the mma's depth of 16 with zeros.
@@ -47,6 +53,7 @@ constexpr float kNegInf = -1e30f;
 struct Params {
   const void *q, *k, *v;
   void* o;
+  float* lse;  // (B, H, Sq) or null
   int64_t H, G, Sq, Skv;
   int64_t qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh;
   float scale;
@@ -56,16 +63,14 @@ struct Params {
 // Per-dtype layout: DP is the staged head width (bf16 pads 8 to 16), LD the
 // shared-memory row pitch (16 bytes of padding: conflict-free ldmatrix and
 // float4 reads, rows 16-byte aligned for cp.async).
-template <typename T, int D>
+template <typename T, int D, int BK>
 struct Layout {
   static constexpr bool kBf16 = sizeof(T) == 2;
   static constexpr int DP = (kBf16 && D < 16) ? 16 : D;
   static constexpr int LD = DP + 16 / (int)sizeof(T);
   static constexpr int kWarps = kBf16 ? 4 : 8;
   static constexpr int kThreads = 32 * kWarps;
-  // keys per KV tile: f32 gives each lane one key; bf16 takes 64 (four
-  // k16 steps of P V) to halve the barriers per key
-  static constexpr int BKV = kBf16 ? 64 : 32;
+  static constexpr int BKV = BK;  // keys per KV tile
   // Qs[kRows][LD], Ks[2][BKV][LD], Vs[2][BKV][LD], f32: Ps[kRows][BKV]
   static constexpr int kTileElems = BKV * LD;
   static constexpr int kBytes =
@@ -133,10 +138,10 @@ struct BlockRows {
   }
 };
 
-template <typename T, int D, bool VEC>
+template <typename T, int D, int BK, bool VEC>
 __device__ __forceinline__ void load_q(const Params& p, const BlockRows& br,
                                        T* Qs) {
-  using L = Layout<T, D>;
+  using L = Layout<T, D, BK>;
   const T* q = static_cast<const T*>(p.q);
   load_rows<T, D, L::LD, L::kThreads, VEC>(Qs, kRows, q, [&](int r) -> const T* {
     const int64_t qi = br.pos(p, r);
@@ -145,10 +150,10 @@ __device__ __forceinline__ void load_q(const Params& p, const BlockRows& br,
   });
 }
 
-template <typename T, int D, bool VEC>
+template <typename T, int D, int BK, bool VEC>
 __device__ __forceinline__ void load_kv(const Params& p, const BlockRows& br,
                                         int64_t k0, T* Ks, T* Vs) {
-  using L = Layout<T, D>;
+  using L = Layout<T, D, BK>;
   const T* k = static_cast<const T*>(p.k) + br.b * p.ksb + br.kvh * p.ksh;
   const T* v = static_cast<const T*>(p.v) + br.b * p.vsb + br.kvh * p.vsh;
   load_rows<T, D, L::LD, L::kThreads, VEC>(Ks, L::BKV, k, [&](int j) -> const T* {
@@ -165,15 +170,15 @@ __device__ __forceinline__ void load_kv(const Params& p, const BlockRows& br,
 
 // Minimum one block an SM: ptxas may then keep every row's state in
 // registers instead of trading spills for a second resident block.
-template <int D, bool VEC>
-__global__ void __launch_bounds__(Layout<float, D>::kThreads, 1)
+template <int D, int BK, bool VEC>
+__global__ void __launch_bounds__(Layout<float, D, BK>::kThreads, 1)
 flash_fwd_f32_kernel(Params p) {
-  using L = Layout<float, D>;
+  using L = Layout<float, D, BK>;
   constexpr int R = kRows / L::kWarps;           // rows per warp (8)
   constexpr int DPL = D >= 32 ? D / 32 : 1;      // output dims per lane
+  constexpr int KPL = BK >= 32 ? BK / 32 : 1;    // keys per lane
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
-  static_assert(L::BKV == 32, "a lane owns one key of the tile");
   float* Ks = Qs + kRows * L::LD;                // [2][BKV][LD]
   float* Vs = Ks + 2 * L::kTileElems;
   float* Ps = Vs + 2 * L::kTileElems;            // [kRows][BKV]
@@ -188,8 +193,8 @@ flash_fwd_f32_kernel(Params p) {
     warp_lim = lim[i] > warp_lim ? lim[i] : warp_lim;
   }
 
-  load_q<float, D, VEC>(p, br, Qs);
-  load_kv<float, D, VEC>(p, br, 0, Ks, Vs);
+  load_q<float, D, BK, VEC>(p, br, Qs);
+  load_kv<float, D, BK, VEC>(p, br, 0, Ks, Vs);
   cp_async_commit();
 
   float m[R], l[R], acc[R][DPL];
@@ -205,8 +210,9 @@ flash_fwd_f32_kernel(Params p) {
   for (int64_t t = 0; t < ntiles; ++t) {
     if (t + 1 < ntiles) {
       const int nb = (int)((t + 1) & 1);
-      load_kv<float, D, VEC>(p, br, (t + 1) * L::BKV, Ks + nb * L::kTileElems,
-                             Vs + nb * L::kTileElems);
+      load_kv<float, D, BK, VEC>(p, br, (t + 1) * L::BKV,
+                                 Ks + nb * L::kTileElems,
+                                 Vs + nb * L::kTileElems);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -217,37 +223,59 @@ flash_fwd_f32_kernel(Params p) {
     if (k0 < warp_lim) {
       const float* Kt = Ks + (t & 1) * L::kTileElems;
       const float* Vt = Vs + (t & 1) * L::kTileElems;
-      // S: this lane's key against the warp's R rows
-      float s[R];
+      // S: this lane's keys (lane + 32c) against the warp's R rows; lanes
+      // past the tile (BK 16) read its last row and are masked
+      float s[KPL][R];
 #pragma unroll
-      for (int i = 0; i < R; ++i) s[i] = 0.f;
+      for (int c = 0; c < KPL; ++c)
+#pragma unroll
+        for (int i = 0; i < R; ++i) s[c][i] = 0.f;
 #pragma unroll
       for (int d = 0; d < D; d += 4) {
-        const float4 kv = *reinterpret_cast<const float4*>(&Kt[lane * L::LD + d]);
+        float4 kv[KPL];
+#pragma unroll
+        for (int c = 0; c < KPL; ++c) {
+          const int j = lane + 32 * c < BK ? lane + 32 * c : BK - 1;
+          kv[c] = *reinterpret_cast<const float4*>(&Kt[j * L::LD + d]);
+        }
 #pragma unroll
         for (int i = 0; i < R; ++i) {
           const float4 qv =
               *reinterpret_cast<const float4*>(&Qs[(r0 + i) * L::LD + d]);
-          s[i] = fmaf(qv.x, kv.x, fmaf(qv.y, kv.y,
-                 fmaf(qv.z, kv.z, fmaf(qv.w, kv.w, s[i]))));
+#pragma unroll
+          for (int c = 0; c < KPL; ++c)
+            s[c][i] = fmaf(qv.x, kv[c].x, fmaf(qv.y, kv[c].y,
+                      fmaf(qv.z, kv[c].z, fmaf(qv.w, kv[c].w, s[c][i]))));
         }
       }
-      const int64_t key = k0 + lane;
 #pragma unroll
       for (int i = 0; i < R; ++i) {
-        const float si = key < lim[i] ? s[i] * p.scale : kNegInf;
-        float mx = si;
+        float si[KPL], mx = kNegInf;
+#pragma unroll
+        for (int c = 0; c < KPL; ++c) {
+          const int j = lane + 32 * c;
+          si[c] = (j < BK && k0 + j < lim[i]) ? s[c][i] * p.scale : kNegInf;
+          mx = fmaxf(mx, si[c]);
+        }
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1)
           mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
         const float m_new = fmaxf(m[i], mx);
         const float corr = expf(m[i] - m_new);
-        const float pi = expf(si - m_new);
+        float psum = 0.f;
+#pragma unroll
+        for (int c = 0; c < KPL; ++c) {
+          const int j = lane + 32 * c;
+          const float pi = expf(si[c] - m_new);
+          if (j < BK) {
+            psum += pi;
+            Ps[(r0 + i) * L::BKV + j] = pi;
+          }
+        }
         m[i] = m_new;
-        l[i] = l[i] * corr + pi;  // this lane's keys; summed at the end
+        l[i] = l[i] * corr + psum;  // this lane's keys; summed at the end
 #pragma unroll
         for (int e = 0; e < DPL; ++e) acc[i][e] *= corr;
-        Ps[(r0 + i) * L::BKV + lane] = pi;
       }
       __syncwarp();
       // O += P V: lane owns dims lane, lane + 32, ...
@@ -287,7 +315,10 @@ flash_fwd_f32_kernel(Params p) {
     const int64_t qi = br.pos(p, r0 + i);
     if (qi < 0) continue;
     const float inv = 1.f / fmaxf(li, 1e-30f);
-    float* orow = o + br.b * p.osb + qi * p.oss + br.head(p, r0 + i) * p.osh;
+    const int64_t head = br.head(p, r0 + i);
+    if (p.lse && lane == 0)
+      p.lse[(br.b * p.H + head) * p.Sq + qi] = m[i] + logf(fmaxf(li, 1e-30f));
+    float* orow = o + br.b * p.osb + qi * p.oss + head * p.osh;
 #pragma unroll
     for (int e = 0; e < DPL; ++e) {
       const int d = lane + 32 * e;
@@ -300,14 +331,16 @@ flash_fwd_f32_kernel(Params p) {
 // bf16: mma.sync on the tensor cores
 // ---------------------------------------------------------------------------
 
-template <int D, bool VEC>
-__global__ void __launch_bounds__(Layout<__nv_bfloat16, D>::kThreads)
+// Minimum one block an SM, as the f32 kernel (without it ptxas spilled the
+// D 32, BK 32 instantiation).
+template <int D, int BK, bool VEC>
+__global__ void __launch_bounds__(Layout<__nv_bfloat16, D, BK>::kThreads, 1)
 flash_fwd_bf16_kernel(Params p) {
   using T = __nv_bfloat16;
-  using L = Layout<T, D>;
+  using L = Layout<T, D, BK>;
   constexpr int DP = L::DP, LD = L::LD, BKV = L::BKV;
   constexpr int KD = DP / 16;  // k16 steps of Q K^T; pairs of n8 tiles of O
-  constexpr int NS = BKV / 8;  // n8 tiles of S (keys)
+  constexpr int NS = BKV / 8;  // n8 tiles of S (keys), an even number
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* Qs = reinterpret_cast<T*>(smem_raw);
   T* Ks = Qs + kRows * LD;
@@ -334,8 +367,8 @@ flash_fwd_bf16_kernel(Params p) {
     for (int i = threadIdx.x; i < kRows + 4 * BKV; i += L::kThreads)
       for (int c = D; c < DP; ++c) Qs[i * LD + c] = __float2bfloat16(0.f);
   }
-  load_q<T, D, VEC>(p, br, Qs);
-  load_kv<T, D, VEC>(p, br, 0, Ks, Vs);
+  load_q<T, D, BK, VEC>(p, br, Qs);
+  load_kv<T, D, BK, VEC>(p, br, 0, Ks, Vs);
   cp_async_commit();
 
   uint32_t qa[KD][4];
@@ -350,8 +383,8 @@ flash_fwd_bf16_kernel(Params p) {
   for (int64_t t = 0; t < ntiles; ++t) {
     if (t + 1 < ntiles) {
       const int nb = (int)((t + 1) & 1);
-      load_kv<T, D, VEC>(p, br, (t + 1) * BKV, Ks + nb * L::kTileElems,
-                         Vs + nb * L::kTileElems);
+      load_kv<T, D, BK, VEC>(p, br, (t + 1) * BKV, Ks + nb * L::kTileElems,
+                             Vs + nb * L::kTileElems);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -368,7 +401,7 @@ flash_fwd_bf16_kernel(Params p) {
     if (k0 < warp_lim) {
       const T* Kt = Ks + (t & 1) * L::kTileElems;
       const T* Vt = Vs + (t & 1) * L::kTileElems;
-      // S = Q K^T: 16 rows x 64 keys = 8 n8 tiles
+      // S = Q K^T: 16 rows x BK keys = BK / 8 n8 tiles
       float s[NS][4];
 #pragma unroll
       for (int j = 0; j < NS; ++j)
@@ -446,8 +479,11 @@ flash_fwd_bf16_kernel(Params p) {
     lh += __shfl_xor_sync(0xffffffffu, lh, 2);
     if (pos[h] < 0) continue;
     const float inv = 1.f / fmaxf(lh, 1e-30f);
-    T* orow = o + br.b * p.osb + pos[h] * p.oss +
-              br.head(p, r0 + lane / 4 + 8 * h) * p.osh;
+    const int64_t head = br.head(p, r0 + lane / 4 + 8 * h);
+    if (p.lse && lane % 4 == 0)
+      p.lse[(br.b * p.H + head) * p.Sq + pos[h]] =
+          m[h] + logf(fmaxf(lh, 1e-30f));
+    T* orow = o + br.b * p.osb + pos[h] * p.oss + head * p.osh;
 #pragma unroll
     for (int j = 0; j < 2 * KD; ++j) {
       const int d = j * 8 + (lane % 4) * 2;
@@ -458,16 +494,18 @@ flash_fwd_bf16_kernel(Params p) {
   }
 }
 
-template <int D, bool VEC>
-auto flash_kernel(float*) { return flash_fwd_f32_kernel<D, VEC>; }
-template <int D, bool VEC>
-auto flash_kernel(__nv_bfloat16*) { return flash_fwd_bf16_kernel<D, VEC>; }
+template <int D, int BK, bool VEC>
+auto flash_kernel(float*) { return flash_fwd_f32_kernel<D, BK, VEC>; }
+template <int D, int BK, bool VEC>
+auto flash_kernel(__nv_bfloat16*) {
+  return flash_fwd_bf16_kernel<D, BK, VEC>;
+}
 
-template <typename T, int D, bool VEC>
+template <typename T, int D, int BK, bool VEC>
 cudaError_t launch(const Params& p, int64_t B, int64_t KVH, int64_t qtiles,
                    cudaStream_t stream) {
-  using L = Layout<T, D>;
-  const auto kernel = flash_kernel<D, VEC>(static_cast<T*>(nullptr));
+  using L = Layout<T, D, BK>;
+  const auto kernel = flash_kernel<D, BK, VEC>(static_cast<T*>(nullptr));
   // above 48 KB of dynamic shared memory only with the attribute (per device)
   const cudaError_t attr = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
@@ -477,40 +515,53 @@ cudaError_t launch(const Params& p, int64_t B, int64_t KVH, int64_t qtiles,
   return cudaGetLastError();
 }
 
-template <typename T, bool VEC>
+template <typename T, int BK, bool VEC>
 cudaError_t dispatch_d(const Params& p, int64_t B, int64_t KVH, int64_t D,
                        int64_t qtiles, cudaStream_t s) {
   switch (D) {
-    case 8: return launch<T, 8, VEC>(p, B, KVH, qtiles, s);
-    case 16: return launch<T, 16, VEC>(p, B, KVH, qtiles, s);
-    case 32: return launch<T, 32, VEC>(p, B, KVH, qtiles, s);
-    case 64: return launch<T, 64, VEC>(p, B, KVH, qtiles, s);
-    case 128: return launch<T, 128, VEC>(p, B, KVH, qtiles, s);
+    case 8: return launch<T, 8, BK, VEC>(p, B, KVH, qtiles, s);
+    case 16: return launch<T, 16, BK, VEC>(p, B, KVH, qtiles, s);
+    case 32: return launch<T, 32, BK, VEC>(p, B, KVH, qtiles, s);
+    case 64: return launch<T, 64, BK, VEC>(p, B, KVH, qtiles, s);
+    case 128: return launch<T, 128, BK, VEC>(p, B, KVH, qtiles, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, bool VEC>
+cudaError_t dispatch_bk(const Params& p, int64_t B, int64_t KVH, int64_t D,
+                        int64_t qtiles, int bk, cudaStream_t s) {
+  switch (bk) {
+    case 16: return dispatch_d<T, 16, VEC>(p, B, KVH, D, qtiles, s);
+    case 32: return dispatch_d<T, 32, VEC>(p, B, KVH, D, qtiles, s);
+    case 64: return dispatch_d<T, 64, VEC>(p, B, KVH, D, qtiles, s);
     default: return cudaErrorInvalidValue;
   }
 }
 
 template <typename T>
 cudaError_t dispatch_vec(const Params& p, int64_t B, int64_t KVH, int64_t D,
-                         int64_t qtiles, int vec, cudaStream_t s) {
-  return vec ? dispatch_d<T, true>(p, B, KVH, D, qtiles, s)
-             : dispatch_d<T, false>(p, B, KVH, D, qtiles, s);
+                         int64_t qtiles, int bk, int vec, cudaStream_t s) {
+  return vec ? dispatch_bk<T, true>(p, B, KVH, D, qtiles, bk, s)
+             : dispatch_bk<T, false>(p, B, KVH, D, qtiles, bk, s);
 }
 
 }  // namespace
 
 // q/o: (B, Sq, H, D), k/v: (B, Skv, KVH, D), each with its own (b, s, h)
-// strides and unit stride along D; o in q's dtype.  The wrapper's plan: gh
-// query heads of a group times bq positions per block (gh * bq <= 64), and
-// vec when every q/k/v row is 16-byte aligned (cp.async).  Returns
+// strides and unit stride along D; o in q's dtype; lse (B, H, Sq) f32
+// contiguous, or null.  The wrapper's plan: gh query heads of a group times
+// bq positions per block (gh * bq <= 64), bk keys per KV tile (16, 32 or
+// 64), and vec when every q/k/v row is 16-byte aligned (cp.async).  Returns
 // cudaGetLastError() after the launch.
 extern "C" int flash_attention(
-    const void* q, const void* k, const void* v, void* o, int64_t B,
+    const void* q, const void* k, const void* v, void* o, void* lse,
+    int64_t B,
     int64_t H, int64_t KVH, int64_t Sq, int64_t Skv, int64_t D, int64_t qsb,
     int64_t qss, int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
     int64_t vsb, int64_t vss, int64_t vsh, int64_t osb, int64_t oss,
-    int64_t osh, float scale, int causal, int gh, int bq, int vec, int dtype,
-    void* stream) {
+    int64_t osh, float scale, int causal, int gh, int bq, int bk, int vec,
+    int dtype, void* stream) {
   const int64_t G = H / KVH;
   if (gh < 1 || bq < 1 || (int64_t)gh * bq > kRows || gh > G)
     return cudaErrorInvalidValue;
@@ -518,15 +569,15 @@ extern "C" int flash_attention(
   const int64_t qtiles = (Sq + bq - 1) / bq;
   if (qtiles * gchunks >= (1LL << 31) || KVH >= 65536 || B >= 65536)
     return cudaErrorInvalidValue;
-  const Params p{q,   k,   v,   o,   H,   G,   Sq,  Skv, qsb,   qss,    qsh,
-                 ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh, scale, causal,
-                 gh,  bq,  gchunks};
+  const Params p{q,   k,   v,   o,   static_cast<float*>(lse), H,   G,
+                 Sq,  Skv, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
+                 osb, oss, osh, scale, causal, gh,  bq,  gchunks};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:
-      return dispatch_vec<float>(p, B, KVH, D, qtiles, vec, s);
+      return dispatch_vec<float>(p, B, KVH, D, qtiles, bk, vec, s);
     case kBFloat16:
-      return dispatch_vec<__nv_bfloat16>(p, B, KVH, D, qtiles, vec, s);
+      return dispatch_vec<__nv_bfloat16>(p, B, KVH, D, qtiles, bk, vec, s);
     default:
       return cudaErrorInvalidValue;
   }

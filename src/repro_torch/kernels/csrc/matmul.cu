@@ -384,7 +384,9 @@ constexpr int kTileThreads = 256, kBM = 128, kBN = 128;
 // Load an R x Cc tile (element (r, c) at g[r * sr + c * sc], valid where
 // r < rlim and c < clim, zero elsewhere) into shared memory s[r * LD + c].
 // VEC: sc == 1 and 16-byte aligned rows -> cp.async with zero fill;
-// otherwise element by element through registers.
+// otherwise element by element through registers, neighbouring threads on
+// neighbouring addresses: along r where r has unit stride (a transposed
+// view, as the backward pass's A^T), else along c.
 template <typename T, int R, int Cc, int LD, bool VEC>
 __device__ __forceinline__ void load_tile(T* s, const T* g, int64_t sr,
                                           int64_t sc, int64_t rlim,
@@ -396,6 +398,11 @@ __device__ __forceinline__ void load_tile(T* s, const T* g, int64_t sr,
       const int64_t left = r < rlim ? clim - c : 0;
       const int bytes = left <= 0 ? 0 : (left >= V ? 16 : (int)left * (int)sizeof(T));
       cp_async16(s + r * LD + c, bytes ? g + r * sr + c : g, bytes);
+    }
+  } else if (sr == 1 && sc != 1) {
+    for (int i = threadIdx.x; i < R * Cc; i += kTileThreads) {
+      const int r = i % R, c = i / R;
+      s[r * LD + c] = (r < rlim && c < clim) ? g[r + c * sc] : from_f<T>(0.f);
     }
   } else {
     for (int i = threadIdx.x; i < R * Cc; i += kTileThreads) {

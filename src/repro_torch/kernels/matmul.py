@@ -38,6 +38,11 @@ from . import _build
 # every M: it was faster there even at M = 1.
 SKINNY_MAX_M = {(torch.float32, True): 512, (torch.float32, False): 32,
                 (torch.bfloat16, True): 32, (torch.bfloat16, False): 0}
+# ... except row-major B beyond the L2 (the tied head's backward dX = dC
+# embed, K = 49152): there the tiled grid holds only N / 128 blocks, each
+# walking all of K, and the skinny path (split K) won at every M timed
+# (chip_smoke.py's crossover rows in PERF.md: f32 to 512, bf16 to 128)
+SKINNY_MAX_M_ROWB_BEYOND_L2 = {torch.float32: 512, torch.bfloat16: 128}
 # skinny: split K until the grid has 2 blocks per SM, and give each K split
 # at most 2 blocks per SM, each walking tiles / blocks output tiles (the
 # tied head's fastest cap; PERF.md)
@@ -85,9 +90,13 @@ def b_in_l2(K: int, N: int, dtype) -> bool:
     return 2 * K * N * ELEM_BYTES[dtype] <= L2_BYTES
 
 
-def skinny_max_m(K: int, N: int, dtype) -> int:
-    """The largest M that takes the skinny path for a (K, N) B."""
-    return SKINNY_MAX_M[dtype, b_in_l2(K, N, dtype)]
+def skinny_max_m(K: int, N: int, dtype, colb: bool = True) -> int:
+    """The largest M that takes the skinny path for a (K, N) B, read along
+    K (``colb``) or row-major."""
+    in_l2 = b_in_l2(K, N, dtype)
+    if not colb and not in_l2:
+        return SKINNY_MAX_M_ROWB_BEYOND_L2[dtype]
+    return SKINNY_MAX_M[dtype, in_l2]
 
 
 @functools.lru_cache(maxsize=4096)
@@ -102,9 +111,9 @@ def plan_matmul(M: int, K: int, N: int, strides_a, strides_b, dtype,
     serving path asks for a few shapes."""
     (sam, sak), (sbk, sbn) = strides_a, strides_b
     V = 16 // ELEM_BYTES[dtype]
-    if skinny_max is None:
-        skinny_max = skinny_max_m(K, N, dtype)
     colb = sbk == 1 and (sbn != 1 or N == 1)
+    if skinny_max is None:
+        skinny_max = skinny_max_m(K, N, dtype, colb)
     b_vec = (_vec_ok(b_aligned, sbk, sbn, V) if colb
              else _vec_ok(b_aligned, sbn, sbk, V))
     if M > skinny_max:

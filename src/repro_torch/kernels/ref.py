@@ -2,7 +2,10 @@
 
 The CPU path of ``ops`` runs these, the tests hold them against the JAX
 oracles and Pallas kernels, and ``chip_smoke.py`` holds each CUDA kernel
-against them on the card.
+against them on the card.  The backward passes are written out as explicit
+formulas (``rmsnorm_bwd_ref``, ``flash_attention_bwd_ref``), the same ones
+the backward kernels compute; the tests hold them against
+``torch.autograd`` of the forward versions and against ``jax.grad``.
 """
 
 from __future__ import annotations
@@ -24,18 +27,66 @@ def rmsnorm_ref(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5):
     return (y * (1.0 + w.float())).to(x.dtype)
 
 
-def flash_attention_ref(q, k, v, *, causal: bool = True):
-    """q: (B, Sq, H, d); k/v: (B, Skv, KVH, d) -- GQA naive attention with
-    the queries aligned to the end of the KV sequence."""
+def rmsnorm_bwd_ref(x, w, dy, eps: float = 1e-5):
+    """Gradients of ``rmsnorm_ref`` for output gradient dy: (dx in x's
+    dtype, dw in w's dtype), with r = rsqrt(mean x^2 + eps):
+    dx = r (1 + w) dy - x r^3 / D sum(dy (1 + w) x), dw = sum_rows dy x r."""
+    D = x.shape[-1]
+    xf, dyf, w1 = x.float(), dy.float(), 1.0 + w.float()
+    r = torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    s = (dyf * w1 * xf).sum(dim=-1, keepdim=True)
+    dx = r * w1 * dyf - xf * (r ** 3) * (s / D)
+    dw = (dyf * xf * r).reshape(-1, D).sum(dim=0)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
+def _gqa_scores(q, k, causal: bool):
+    """Scaled, masked scores (B, KVH, G, Sq, Skv) in f32."""
     B, Sq, H, d = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
-    G = H // KVH
-    qg = q.reshape(B, Sq, KVH, G, d).float()
+    qg = q.reshape(B, Sq, KVH, H // KVH, d).float()
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(d)
     if causal:
         mask = torch.ones(Sq, Skv, dtype=torch.bool,
                           device=q.device).tril(Skv - Sq)
         s = torch.where(mask, s, torch.full_like(s, -1e30))
+    return s
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        return_lse: bool = False):
+    """q: (B, Sq, H, d); k/v: (B, Skv, KVH, d) -- GQA naive attention with
+    the queries aligned to the end of the KV sequence.  ``return_lse``:
+    also the rows' log-sum-exp of the scaled scores, f32 (B, H, Sq), which
+    the backward pass recomputes the probabilities from."""
+    B, Sq, H, d = q.shape
+    s = _gqa_scores(q, k, causal)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return o.reshape(B, Sq, H, d).to(q.dtype)
+    o = o.reshape(B, Sq, H, d).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True):
+    """Gradients (dq, dk, dv) of ``flash_attention_ref`` for output gradient
+    do, recomputed from the saved lse as the backward kernel does
+    (FlashAttention-2): P = exp(S - lse), Dl = rowsum(do o), dV = P^T do
+    and dK = dS^T q / sqrt(d) summed over the G query heads of a KV head,
+    dS = P (do V^T - Dl), dq = dS K / sqrt(d)."""
+    B, Sq, H, d = q.shape
+    KVH = k.shape[2]
+    G = H // KVH
+    s = _gqa_scores(q, k, causal)
+    p = torch.exp(s - lse.reshape(B, KVH, G, Sq, 1))
+    dog = do.reshape(B, Sq, KVH, G, d).float()
+    dl = (dog * o.reshape(B, Sq, KVH, G, d).float()).sum(-1)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    ds = p * (dp - dl.permute(0, 2, 3, 1)[..., None]) / math.sqrt(d)
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float())
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds,
+                      q.reshape(B, Sq, KVH, G, d).float())
+    return (dq.reshape(B, Sq, H, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -19,6 +19,10 @@ stride, dtypes and pointer alignment:
 
 Choosing a variant is not a fallback: a launch that fails raises, and no
 call is retried another way.
+
+The backward pass (``rmsnorm_bwd_cuda``, ``csrc/rmsnorm_bwd.cu``) gives dx
+and dw; ``plan_rmsnorm_bwd`` picks its grid and the chunks of rows whose
+dw partials a second stage sums in a fixed order.
 """
 
 from __future__ import annotations
@@ -39,6 +43,11 @@ VARIANTS = {"warp": 0, "block": 1, "scalar": 2}   # csrc enum Variant
 
 # x, w, y, the plan's parameters (int64[11]), eps, stream
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_void_p]
+# x, w, dy, dx, dw, rstd, part, rows, D, xs, dys, nchunks, chunk, grid_dx,
+# dtype, w dtype, eps, stream
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int64] * 7
+                 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
+BWD_THREADS = 256            # csrc/rmsnorm_bwd.cu kThreads
 
 
 @dataclass(frozen=True)
@@ -158,3 +167,72 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
     _build.check(err, "rmsnorm")
     _build.launches["rmsnorm"] += 1
     return y
+
+
+@dataclass(frozen=True)
+class RmsnormBwdPlan:
+    grid_dx: int               # dx: blocks of 8 warps, a warp per row
+    nchunks: int               # dw: chunks of rows summed apart, then in
+    chunk: int                 #     chunk order; rows per chunk
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_rmsnorm_bwd(rows: int, D: int,
+                     sms: int = _build.H100_SMS) -> RmsnormBwdPlan:
+    """The backward's geometry for ``rows`` rows of D on a card with
+    ``sms`` SMs: dx's grid stops at what the SMs hold; dw's row chunks are
+    as many as give the (column blocks x chunks) grid 2 blocks per SM."""
+    if rows < 1 or D < 1:
+        raise ValueError(f"rmsnorm_bwd: no plan for {rows} rows of {D}")
+    warps = BWD_THREADS // 32
+    grid_dx = min(_cdiv(rows, warps), sms * (THREADS_PER_SM // BWD_THREADS))
+    col_blocks = _cdiv(D, BWD_THREADS)
+    want = max(1, min(rows, _cdiv(2 * sms, col_blocks), 65535))
+    chunk = _cdiv(rows, want)
+    return RmsnormBwdPlan(grid_dx, _cdiv(rows, chunk), chunk)
+
+
+def _rows(t: torch.Tensor, D: int) -> torch.Tensor:
+    """t as (rows, D) with unit stride along D (a view where it can be)."""
+    t2 = t.reshape(-1, D)
+    return t2 if D == 1 or t2.stride(1) == 1 else t2.contiguous()
+
+
+def rmsnorm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
+                     eps: float = 1e-5, plan: RmsnormBwdPlan | None = None):
+    """Gradients (dx in x's dtype and shape, dw in w's dtype) of
+    ``rmsnorm_cuda`` for output gradient ``dy`` (x's shape and dtype).
+    One call runs csrc/rmsnorm_bwd.cu's three kernels (dx, dw partials,
+    dw) and counts one launch.  ``plan`` overrides ``plan_rmsnorm_bwd``'s
+    choice (tests)."""
+    D = x.shape[-1]
+    if w.shape != (D,) or dy.shape != x.shape:
+        raise ValueError(f"rmsnorm_bwd: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, dy {tuple(dy.shape)}")
+    code = _build.check_inputs("rmsnorm_bwd", x, dy)
+    if w.device != x.device:
+        raise ValueError(f"rmsnorm_bwd: w on {w.device}, x on {x.device}")
+    w_code = _build.DTYPE_CODES.get(w.dtype)
+    if w_code is None:
+        raise TypeError(f"rmsnorm_bwd: w of {w.dtype}; the kernel takes "
+                        f"{list(_build.DTYPE_CODES)}")
+    w = w.contiguous()
+    dx = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    rows = x.numel() // D if D else 0
+    if rows == 0 or D == 0:
+        return dx, torch.zeros_like(w)
+    x2, dy2 = _rows(x, D), _rows(dy, D)
+    if plan is None:
+        plan = plan_rmsnorm_bwd(rows, D, _build.sm_count(x.device.index))
+    dw = torch.empty_like(w)
+    rstd = torch.empty(rows, dtype=torch.float32, device=x.device)
+    part = torch.empty(plan.nchunks * D, dtype=torch.float32,
+                       device=x.device)
+    launch = _build.entry("rmsnorm_bwd", _BWD_ARGTYPES)
+    err = launch(x2.data_ptr(), w.data_ptr(), dy2.data_ptr(), dx.data_ptr(),
+                 dw.data_ptr(), rstd.data_ptr(), part.data_ptr(), rows, D,
+                 x2.stride(0), dy2.stride(0), plan.nchunks, plan.chunk,
+                 plan.grid_dx, code, w_code, float(eps), _build.stream())
+    _build.check(err, "rmsnorm_bwd")
+    _build.launches["rmsnorm_bwd"] += 1
+    return dx, dw

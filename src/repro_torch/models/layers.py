@@ -21,6 +21,9 @@ import torch.nn.functional as F
 from ..kernels import ops
 
 _NEG_INF = -1e30
+# attn_block's KV chunk where the caller names none (JAX layers.py's
+# default); with it the flash kernel takes its serving tile
+DEFAULT_KV_CHUNK = 1024
 
 
 def rms_norm(x, w, eps: float = 1e-5):
@@ -93,12 +96,15 @@ def gqa_project_qkv(p, x, cfg, positions):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def attn_block(p, x, cfg, *, positions):
-    """Full-sequence (prefill) GQA attention; returns (out, (k, v))."""
+def attn_block(p, x, cfg, *, positions, kv_chunk=DEFAULT_KV_CHUNK):
+    """Full-sequence (train/prefill) GQA attention; returns (out, (k, v)).
+    ``kv_chunk`` reaches the flash kernels as their KV tile ``bk``
+    (``flash_attention.kv_tile``); the default keeps the serving tile."""
     B, S, _ = x.shape
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q, k, v = gqa_project_qkv(p, h, cfg, positions)
-    o = ops.flash_attention(q, k, v, causal=True)
+    bk = None if kv_chunk == DEFAULT_KV_CHUNK else kv_chunk
+    o = ops.flash_attention(q, k, v, causal=True, bk=bk)
     out = linear(o.reshape(B, S, -1), p["wo"])
     return out, (k, v)
 

@@ -26,8 +26,12 @@ Params = Dict[str, Dict[str, torch.Tensor]]
 
 @dataclass(frozen=True)
 class ModelKnobs:
-    """Step-function choices of the dense serving path."""
+    """Step-function choices of the dense path (the JAX ``ModelKnobs``
+    fields that the port's paths read, with JAX's defaults; ``remat`` is
+    read by the tuning loop, ``tune/lm_study.py``)."""
 
+    kv_chunk: int = 1024          # flash-attention KV chunk
+    remat: str = "full"           # 'none' | 'full'
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
     logits_f32: bool = True
@@ -128,7 +132,8 @@ class Model:
         positions = torch.arange(x.shape[1], device=x.device)
         caches = []
         for p, pf in self._layers(params):
-            h, c = L.attn_block(p, x, cfg, positions=positions)
+            h, c = L.attn_block(p, x, cfg, positions=positions,
+                                kv_chunk=self.knobs.kv_chunk)
             x = x + h
             x = x + L.ffn_block(pf, x, cfg)
             if with_cache:

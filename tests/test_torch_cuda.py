@@ -367,3 +367,222 @@ def test_rmsnorm_rejects_a_plan_with_other_geometry(cuda_device):
         rmsnorm_cuda(x[:3], w, plan=plan)
     torch.testing.assert_close(rmsnorm_cuda(x, w, plan=plan),
                                ref.rmsnorm_ref(x, w), rtol=2e-5, atol=2e-5)
+
+
+# -- gradients: the backward kernels and the autograd paths ------------------
+
+# (B, Sq, Skv, H, KVH, d): S not a multiple of the tile, Sq < Skv, G = 1
+# and G > 1, every head width; the tuning loop's full-width shapes
+FLASH_BWD_DIMS = [(1, 37, 37, 9, 3, 64), (2, 5, 12, 4, 2, 16),
+                  (1, 33, 70, 4, 4, 8), (2, 96, 96, 8, 2, 32),
+                  (1, 20, 20, 2, 1, 128), (2, 32, 32, 9, 3, 64),
+                  (1, 32, 32, 9, 3, 64)]
+BWD_TOL = (1e-4, 1e-4)     # f32 sums in another order than the plain version
+
+
+def _flash_inputs(dims, device, seed):
+    B, Sq, Skv, H, KVH, d = dims
+    rng = np.random.default_rng(seed)
+    mk = lambda *s: _dev(rng.standard_normal(s, np.float32),  # noqa: E731
+                         torch.float32, device)
+    return mk(B, Sq, H, d), mk(B, Skv, KVH, d), mk(B, Skv, KVH, d), \
+        mk(B, Sq, H, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", FLASH_BWD_DIMS)
+@pytest.mark.parametrize("bk", [16, 32, 64])
+def test_flash_attention_bwd_kernel_matches_plain(cuda_device, dims, bk):
+    """Forward with lse at KV tile bk, then dq/dk/dv through the autograd
+    path, against the plain backward; two runs give the same bits."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    q, k, v, do = _flash_inputs(dims, cuda_device, 21)
+    o, lse = flash_attention_cuda(q, k, v, bk=bk, with_lse=True)
+    o_ref, lse_ref = ref.flash_attention_ref(q, k, v, return_lse=True)
+    torch.testing.assert_close(o, o_ref, rtol=3e-4, atol=3e-4)
+    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
+    n0 = ops.launches["flash_attention_bwd"]
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, bk=bk)
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, do, bk=bk)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention_bwd"] == n0 + 2
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    rtol, atol = BWD_TOL
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+    # the autograd Function: forward and backward both on the card
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n1 = dict(ops.launches)
+    out = ops.flash_attention(*leaves, bk=bk)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert ops.launches["flash_attention"] == n1["flash_attention"] + 1
+    assert ops.launches["flash_attention_bwd"] == \
+        n1["flash_attention_bwd"] + 1
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bk", [None, 16, 32, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_forward_tiles_match_plain(cuda_device, bk, dtype):
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    tdt = DTYPES[dtype]
+    tol = 4e-2 if dtype == "bfloat16" else 3e-4
+    for dims in ((1, 37, 37, 9, 3, 64), (2, 33, 70, 4, 2, 8),
+                 (1, 100, 100, 4, 1, 128)):
+        q, k, v, _ = (t.to(tdt) for t in _flash_inputs(dims, cuda_device, 22))
+        o, lse = flash_attention_cuda(q, k, v, bk=bk, with_lse=True)
+        o_ref, lse_ref = ref.flash_attention_ref(q, k, v, return_lse=True)
+        torch.testing.assert_close(o.float(), o_ref.float(), rtol=tol,
+                                   atol=tol)
+        torch.testing.assert_close(lse, lse_ref, rtol=tol, atol=tol)
+        # lse or not, and the serving call, give the same output
+        assert torch.equal(o, flash_attention_cuda(q, k, v, bk=bk))
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_rejects_what_it_cannot_run(cuda_device):
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    q, k, v, do = _flash_inputs((1, 37, 37, 9, 3, 64), cuda_device, 23)
+    o, lse = flash_attention_cuda(q, k, v, with_lse=True)
+    for tile in (8, 48, 128):      # not an instantiated tile
+        with pytest.raises(RuntimeError, match="launch failed"):
+            flash_attention_bwd_cuda(q, k, v, o, lse, do, tile=tile)
+    with pytest.raises(TypeError, match="f32 only"):
+        bf = [t.to(torch.bfloat16) for t in (q, k, v, o, do)]
+        flash_attention_bwd_cuda(*bf[:4], lse, bf[4])
+    with pytest.raises(ValueError, match="lse"):
+        flash_attention_bwd_cuda(q, k, v, o, lse[:, :, :-1], do)
+
+
+RMS_BWD_SHAPES = [(64, 576), (32, 576), (37, 577), (3, 7168), (1, 8),
+                  (2, 5, 96)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", RMS_BWD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda_device, shape, dtype,
+                                          w_dtype):
+    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
+    tdt = DTYPES[dtype]
+    rng = np.random.default_rng(24)
+    x = _dev(rng.standard_normal(shape, np.float32), tdt, cuda_device)
+    dy = _dev(rng.standard_normal(shape, np.float32), tdt, cuda_device)
+    w = _dev((rng.standard_normal(shape[-1]) * 0.1).astype(np.float32),
+             DTYPES[w_dtype], cuda_device)
+    n0 = ops.launches["rmsnorm_bwd"]
+    dx, dw = rmsnorm_bwd_cuda(x, w, dy)
+    dx2, dw2 = rmsnorm_bwd_cuda(x, w, dy)
+    torch.cuda.synchronize()
+    assert ops.launches["rmsnorm_bwd"] == n0 + 2
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    assert dx.dtype == tdt and dw.dtype == w.dtype
+    want_dx, want_dw = ref.rmsnorm_bwd_ref(x, w, dy)
+    tol = 3e-2 if "bfloat16" in (dtype, w_dtype) else 1e-4
+    torch.testing.assert_close(dx.float(), want_dx.float(), rtol=tol,
+                               atol=tol)
+    # dw sums a column over the rows: its scale grows with them
+    scale = max(1.0, float(want_dw.float().abs().max()))
+    torch.testing.assert_close(dw.float(), want_dw.float(), rtol=tol,
+                               atol=tol * scale)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_bwd_strided_and_tampered(cuda_device):
+    from dataclasses import replace as dc_replace
+    from repro_torch.kernels.rmsnorm import (plan_rmsnorm_bwd,
+                                             rmsnorm_bwd_cuda)
+    big = torch.randn(9, 1200, device=cuda_device)
+    x, dy = big[:, :577], big[:, 600:1177]          # strided rows
+    w = torch.randn(577, device=cuda_device) * 0.1
+    dx, dw = rmsnorm_bwd_cuda(x, w, dy)
+    want_dx, want_dw = ref.rmsnorm_bwd_ref(x, w, dy)
+    torch.testing.assert_close(dx, want_dx, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(dw, want_dw, rtol=1e-4, atol=1e-4)
+    plan = plan_rmsnorm_bwd(9, 577)
+    for bad in (dc_replace(plan, nchunks=plan.nchunks - 1),
+                dc_replace(plan, chunk=0), dc_replace(plan, grid_dx=0),
+                dc_replace(plan, nchunks=plan.nchunks + 9)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            rmsnorm_bwd_cuda(x, w, dy, plan=bad)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", [(64, 576, 576), (64, 576, 1536),
+                                 (64, 1536, 576), (32, 576, 192),
+                                 (37, 100, 51)])
+def test_matmul_backward_on_transposed_views(cuda_device, mkn):
+    """dA = dC B^T and dB = A^T dC through the forward kernel on
+    transposed views (A^T has unit stride along its rows)."""
+    M, K, N = mkn
+    rng = np.random.default_rng(25)
+    a = _dev(rng.standard_normal((M, K), np.float32), torch.float32,
+             cuda_device).requires_grad_()
+    b = _dev((rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32),
+             torch.float32, cuda_device).requires_grad_()
+    dc = _dev(rng.standard_normal((M, N), np.float32), torch.float32,
+              cuda_device)
+    n0 = ops.launches["matmul"]
+    da, db = torch.autograd.grad(ops.matmul(a, b), (a, b), dc)
+    torch.cuda.synchronize()
+    assert ops.launches["matmul"] == n0 + 3
+    torch.testing.assert_close(da, ref.matmul_ref(dc, b.detach().T),
+                               rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(db, ref.matmul_ref(a.detach().T, dc),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_tied_head_backward(cuda_device):
+    """The tied head's products at the tuning loop's width: logits = x
+    embed^T with embed (49152, 576) read through a transposed view."""
+    rng = np.random.default_rng(26)
+    x = _dev(rng.standard_normal((64, 576), np.float32), torch.float32,
+             cuda_device).requires_grad_()
+    emb = _dev((rng.standard_normal((49152, 576)) * 0.02).astype(np.float32),
+               torch.float32, cuda_device).requires_grad_()
+    dc = _dev(rng.standard_normal((64, 49152), np.float32) * 1e-3,
+              torch.float32, cuda_device)
+    dx, demb = torch.autograd.grad(ops.matmul(x, emb.T), (x, emb), dc)
+    torch.testing.assert_close(dx, ref.matmul_ref(dc, emb.detach()),
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(demb, ref.matmul_ref(x.detach().T, dc).T,
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["attn16", "attn64", "dense", "embed"])
+def test_study_thunk_grads_match_cpu_port(cuda_device, kind):
+    """A CUDA ``LMStudy`` kernel's gradients against the port's CPU run on
+    the same weights (random norm weights) and inputs, reduced smollm."""
+    from repro_torch.tune.lm_study import LMStudy, StepKnobs
+    studies = [LMStudy("smollm-135m", device=d) for d in ("cuda", "cpu")]
+    gen = torch.Generator().manual_seed(9)
+    for grp, sub in studies[1].params.items():
+        for nm, t in sub.items():
+            if nm.endswith("ln"):
+                t.copy_(torch.randn(t.shape, generator=gen) * 0.1)
+    studies[0].params = {g: {k: t.to("cuda") for k, t in sub.items()}
+                         for g, sub in studies[1].params.items()}
+    out = []
+    for st in studies:
+        if kind.startswith("attn"):
+            kn = StepKnobs("k", remat="full", kv_chunk=int(kind[4:]))
+            _, build = st._mixer_kernel("attn", 0, kn, 2)
+        elif kind == "dense":
+            _, build = st._ffn_kernel("dense", 0, StepKnobs("k"), 2)
+        else:
+            _, build = st._embed_loss_kernel(StepKnobs("k"), 2)
+        fn, args = build()
+        out.append(fn(*args))
+    from repro_torch.tune.lm_study import _flatten
+    for (path, g), (_, c) in zip(_flatten(out[0]), _flatten(out[1])):
+        scale = max(1.0, float(c.abs().max()))
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-5 * scale,
+                                   msg=lambda m: f"{path}: {m}")

@@ -22,6 +22,7 @@ from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash_attention import (ROWS, flash_attention_cuda,
                                                  plan_flash)
 from repro_torch.kernels.matmul import (A_STAGE_FLOATS, SKINNY_MAX_M,
+                                        SKINNY_MAX_M_ROWB_BEYOND_L2,
                                         matmul_cuda, plan_matmul,
                                         skinny_max_m)
 from repro_torch.kernels.rmsnorm import (MAX_NV, VARIANTS, plan_rmsnorm,
@@ -205,24 +206,30 @@ def test_matmul_plan_gives_every_shape_a_path(shape, dtype):
     sa, sb = _strides(M, K, N, colb)
     plan = plan_matmul(M, K, N, sa, sb, dtype)
     _check_plan(plan, M, K, N)
-    assert plan.path == ("skinny" if M <= skinny_max_m(K, N, dtype)
+    assert plan.path == ("skinny" if M <= skinny_max_m(K, N, dtype, colb)
                          else "tiled")
 
 
 @pytest.mark.parametrize("dtype", TDTYPES)
 @pytest.mark.parametrize("kn", [(576, 576), (1536, 576), (576, 49152)])
 def test_matmul_plan_threshold_sides(dtype, kn):
+    """Row-major B takes the table's threshold, except beyond the L2 (the
+    tied head's backward dX), where it takes its own; B read along K (the
+    tied head's embed.T) takes the table's."""
     K, N = kn
-    t = skinny_max_m(K, N, dtype)
-    assert t == SKINNY_MAX_M[dtype, 2 * K * N * (dtype.itemsize) <= 50e6]
-    if dtype == torch.float32 or N != 49152:
-        # the serving path's decode (4), prefill (<= 31) and head (1)
-        assert t >= 32
-    assert plan_matmul(t + 1, K, N, (K, 1), (N, 1), dtype).path == "tiled"
-    if t:
-        assert plan_matmul(t, K, N, (K, 1), (N, 1), dtype).path == "skinny"
-    assert plan_matmul(4, K, N, (K, 1), (N, 1), dtype,
-                       skinny_max=0).path == "tiled"
+    in_l2 = 2 * K * N * (dtype.itemsize) <= 50e6
+    for colb, sb in ((False, (N, 1)), (True, (1, K))):
+        t = skinny_max_m(K, N, dtype, colb)
+        assert t == (SKINNY_MAX_M_ROWB_BEYOND_L2[dtype]
+                     if not (colb or in_l2) else SKINNY_MAX_M[dtype, in_l2])
+        if dtype == torch.float32 or N != 49152 or not colb:
+            # the serving path's decode (4), prefill (<= 31) and head (1)
+            assert t >= 32
+        assert plan_matmul(t + 1, K, N, (K, 1), sb, dtype).path == "tiled"
+        if t:
+            assert plan_matmul(t, K, N, (K, 1), sb, dtype).path == "skinny"
+        assert plan_matmul(4, K, N, (K, 1), sb, dtype,
+                           skinny_max=0).path == "tiled"
 
 
 @pytest.mark.parametrize("K", [1, 31, 32, 33, 64, 577, 1536, 4096, 100003])
@@ -261,7 +268,7 @@ def test_matmul_plan_follows_the_sm_count(sms):
     blocks per SM for each K split, and K split until the grid has about
     that many."""
     for M, K, N, colb in PLAN_SHAPES:
-        if M > skinny_max_m(K, N, torch.float32):
+        if M > skinny_max_m(K, N, torch.float32, colb):
             continue
         sa, sb = _strides(M, K, N, colb)
         plan = plan_matmul(M, K, N, sa, sb, torch.float32, sms=sms)
