@@ -21,8 +21,10 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               of B totalling twice the L2, as the decode step reads 30
               layers' weights from HBM ("cold" beside the warm-in-L2
               time); then every RMSNorm variant forced at each shape it
-              takes ("variants", f32 and bf16 x with either dtype of w)
-              and both matmul paths forced at M around the skinny
+              takes ("variants", f32 and bf16 x with either dtype of w),
+              forward and backward (one launch: dx and dw, with the
+              backward plan's grid and levels of its dw sum), and both
+              matmul paths forced at M around the skinny
               threshold ("crossover", the reading that sets
               SKINNY_MAX_M), each held against the plain version;
 3. serve   -- run `repro_torch.launch.serve` at full width (smollm-135m,
@@ -64,12 +66,14 @@ the repository around it.
 from __future__ import annotations
 
 import argparse
+import ctypes
 import itertools
 import json
 import math
 import subprocess
 import sys
 import time
+from dataclasses import replace
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -125,9 +129,9 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels.matmul import (L2_BYTES, matmul_cuda,  # noqa: E402
                                         plan_for, skinny_max_m)
-from repro_torch.kernels.rmsnorm import (VARIANTS, plan_for as  # noqa: E402
-                                         rms_plan_for, rmsnorm_cuda,
-                                         variants_for)
+from repro_torch.kernels.rmsnorm import (  # noqa: E402
+    BWD_BLOCKS_PER_SM, VARIANTS, bwd_plan_for, plan_for as rms_plan_for,
+    plan_rmsnorm_bwd, rmsnorm_bwd_cuda, rmsnorm_cuda, variants_for)
 
 
 # -- helpers -----------------------------------------------------------------
@@ -311,9 +315,9 @@ KERNEL_NAMES = {"rmsnorm": ("rmsnorm_warp_kernel", "rmsnorm_block_kernel",
                 "flash_attention": ("flash_fwd_f32_kernel",
                                     "flash_fwd_bf16_kernel"),
                 "flash_attention_bwd": ("flash_bwd_kernel",),
-                "rmsnorm_bwd": ("rmsnorm_bwd_dx_kernel",
-                                "rmsnorm_bwd_dw_partial_kernel",
-                                "rmsnorm_bwd_dw_final_kernel")}
+                "rmsnorm_bwd": ("rmsnorm_bwd_warp_kernel",
+                                "rmsnorm_bwd_block_kernel",
+                                "rmsnorm_bwd_scalar_kernel")}
 KERNEL_FN = {"matmul": ops.matmul, "rmsnorm": ops.rmsnorm,
              "flash_attention": ops.flash_attention}
 PLAIN_FN = {"matmul": ref.matmul_ref, "rmsnorm": ref.rmsnorm_ref,
@@ -409,6 +413,16 @@ def rms_path(plan):
     per = (f"{plan.rows_per_block} rows a block" if plan.variant == "warp"
            else f"{plan.threads} threads a row")
     return f"{plan.variant} nv{plan.nv} {per}"
+
+
+def rms_bwd_path(plan):
+    """The backward plan's variant and geometry, and the dw sum's levels."""
+    groups = -(-plan.grid // plan.group)
+    per = ("" if plan.variant == "scalar" else f"nv{plan.nv} ") + (
+        f"{plan.rows_per_block} rows a block" if plan.variant == "warp"
+        else f"{plan.threads} threads a row")
+    return (f"{plan.variant} {per}, grid {plan.grid}, dw sum "
+            + ("1 level" if groups == 1 else f"2 levels ({groups} groups)"))
 
 
 def time_row(row, name, args, dn):
@@ -515,6 +529,83 @@ def phase_rms_variants():
         del x, w, want
     print(f"[variants] {len(rows)} RMSNorm cases agree in every variant "
           f"that takes them")
+    return rows
+
+
+def rms_bwd_tol(dn, wn, want_dw):
+    """(dx tol, dw tol): GRAD_TOL in f32, the RMSNorm bf16 tolerance where x
+    or w is bf16; dw sums a column over the rows, so its atol scales with
+    its largest magnitude."""
+    tol = GRAD_TOL if "bfloat16" not in (dn, wn) \
+        else TOL["rmsnorm"]["bfloat16"]
+    scale = max(1.0, float(want_dw.float().abs().max()))
+    return tol, (tol[0], tol[1] * scale)
+
+
+def phase_rms_bwd_variants():
+    """Every RMSNorm backward variant forced at each shape of
+    RMS_VARIANT_SHAPES it can take (x and w in f32 and bf16), held against
+    ref.rmsnorm_bwd_ref, with the same bits on a second call; timed at
+    RMS_TIMED with w in x's dtype, and at the timed shapes of 2048 rows or
+    more also with the plan's grid at 1, 2 and 4 blocks an SM, and at 2
+    with the partials summed by one block in one level (the readings
+    behind BWD_BLOCKS_PER_SM and the two-level sum)."""
+    gen = torch.Generator().manual_seed(6)
+    rows, dts = [], (torch.float32, torch.bfloat16)
+    for (n, D), xd, wd in itertools.product(RMS_VARIANT_SHAPES, dts, dts):
+        dn, wn = (str(t).split(".")[1] for t in (xd, wd))
+        x, w = randn((n, D), xd, 1.0, gen), randn((D,), wd, 0.1, gen)
+        dy = randn((n, D), xd, 1.0, gen)
+        want = ref.rmsnorm_bwd_ref(x, w, dy)
+        tol_dx, tol_dw = rms_bwd_tol(dn, wn, want[1])
+        timed = (n, D) in RMS_TIMED and xd == wd
+        row = {"shape": f"{n}x{D}", "dtype": dn, "w_dtype": wn,
+               "plan": rms_bwd_path(bwd_plan_for(x, w, dy))}
+        for variant in variants_for(D, D, xd):
+            plan = bwd_plan_for(x, w, dy, variant)
+            got = rmsnorm_bwd_cuda(x, w, dy, plan=plan)
+            again = rmsnorm_bwd_cuda(x, w, dy, plan=plan)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"rmsnorm_bwd {variant} {row['shape']}"
+                                     f" {dn}/{wn}: two runs differ")
+            row[variant] = {"path": rms_bwd_path(plan), "max_abs_err": max(
+                check_close("rmsnorm_bwd dx", got[0], want[0], dn, tol_dx),
+                check_close("rmsnorm_bwd dw", got[1], want[1], wn, tol_dw))}
+            if timed:
+                row[variant]["ms"], row[variant]["host_ms"] = time_ms(
+                    lambda: rmsnorm_bwd_cuda(x, w, dy, plan=plan))
+        if timed and n >= 2048:
+            sms = _build.sm_count(x.device.index)
+            row["grid_sweep"] = {}
+            plans = {f"{k} block{'s' * (k > 1)} an SM": plan_rmsnorm_bwd(
+                n, D, D, xd, wd, sms=sms * k // BWD_BLOCKS_PER_SM)
+                for k in (1, 2, 4)}
+            one = plans["2 blocks an SM"]
+            vals = list(one.params)
+            vals[12] = one.grid          # one group: a one-level sum
+            plans["2 blocks an SM, one level"] = replace(
+                one, group=one.grid, counters=1,
+                params=(ctypes.c_int64 * len(vals))(*vals))
+            for key, plan in plans.items():
+                got = rmsnorm_bwd_cuda(x, w, dy, plan=plan)
+                check_close("rmsnorm_bwd dx", got[0], want[0], dn, tol_dx)
+                check_close("rmsnorm_bwd dw", got[1], want[1], wn, tol_dw)
+                row["grid_sweep"][key] = {
+                    "path": rms_bwd_path(plan), "ms": time_ms(
+                        lambda: rmsnorm_bwd_cuda(x, w, dy, plan=plan))[0]}
+        rows.append(row)
+        if timed:
+            print(f"[variants] rmsnorm_bwd {dn} {row['shape']} (plan: "
+                  f"{row['plan']}) device ms: " + ", ".join(
+                      f"{v} {row[v]['ms']:.4f} [{row[v]['path']}]"
+                      for v in VARIANTS if v in row))
+        for key, r in row.get("grid_sweep", {}).items():
+            print(f"[variants] rmsnorm_bwd {dn} {row['shape']} grid at "
+                  f"{key}: {r['ms']:.4f} ms [{r['path']}]")
+        del x, w, dy, want
+    print(f"[variants] {len(rows)} RMSNorm backward cases agree in every "
+          f"variant that takes them, each with the same bits on a repeat")
     return rows
 
 
@@ -791,7 +882,6 @@ def grad_case_flash(label, dims, bk, gen, timed=True):
 
 
 def grad_case_rms(label, rows_, D, dtype, gen, timed=True):
-    from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
     x, w = rms_case(rows_, D, dtype, gen)
     dy = randn((rows_, D), dtype, 1.0, gen)
     run = lambda: rmsnorm_bwd_cuda(x, w, dy)  # noqa: E731
@@ -799,14 +889,17 @@ def grad_case_rms(label, rows_, D, dtype, gen, timed=True):
     want = ref.rmsnorm_bwd_ref(x, w, dy)
     torch.cuda.synchronize()
     dn = str(dtype).split(".")[1]
-    tol = GRAD_TOL if dtype == torch.float32 else TOL["rmsnorm"]["bfloat16"]
-    # dw sums its column over the rows: its tolerance scales with it
-    scale = max(1.0, float(want[1].float().abs().max()))
+    tol_dx, tol_dw = rms_bwd_tol(dn, dn, want[1])
+    plan = bwd_plan_for(x, w, dy)
     row = {"kernel": "rmsnorm_bwd", "shape": label, "dtype": dn,
+           "path": rms_bwd_path(plan),
+           "plan": {k: getattr(plan, k) for k in (
+               "variant", "nv", "threads", "rows_per_block", "grid", "group",
+               "ws_rows", "counters")},
            "bit_identical": all(torch.equal(a, b) for a, b in zip(got, again)),
-           "max_abs_err": max(check_close(label, got[0], want[0], dn, tol),
+           "max_abs_err": max(check_close(label, got[0], want[0], dn, tol_dx),
                               check_close(label, got[1], want[1], dn,
-                                          (tol[0], tol[1] * scale)))}
+                                          tol_dw))}
     if not row["bit_identical"]:
         raise AssertionError(f"rmsnorm_bwd {label}: two runs differ")
     if timed:
@@ -1111,6 +1204,7 @@ def main(argv=None) -> int:
     card, ptxas = phase_build()
     rows, floor = phase_kernels(cfg)
     variants = phase_rms_variants()
+    bwd_variants = phase_rms_bwd_variants()
     crossover = phase_crossover()
     serve_stats, params = phase_serve(cfg)
     serve_stats["profile"] = phase_profile(cfg, params)
@@ -1151,6 +1245,7 @@ def main(argv=None) -> int:
         args.out.write_text(json.dumps({"card": card, "kernels": kernels,
                                         "cases": rows, "floor": floor,
                                         "rms_variants": variants,
+                                        "rms_bwd_variants": bwd_variants,
                                         "crossover": crossover,
                                         "ptxas": ptxas, "serve": serve_stats,
                                         "grads": grad_rows,

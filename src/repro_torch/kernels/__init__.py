@@ -23,8 +23,10 @@ layers), behind ``torch.autograd.Function``s in ``ops.py``:
                   log-sum-exp, one launch: dK/dV a block per KV tile
                   carrying the group's query heads, dQ a block per 64
                   query rows (f32)
-  rmsnorm_bwd     dx a warp per row; dw per-chunk partials summed in a
-                  fixed order by a second kernel
+  rmsnorm_bwd     one launch: dx and dw from one read of x and dy held in
+                  registers (the forward's warp/block/scalar variants);
+                  each block's dw partial summed in a fixed order by the
+                  last blocks to finish (tickets on int counters)
   (matmul's backward is the forward kernel on transposed views)
 
 ``_build.py`` compiles ``csrc/*.cu`` with nvcc at first use.

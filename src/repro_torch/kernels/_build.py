@@ -21,7 +21,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Sequence, Tuple
 
 import torch
 
@@ -39,6 +39,10 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 H100_SMS = 132               # the SM count plans use where none is given
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# per (device, stream): f32 workspace and int counters for the kernels that
+# sum partials across blocks in the launch (matmul's split-K, the RMSNorm
+# backward's dw), which return the counters to zero after each call
+_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 _entries: Dict[str, Callable[..., int]] = {}
 
 
@@ -128,6 +132,22 @@ def check_inputs(name: str, *tensors: torch.Tensor) -> int:
 def sm_count(index: int) -> int:
     """SMs of CUDA device ``index`` (the plans size their grids by it)."""
     return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def scratch(device, stream: int, n_floats: int, n_counters: int):
+    """At least ``n_floats`` f32 of workspace and ``n_counters`` zeroed int32
+    counters for kernels on ``stream``, cached and grown as needed (launches
+    on one stream run in turn, so the kernels there share them)."""
+    key = (device.index, stream)
+    ws, cnt = _scratch.get(key, (None, None))
+    if ws is None or ws.numel() < n_floats:
+        ws = torch.empty(max(n_floats, 1 << 16), dtype=torch.float32,
+                         device=device)
+    if cnt is None or cnt.numel() < n_counters:
+        cnt = torch.zeros(max(n_counters, 1 << 12), dtype=torch.int32,
+                          device=device)
+    _scratch[key] = (ws, cnt)
+    return ws, cnt
 
 
 def stream() -> int:

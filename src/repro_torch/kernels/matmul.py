@@ -12,7 +12,7 @@ dtype and pointer alignment:
 * **skinny** (M <= ``skinny_max_m``): streams B once, MT rows of A per
   block, with K split over ``splits`` blocks where N alone gives too few
   blocks for the card; the splits' partials are summed in a fixed order
-  inside the same launch (scratch from ``_scratch``);
+  inside the same launch (scratch from ``_build.scratch``);
 * **tiled** (larger M): 128x128 tiles through a cp.async ring, bf16 on the
   tensor cores, f32 on FMA.
 
@@ -25,7 +25,7 @@ from __future__ import annotations
 import ctypes
 import functools
 from dataclasses import dataclass, field, replace
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
@@ -161,24 +161,6 @@ def plan_for(a: torch.Tensor, b: torch.Tensor,
                        _build.sm_count(a.device.index))
 
 
-# split-K scratch per (device, stream): f32 partials and per-tile counters,
-# which the kernel returns to zero after each call
-_scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
-
-
-def _split_scratch(device, stream: int, n_part: int, n_tiles: int):
-    key = (device.index, stream)
-    part, cnt = _scratch.get(key, (None, None))
-    if part is None or part.numel() < n_part:
-        part = torch.empty(max(n_part, 1 << 16), dtype=torch.float32,
-                           device=device)
-    if cnt is None or cnt.numel() < n_tiles:
-        cnt = torch.zeros(max(n_tiles, 1 << 12), dtype=torch.int32,
-                          device=device)
-    _scratch[key] = (part, cnt)
-    return part, cnt
-
-
 def matmul_cuda(a: torch.Tensor, b: torch.Tensor,
                 plan: MatmulPlan | None = None) -> torch.Tensor:
     """a: (M, K), b: (K, N), CUDA tensors of one dtype (f32 or bf16), any
@@ -199,7 +181,7 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor,
     stream = _build.stream()
     part = cnt = None
     if plan.path == "skinny" and plan.splits > 1:
-        part, cnt = _split_scratch(a.device, stream, plan.splits * M * N,
+        part, cnt = _build.scratch(a.device, stream, plan.splits * M * N,
                                    plan.tiles)
     launch = _build.entry("matmul", _ARGTYPES)
     err = launch(a.data_ptr(), b.data_ptr(), c.data_ptr(),

@@ -21,14 +21,18 @@ Choosing a variant is not a fallback: a launch that fails raises, and no
 call is retried another way.
 
 The backward pass (``rmsnorm_bwd_cuda``, ``csrc/rmsnorm_bwd.cu``) gives dx
-and dw; ``plan_rmsnorm_bwd`` picks its grid and the chunks of rows whose
-dw partials a second stage sums in a fixed order.
+and dw in one launch, with the same three variants (``plan_rmsnorm_bwd``
+picks one by the forward's rules): x and dy are read once (twice in the
+scalar variant), and each block's dw partial, kept in registers across its
+rows, goes to a cached workspace whose rows the last blocks to finish sum
+in a fixed order.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from dataclasses import dataclass, field
 
 import torch
@@ -43,11 +47,19 @@ VARIANTS = {"warp": 0, "block": 1, "scalar": 2}   # csrc enum Variant
 
 # x, w, y, the plan's parameters (int64[11]), eps, stream
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_float, ctypes.c_void_p]
-# x, w, dy, dx, dw, rstd, part, rows, D, xs, dys, nchunks, chunk, grid_dx,
-# dtype, w dtype, eps, stream
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int64] * 7
-                 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p])
-BWD_THREADS = 256            # csrc/rmsnorm_bwd.cu kThreads
+# x, w, dy, dx, dw, workspace, counters, the plan's parameters (int64[13]),
+# eps, stream
+_BWD_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_float, ctypes.c_void_p]
+# the backward (csrc/rmsnorm_bwd.cu): warps a block in the warp variant (at
+# most kWarpRedFloats / D: the block sums its warps' column partials in
+# shared memory), blocks an SM the grid stops at (more blocks fill the card
+# no better and add dw partials to sum: chip_smoke.py's [variants] grid
+# sweep times 1, 2 and 4), and the largest grid whose dw partials one block
+# sums alone (beyond it, two levels)
+ROWS_PER_BLOCK = 8
+WARP_RED_FLOATS = 8192       # csrc kWarpRedFloats
+BWD_BLOCKS_PER_SM = 2
+ONE_LEVEL_MAX = 16
 
 
 @dataclass(frozen=True)
@@ -76,6 +88,17 @@ def variants_for(D: int, stride: int, dtype, aligned: bool = True):
     return tuple(v for v, ok in fits.items() if ok)
 
 
+def _row_geometry(variant: str, nvec: int, D: int):
+    """(threads a row, 16-byte vectors a thread) of the block and scalar
+    variants, forward and backward: the fewest of ``ROW_THREADS`` that hold
+    the row in ``BLOCK_NV`` vectors a thread; element loads by up to 512."""
+    if variant == "block":
+        threads = next((t for t in ROW_THREADS
+                        if _cdiv(nvec, t) <= BLOCK_NV), ROW_THREADS[-1])
+        return threads, _cdiv(nvec, threads)
+    return min(ROW_THREADS[-1], _cdiv(D, 32) * 32), 0
+
+
 @functools.lru_cache(maxsize=4096)
 def plan_rmsnorm(rows: int, D: int, stride: int, dtype, w_dtype,
                  aligned: bool = True, sms: int = _build.H100_SMS,
@@ -98,14 +121,9 @@ def plan_rmsnorm(rows: int, D: int, stride: int, dtype, w_dtype,
     if variant == "warp":
         rpb = min(8 if _cdiv(rows, 8) >= sms else 4, rows)
         threads, nv = 32 * rpb, _cdiv(nvec, 32)
-    elif variant == "block":
-        rpb = 1
-        threads = next((t for t in ROW_THREADS
-                        if _cdiv(nvec, t) <= BLOCK_NV), ROW_THREADS[-1])
-        nv = _cdiv(nvec, threads)
     else:
-        rpb, nv = 1, 0
-        threads = min(ROW_THREADS[-1], _cdiv(D, 32) * 32)
+        rpb = 1
+        threads, nv = _row_geometry(variant, nvec, D)
     grid = min(_cdiv(rows, rpb), sms * (THREADS_PER_SM // threads))
     vals = (rows, D, stride, D, _build.DTYPE_CODES[dtype],
             _build.DTYPE_CODES[w_dtype], VARIANTS[variant], nv, threads, rpb,
@@ -171,25 +189,79 @@ def rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5,
 
 @dataclass(frozen=True)
 class RmsnormBwdPlan:
-    grid_dx: int               # dx: blocks of 8 warps, a warp per row
-    nchunks: int               # dw: chunks of rows summed apart, then in
-    chunk: int                 #     chunk order; rows per chunk
+    variant: str               # "warp", "block" or "scalar", as the forward
+    nv: int                    # 16-byte vectors of x (and dy) a thread holds
+    threads: int               # per block
+    rows_per_block: int        # warp variant: one row per warp
+    grid: int                  # blocks; each walks rows grid-stride
+    group: int                 # blocks per group of the two-level dw sum
+    ws_rows: int               # f32 workspace rows of D: one per block
+    counters: int              # int32 counters (zero between calls)
+    # the C entry's parameter block (csrc/rmsnorm_bwd.cu), built once
+    params: ctypes.Array = field(default=None, compare=False, repr=False)
 
 
 @functools.lru_cache(maxsize=4096)
-def plan_rmsnorm_bwd(rows: int, D: int,
-                     sms: int = _build.H100_SMS) -> RmsnormBwdPlan:
-    """The backward's geometry for ``rows`` rows of D on a card with
-    ``sms`` SMs: dx's grid stops at what the SMs hold; dw's row chunks are
-    as many as give the (column blocks x chunks) grid 2 blocks per SM."""
+def plan_rmsnorm_bwd(rows: int, D: int, stride: int, dtype, w_dtype,
+                     aligned: bool = True, sms: int = _build.H100_SMS,
+                     variant: str | None = None,
+                     dy_stride: int | None = None) -> RmsnormBwdPlan:
+    """The backward's variant and launch geometry for ``rows`` rows of D
+    elements of ``dtype`` (x at row stride ``stride``, dy at ``dy_stride``,
+    by default the same) with a (D,) weight of ``w_dtype``, on a card with
+    ``sms`` SMs.  The variant and vectors a thread follow the forward's
+    rules (``variants_for``, ``plan_rmsnorm``); a vector variant needs both
+    row strides to hold whole vectors.  ``variant`` forces one; a variant
+    that cannot take the shape raises.  Up to 8 warps a block (fewer where
+    the block's column partials would pass 32 KB of shared memory); the
+    grid stops at ``BWD_BLOCKS_PER_SM`` blocks an SM, so that each block
+    walks several rows at 8192 rows and 64 rows take a few blocks; the dw
+    partials are summed in groups of about sqrt(grid) blocks, in one level
+    up to ``ONE_LEVEL_MAX`` blocks."""
     if rows < 1 or D < 1:
         raise ValueError(f"rmsnorm_bwd: no plan for {rows} rows of {D}")
-    warps = BWD_THREADS // 32
-    grid_dx = min(_cdiv(rows, warps), sms * (THREADS_PER_SM // BWD_THREADS))
-    col_blocks = _cdiv(D, BWD_THREADS)
-    want = max(1, min(rows, _cdiv(2 * sms, col_blocks), 65535))
-    chunk = _cdiv(rows, want)
-    return RmsnormBwdPlan(grid_dx, _cdiv(rows, chunk), chunk)
+    dy_stride = stride if dy_stride is None else dy_stride
+    fits = variants_for(D, math.gcd(stride, dy_stride), dtype, aligned)
+    if variant is None:
+        variant = fits[0]
+    elif variant not in fits:
+        raise ValueError(f"rmsnorm_bwd: the {variant} variant cannot take D "
+                         f"{D} at strides {stride}, {dy_stride} (aligned: "
+                         f"{aligned})")
+    nvec = D // (16 // dtype.itemsize)
+    if variant == "warp":
+        rpb = min(ROWS_PER_BLOCK, rows, WARP_RED_FLOATS // D)
+        threads, nv = 32 * rpb, _cdiv(nvec, 32)
+    else:
+        rpb = 1
+        threads, nv = _row_geometry(variant, nvec, D)
+    grid = min(_cdiv(rows, rpb), sms * BWD_BLOCKS_PER_SM)
+    group = grid if grid <= ONE_LEVEL_MAX else math.isqrt(grid - 1) + 1
+    vals = (rows, D, stride, dy_stride, D, _build.DTYPE_CODES[dtype],
+            _build.DTYPE_CODES[w_dtype], VARIANTS[variant], nv, threads, rpb,
+            grid, group)
+    return RmsnormBwdPlan(variant, nv, threads, rpb, grid, group,
+                          *_bwd_scratch(grid, group),
+                          (ctypes.c_int64 * len(vals))(*vals))
+
+
+def _bwd_scratch(grid: int, group: int):
+    """(workspace rows, counters) the backward kernel uses for ``grid``
+    blocks in groups of ``group``: a row per block; a counter per group,
+    and one more for the groups' sum where there are two or more."""
+    groups = _cdiv(grid, group)
+    return grid, groups + 1 if groups > 1 else 1
+
+
+def bwd_plan_for(x2: torch.Tensor, w: torch.Tensor, dy2: torch.Tensor,
+                 variant: str | None = None) -> RmsnormBwdPlan:
+    """``plan_rmsnorm_bwd`` for these CUDA tensors (x2, dy2: (rows, D),
+    unit stride along D; w: (D,) contiguous) on their card."""
+    rows, D = x2.shape
+    return plan_rmsnorm_bwd(
+        rows, D, x2.stride(0), x2.dtype, w.dtype,
+        all(t.data_ptr() % 16 == 0 for t in (x2, w, dy2)),
+        _build.sm_count(x2.device.index), variant, dy2.stride(0))
 
 
 def _rows(t: torch.Tensor, D: int) -> torch.Tensor:
@@ -202,9 +274,11 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
                      eps: float = 1e-5, plan: RmsnormBwdPlan | None = None):
     """Gradients (dx in x's dtype and shape, dw in w's dtype) of
     ``rmsnorm_cuda`` for output gradient ``dy`` (x's shape and dtype).
-    One call runs csrc/rmsnorm_bwd.cu's three kernels (dx, dw partials,
-    dw) and counts one launch.  ``plan`` overrides ``plan_rmsnorm_bwd``'s
-    choice (tests)."""
+    One launch of csrc/rmsnorm_bwd.cu (dx, and dw summed from per-block
+    partials in a fixed order), counted once.  ``plan`` overrides
+    ``plan_rmsnorm_bwd``'s choice (``bwd_plan_for(..., variant)``, for
+    measuring each variant); a plan the C entry refuses raises before
+    anything is launched."""
     D = x.shape[-1]
     if w.shape != (D,) or dy.shape != x.shape:
         raise ValueError(f"rmsnorm_bwd: x {tuple(x.shape)}, w "
@@ -223,16 +297,21 @@ def rmsnorm_bwd_cuda(x: torch.Tensor, w: torch.Tensor, dy: torch.Tensor,
         return dx, torch.zeros_like(w)
     x2, dy2 = _rows(x, D), _rows(dy, D)
     if plan is None:
-        plan = plan_rmsnorm_bwd(rows, D, _build.sm_count(x.device.index))
+        plan = bwd_plan_for(x2, w, dy2)
+    elif tuple(plan.params[:7]) != (rows, D, x2.stride(0), dy2.stride(0), D,
+                                    code, w_code):
+        raise ValueError("rmsnorm_bwd: the plan was made for other tensors")
     dw = torch.empty_like(w)
-    rstd = torch.empty(rows, dtype=torch.float32, device=x.device)
-    part = torch.empty(plan.nchunks * D, dtype=torch.float32,
-                       device=x.device)
+    stream = _build.stream()
+    # sized by the parameters the kernel reads, so that no plan, however
+    # made, reaches past the workspace or the counters
+    ws_rows, counters = _bwd_scratch(max(plan.params[11], 1),
+                                     max(plan.params[12], 1))
+    ws, cnt = _build.scratch(x.device, stream, ws_rows * D, counters)
     launch = _build.entry("rmsnorm_bwd", _BWD_ARGTYPES)
     err = launch(x2.data_ptr(), w.data_ptr(), dy2.data_ptr(), dx.data_ptr(),
-                 dw.data_ptr(), rstd.data_ptr(), part.data_ptr(), rows, D,
-                 x2.stride(0), dy2.stride(0), plan.nchunks, plan.chunk,
-                 plan.grid_dx, code, w_code, float(eps), _build.stream())
+                 dw.data_ptr(), ws.data_ptr(), cnt.data_ptr(),
+                 ctypes.addressof(plan.params), float(eps), stream)
     _build.check(err, "rmsnorm_bwd")
     _build.launches["rmsnorm_bwd"] += 1
     return dx, dw

@@ -463,6 +463,26 @@ RMS_BWD_SHAPES = [(64, 576), (32, 576), (37, 577), (3, 7168), (1, 8),
                   (2, 5, 96)]
 
 
+def _rms_bwd_inputs(shape, dtype, w_dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    x = _dev(rng.standard_normal(shape, np.float32), dtype, device)
+    dy = _dev(rng.standard_normal(shape, np.float32), dtype, device)
+    w = _dev((rng.standard_normal(shape[-1]) * 0.1).astype(np.float32),
+             w_dtype, device)
+    return x, w, dy
+
+
+def _check_rms_bwd(got, want, bf16):
+    """dx within the kernels' tolerance; dw sums a column over the rows, so
+    its atol scales with its largest magnitude."""
+    tol = 3e-2 if bf16 else 1e-4
+    torch.testing.assert_close(got[0].float(), want[0].float(), rtol=tol,
+                               atol=tol)
+    scale = max(1.0, float(want[1].float().abs().max()))
+    torch.testing.assert_close(got[1].float(), want[1].float(), rtol=tol,
+                               atol=tol * scale)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape", RMS_BWD_SHAPES)
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -471,11 +491,7 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda_device, shape, dtype,
                                           w_dtype):
     from repro_torch.kernels.rmsnorm import rmsnorm_bwd_cuda
     tdt = DTYPES[dtype]
-    rng = np.random.default_rng(24)
-    x = _dev(rng.standard_normal(shape, np.float32), tdt, cuda_device)
-    dy = _dev(rng.standard_normal(shape, np.float32), tdt, cuda_device)
-    w = _dev((rng.standard_normal(shape[-1]) * 0.1).astype(np.float32),
-             DTYPES[w_dtype], cuda_device)
+    x, w, dy = _rms_bwd_inputs(shape, tdt, DTYPES[w_dtype], cuda_device, 24)
     n0 = ops.launches["rmsnorm_bwd"]
     dx, dw = rmsnorm_bwd_cuda(x, w, dy)
     dx2, dw2 = rmsnorm_bwd_cuda(x, w, dy)
@@ -483,21 +499,78 @@ def test_rmsnorm_bwd_kernel_matches_plain(cuda_device, shape, dtype,
     assert ops.launches["rmsnorm_bwd"] == n0 + 2
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
     assert dx.dtype == tdt and dw.dtype == w.dtype
-    want_dx, want_dw = ref.rmsnorm_bwd_ref(x, w, dy)
-    tol = 3e-2 if "bfloat16" in (dtype, w_dtype) else 1e-4
-    torch.testing.assert_close(dx.float(), want_dx.float(), rtol=tol,
-                               atol=tol)
-    # dw sums a column over the rows: its scale grows with them
-    scale = max(1.0, float(want_dw.float().abs().max()))
-    torch.testing.assert_close(dw.float(), want_dw.float(), rtol=tol,
-                               atol=tol * scale)
+    _check_rms_bwd((dx, dw), ref.rmsnorm_bwd_ref(x, w, dy),
+                   "bfloat16" in (dtype, w_dtype))
+
+
+# rows well above the grid (8192: many blocks, two levels of the dw sum)
+RMS_BWD_VARIANT_SHAPES = [(64, 576), (37, 577), (3, 7168), (1, 8), (10, 96),
+                          (8192, 576), (300, 4096)]
+
+
+def _rms_bwd_cases():
+    """(shape, x dtype, variant) for each variant that can take the shape
+    (plain Python: the plan's own rule, no card needed to list them)."""
+    from repro_torch.kernels.rmsnorm import variants_for
+    return [(s, dn, v) for s in RMS_BWD_VARIANT_SHAPES
+            for dn, t in DTYPES.items() for v in variants_for(s[1], s[1], t)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", _rms_bwd_cases())
+@pytest.mark.parametrize("w_dtype", ["float32", "bfloat16"])
+def test_rmsnorm_bwd_variants_match_plain(cuda_device, case, w_dtype):
+    """Each backward variant forced on each shape it takes: one launch a
+    call, the same bits on a repeat, within tolerance of the plain
+    version."""
+    from repro_torch.kernels.rmsnorm import bwd_plan_for, rmsnorm_bwd_cuda
+    shape, dtype, variant = case
+    x, w, dy = _rms_bwd_inputs(shape, DTYPES[dtype], DTYPES[w_dtype],
+                               cuda_device, 27)
+    plan = bwd_plan_for(x, w, dy, variant)
+    assert plan.variant == variant
+    n0 = ops.launches["rmsnorm_bwd"]
+    got = rmsnorm_bwd_cuda(x, w, dy, plan=plan)
+    again = rmsnorm_bwd_cuda(x, w, dy, plan=plan)
+    torch.cuda.synchronize()
+    assert ops.launches["rmsnorm_bwd"] == n0 + 2
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    _check_rms_bwd(got, ref.rmsnorm_bwd_ref(x, w, dy),
+                   "bfloat16" in (dtype, w_dtype))
+
+
+@pytest.mark.cuda
+def test_rmsnorm_bwd_same_bits_after_another_shape(cuda_device):
+    """The cached workspace and counters: a call of another shape (another
+    grid, one level of the dw sum or two) between two calls leaves the
+    result's bits unchanged, and every call leaves the counters at zero."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rmsnorm import bwd_plan_for, rmsnorm_bwd_cuda
+    f32 = torch.float32
+    a = _rms_bwd_inputs((64, 576), f32, f32, cuda_device, 28)
+    b = _rms_bwd_inputs((8192, 576), f32, f32, cuda_device, 29)
+    c = _rms_bwd_inputs((37, 577), f32, f32, cuda_device, 30)
+    assert bwd_plan_for(*a).counters == 1
+    assert bwd_plan_for(*b).counters > 2
+    firsts = [rmsnorm_bwd_cuda(*args) for args in (a, b, c)]
+    for args, first in zip((a, b, c, b, a), firsts + firsts[1::-1]):
+        got = rmsnorm_bwd_cuda(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], first[0]) and torch.equal(got[1], first[1])
+        _, cnt = _build._scratch[(cuda_device.index or 0,
+                                  _build.stream())]
+        assert int(cnt.count_nonzero()) == 0
+    for args, got in zip((a, b, c), firsts):
+        _check_rms_bwd(got, ref.rmsnorm_bwd_ref(*args), False)
 
 
 @pytest.mark.cuda
 def test_rmsnorm_bwd_strided_and_tampered(cuda_device):
-    from dataclasses import replace as dc_replace
-    from repro_torch.kernels.rmsnorm import (plan_rmsnorm_bwd,
-                                             rmsnorm_bwd_cuda)
+    """Strided rows of x and dy read in place; a plan whose geometry
+    differs from what the kernel derives, or whose vector variant meets a
+    misaligned pointer, fails before anything is launched (and the next
+    call is still right)."""
+    from repro_torch.kernels.rmsnorm import bwd_plan_for, rmsnorm_bwd_cuda
     big = torch.randn(9, 1200, device=cuda_device)
     x, dy = big[:, :577], big[:, 600:1177]          # strided rows
     w = torch.randn(577, device=cuda_device) * 0.1
@@ -505,12 +578,29 @@ def test_rmsnorm_bwd_strided_and_tampered(cuda_device):
     want_dx, want_dw = ref.rmsnorm_bwd_ref(x, w, dy)
     torch.testing.assert_close(dx, want_dx, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(dw, want_dw, rtol=1e-4, atol=1e-4)
-    plan = plan_rmsnorm_bwd(9, 577)
-    for bad in (dc_replace(plan, nchunks=plan.nchunks - 1),
-                dc_replace(plan, chunk=0), dc_replace(plan, grid_dx=0),
-                dc_replace(plan, nchunks=plan.nchunks + 9)):
+    x, dy = big[:, :576], big[:, 600:1176]          # strided, aligned
+    w = w[:576].contiguous()
+    plan = bwd_plan_for(x, w, dy)
+    assert plan.variant == "warp"
+    n0 = ops.launches["rmsnorm_bwd"]
+    # params: 7 variant, 8 nv, 9 threads, 10 rows a block, 11 grid, 12 group
+    for i, step in ((7, 1), (8, 1), (9, 32), (10, 1), (11, -plan.grid),
+                    (12, plan.grid), (12, -plan.group)):
+        bad = replace(plan, params=(ctypes.c_int64 * len(plan.params))(
+            *plan.params))
+        bad.params[i] += step
         with pytest.raises(RuntimeError, match="launch failed"):
             rmsnorm_bwd_cuda(x, w, dy, plan=bad)
+    buf = torch.randn(9 * 576 + 4, device=cuda_device)
+    off = buf[1:9 * 576 + 1].view(9, 576)           # 4 bytes off 16
+    assert bwd_plan_for(off, w, dy).variant == "scalar"
+    with pytest.raises(RuntimeError, match="launch failed"):
+        rmsnorm_bwd_cuda(off, w, dy, plan=bwd_plan_for(off.clone(), w, dy))
+    with pytest.raises(ValueError, match="other tensors"):
+        rmsnorm_bwd_cuda(x[:3], w, dy[:3], plan=plan)
+    assert ops.launches["rmsnorm_bwd"] == n0
+    got = rmsnorm_bwd_cuda(x, w, dy, plan=plan)
+    _check_rms_bwd(got, ref.rmsnorm_bwd_ref(x, w, dy), False)
 
 
 @pytest.mark.cuda

@@ -258,16 +258,56 @@ def test_attn_block_keeps_the_serving_tile_at_the_default_chunk(monkeypatch):
 @pytest.mark.parametrize("rows", [1, 7, 64, 65, 8192])
 @pytest.mark.parametrize("D", [1, 8, 576, 4096])
 @pytest.mark.parametrize("sms", [1, 132])
-def test_rmsnorm_bwd_plan_covers_every_row_once(rows, D, sms):
-    from repro_torch.kernels.rmsnorm import BWD_THREADS, plan_rmsnorm_bwd
-    plan = plan_rmsnorm_bwd(rows, D, sms)
-    # the C entry's checks: chunks cover the rows and none is empty
-    assert plan.nchunks * plan.chunk >= rows
-    assert (plan.nchunks - 1) * plan.chunk < rows
-    assert 1 <= plan.nchunks < 65536
-    # dx: a warp per row, grid-stride, the grid stops at what the SMs hold
-    assert plan.grid_dx == min(-(-rows // (BWD_THREADS // 32)),
-                               sms * 2048 // BWD_THREADS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_bwd_plan_covers_every_row_once(rows, D, sms, dtype):
+    """The one-launch backward's plan: the forward's variant and vectors a
+    thread; blocks x rows a block visit every row once (the kernels'
+    grid-stride loops, walked here); the grid stops at what the SMs hold;
+    a workspace row per block; groups of the two-level dw sum; a forced
+    variant that cannot take the shape raises."""
+    from repro_torch.kernels.rmsnorm import (
+        BWD_BLOCKS_PER_SM, WARP_RED_FLOATS, plan_rmsnorm, plan_rmsnorm_bwd,
+        variants_for)
+    w_dtype = torch.float32
+    plan = plan_rmsnorm_bwd(rows, D, D, dtype, w_dtype, sms=sms)
+    fwd = plan_rmsnorm(rows, D, D, dtype, w_dtype, sms=sms)
+    assert plan.variant == variants_for(D, D, dtype)[0] == fwd.variant
+    assert plan.nv == fwd.nv
+    if plan.variant == "warp":
+        assert plan.threads == 32 * plan.rows_per_block
+        assert plan.rows_per_block * D <= WARP_RED_FLOATS
+    else:
+        assert plan.threads == fwd.threads and plan.rows_per_block == 1
+    # row = (block * rpb + warp) + k * grid * rpb, as the kernels walk them
+    rpb, grid = plan.rows_per_block, plan.grid
+    seen = np.zeros(rows, dtype=np.int64)
+    for b in range(grid):
+        for wp in range(rpb):
+            seen[b * rpb + wp::grid * rpb] += 1
+    assert (seen == 1).all()
+    assert 1 <= grid <= -(-rows // rpb)                    # no idle block
+    assert grid == min(-(-rows // rpb), sms * BWD_BLOCKS_PER_SM)
+    assert plan.ws_rows == grid
+    groups = -(-grid // plan.group)
+    assert 1 <= plan.group <= grid
+    assert plan.counters == (groups + 1 if groups > 1 else 1)
+    assert tuple(plan.params) == (rows, D, D, D, D, 0 if dtype ==
+                                  torch.float32 else 1, 0,
+                                  {"warp": 0, "block": 1,
+                                   "scalar": 2}[plan.variant],
+                                  plan.nv, plan.threads, rpb, grid,
+                                  plan.group)
+    # forcing a variant: each one that fits is taken; one that cannot take
+    # the shape (row strides that do not hold whole vectors) raises
+    for v in variants_for(D, D, dtype):
+        assert plan_rmsnorm_bwd(rows, D, D, dtype, w_dtype, sms=sms,
+                                variant=v).variant == v
+    with pytest.raises(ValueError, match="cannot take"):
+        plan_rmsnorm_bwd(rows, D, D + 1, dtype, w_dtype, sms=sms,
+                         variant="warp")
+    with pytest.raises(ValueError, match="cannot take"):
+        plan_rmsnorm_bwd(rows, D, D, dtype, w_dtype, sms=sms,
+                         variant="block", dy_stride=D + 1)
 
 
 def test_backward_wrappers_refuse_cpu_tensors():
