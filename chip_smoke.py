@@ -40,7 +40,8 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               dx/dw, and the matmul backward's products on transposed
               views) against its plain version at the tuning loop's
               full-width shapes (batch 2 and 1 of 32 tokens, KV chunk 16
-              and 64), at a 2048-token prompt and at 8192x4096, with two
+              and 64), at a 2048-token prompt and at 8192x4096 (flash
+              attention and RMSNorm in f32 and bf16), with two
               runs compared bit for bit, timed beside its bound, plain
               version and library call (SDPA's and F.rms_norm's backward
               by autograd, torch.matmul); then one full-width attn_fb,
@@ -841,22 +842,38 @@ def rms_bwd_cost(x, w):
         8 * x.numel()
 
 
-def grad_case_flash(label, dims, bk, gen, timed=True):
+# bf16 flash backward against its plain version: the kernel rounds P and dS
+# to bf16 before their products (the plain version keeps them f32), both
+# round the outputs: rtol 2e-2 (a few ulps of the element) and atol 1e-2 x
+# the tensor's largest magnitude (tests/test_torch_cuda.py BWD_TOL_BF16)
+GRAD_TOL_BF16 = (2e-2, 1e-2)
+
+
+def grad_case_flash(label, dims, bk, gen, timed=True, dtype=torch.float32):
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_cuda, flash_attention_cuda, kv_tile)
+        flash_attention_bwd_cuda, flash_attention_cuda, plan_flash_bwd)
     B, Sq, Skv, H, KVH, d = dims
-    q, k, v = flash_case(B, Sq, Skv, H, KVH, d, torch.float32, gen)
-    do = randn((B, Sq, H, d), torch.float32, 1.0, gen)
+    dn = str(dtype).split(".")[1]
+    q, k, v = flash_case(B, Sq, Skv, H, KVH, d, dtype, gen)
+    do = randn((B, Sq, H, d), dtype, 1.0, gen)
     o, lse = flash_attention_cuda(q, k, v, bk=bk, with_lse=True)
     run = lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do,  # noqa: E731
                                            bk=bk)
     got, again = run(), run()
     want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
     torch.cuda.synchronize()
-    row = {"kernel": "flash_attention_bwd", "shape": label, "dtype": "float32",
-           "tile": kv_tile(bk, Skv, q.dtype), "bk": bk,
+    plan = plan_flash_bwd(q, k, v, o, do, bk)
+
+    def tol(w):
+        if dtype == torch.float32:
+            return GRAD_TOL
+        rtol, arel = GRAD_TOL_BF16
+        return rtol, arel * float(w.float().abs().max())
+    row = {"kernel": "flash_attention_bwd", "shape": label, "dtype": dn,
+           "tile": plan.tile, "bk": bk, "splits": plan.splits,
+           "grid": plan.grid,
            "bit_identical": all(torch.equal(a, b) for a, b in zip(got, again)),
-           "max_abs_err": max(check_close(label, g, w, "float32", GRAD_TOL)
+           "max_abs_err": max(check_close(label, g, w, dn, tol(w))
                               for g, w in zip(got, want))}
     if not row["bit_identical"]:
         raise AssertionError(f"flash_attention_bwd {label}: two runs differ")
@@ -940,7 +957,8 @@ def grad_timing(row, run, plain, lib, nbytes, flops):
     row["ms"], row["host_ms"] = time_ms(run)
     row["plain_ms"], _ = time_ms(plain, reps=5)
     row["library_ms"], row["library_host_ms"] = time_ms(lib)
-    tile = f" [tile {row['tile']}]" if "tile" in row else \
+    tile = f" [tile {row['tile']}, splits {row['splits']}]" \
+        if "tile" in row else \
         (f" [{row['path']}]" if "path" in row else "")
     print(f"[grads] {row['kernel']:19s} {row['shape']:44s} {row['dtype']} "
           f"err {row['max_abs_err']:.2e}{tile} same bits on repeat: "
@@ -972,13 +990,15 @@ def phase_grads(cfg):
     F_, V = cfg.d_ff, cfg.vocab
     S = STUDY["seq"]
     rows = []
-    for mb in (2, 1):
-        for bk in (16, 64):
-            rows.append(grad_case_flash(
-                f"study mb{mb} S{S} H{H}/{KVH} d{d} kv{bk}",
-                (mb, S, S, H, KVH, d), bk, gen))
-    rows.append(grad_case_flash(f"long prompt B1 S2048 H{H}/{KVH} d{d} kv64",
-                                (1, 2048, 2048, H, KVH, d), 64, gen))
+    for dt in (torch.float32, torch.bfloat16):
+        for mb in (2, 1):
+            for bk in (16, 64):
+                rows.append(grad_case_flash(
+                    f"study mb{mb} S{S} H{H}/{KVH} d{d} kv{bk}",
+                    (mb, S, S, H, KVH, d), bk, gen, dtype=dt))
+        rows.append(grad_case_flash(
+            f"long prompt B1 S2048 H{H}/{KVH} d{d} kv64",
+            (1, 2048, 2048, H, KVH, d), 64, gen, dtype=dt))
     for n in (2 * S, S):
         rows.append(grad_case_rms(f"study {n}x{D}", n, D, torch.float32, gen))
     for dt in (torch.float32, torch.bfloat16):

@@ -20,9 +20,11 @@ Kernels present (ports of the Pallas kernels in ``repro.kernels``):
 Backward kernels (no Pallas counterpart: JAX differentiates the plain
 layers), behind ``torch.autograd.Function``s in ``ops.py``:
   flash_attention_bwd  FlashAttention-2 recompute from the forward's
-                  log-sum-exp, one launch: dK/dV a block per KV tile
-                  carrying the group's query heads, dQ a block per 64
-                  query rows (f32)
+                  log-sum-exp, one launch (f32 and bf16): dK/dV blocks
+                  per KV tile carrying the group's query heads (long key
+                  tiles split, summed in split order), dQ blocks of 64
+                  query rows; cp.async-staged tiles, bf16 on mma.sync,
+                  f32 on 4 x 4 FMA register tiles
   rmsnorm_bwd     one launch: dx and dw from one read of x and dy held in
                   registers (the forward's warp/block/scalar variants);
                   each block's dw partial summed in a fixed order by the

@@ -17,8 +17,15 @@ holds it; the serving default where the caller names none); and the
 cp.async variant where every q/k/v row is 16-byte aligned.
 
 The backward pass (``flash_attention_bwd_cuda``, ``csrc/
-flash_attention_bwd.cu``) recomputes the probabilities from the per-row
-log-sum-exp that the forward writes when asked (``with_lse``); f32 only.
+flash_attention_bwd.cu``, f32 and bf16) recomputes the probabilities from
+the per-row log-sum-exp that the forward writes when asked (``with_lse``).
+``plan_flash_bwd`` picks its geometry: the KV tile (``kv_tile``, as the
+forward), the block's warps and rows a chunk (per dtype and head width),
+the dK/dV blocks a key tile (``splits``: more than one only where a key
+tile's rows are many, as in long prompts) and the grid, which interleaves
+the dK/dV blocks (early keys first) with the dQ blocks (late rows first) so
+the heaviest of both start first.  ``bwd_scratch`` sizes the split key
+tiles' workspace and counters from the values the C entry is given.
 """
 
 from __future__ import annotations
@@ -42,9 +49,13 @@ DEFAULT_BK = {torch.float32: 32, torch.bfloat16: 64}
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6
              + [ctypes.c_int64] * 12
              + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int64] * 6
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int64] * 6
                  + [ctypes.c_int64] * 15
-                 + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                 + [ctypes.c_float] + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+# backward: a dK/dV block's rows are cut into splits only where each keeps
+# at least this many chunks of rows
+SPLIT_MIN_CHUNKS = 4
+MAX_SPLITS = 16
 
 
 @dataclass(frozen=True)
@@ -89,6 +100,85 @@ def _plan_flash(B: int, Sq: int, H: int, KVH: int, vec: bool,
     if grid[0] >= 2 ** 31 or grid[1] >= 2 ** 16 or grid[2] >= 2 ** 16:
         raise ValueError(f"flash_attention: grid {grid} too large")
     return FlashPlan(gh, bq, vec, grid, bk)
+
+
+@dataclass(frozen=True)
+class FlashBwdPlan:
+    dtype: torch.dtype
+    tile: int                  # keys per KV tile (csrc BK)
+    warps: int                 # warps a block
+    rows: int                  # (position, head) rows a chunk (csrc RC)
+    splits: int                # dK/dV blocks a key tile
+    vec: bool                  # cp.async: q/k/v/o/dO rows 16-byte aligned
+    grid: Tuple[int, int, int]
+    kv_blocks: int             # of grid[0]: ktiles x splits dK/dV blocks
+    q_blocks: int              # ... and the dQ blocks of `rows` rows each
+    Sq: int
+    Skv: int
+    G: int                     # query heads a KV head
+    causal: bool
+
+
+def _bwd_geometry(dtype, d: int, tile: int) -> Tuple[int, int]:
+    """(warps, rows a chunk) of the backward kernel's instantiation
+    (csrc ``Geo``): bf16 4 warps of 16 rows; f32 4 keys x 4 rows register
+    tiles, 64 rows a chunk; at d 128 4 x 2 tiles and 32 rows (shared
+    memory and registers)."""
+    if dtype == torch.bfloat16:
+        return 4, 64
+    rows, tile_rows = (32, 2) if d > 64 else (64, 4)
+    return tile * rows // (4 * tile_rows) // 32, rows
+
+
+def plan_flash_bwd(q, k, v, o, do, bk=None, *,
+                   causal: bool = True) -> FlashBwdPlan:
+    """Backward geometry for q/o/do (B, Sq, H, d), k/v (B, Skv, KVH, d)
+    with unit stride along d, for the forward's KV chunk ``bk``."""
+    width = 16 // q.element_size()
+    vec = all(t.data_ptr() % 16 == 0 and all(
+        t.stride(i) % width == 0 for i in range(3) if t.shape[i] > 1)
+        for t in (q, k, v, o, do))
+    B, Sq, H, d = q.shape
+    Skv = k.shape[1]
+    return _plan_flash_bwd(q.dtype, B, Sq, Skv, H, k.shape[2], d, vec,
+                           kv_tile(bk, Skv, q.dtype), causal)
+
+
+@functools.lru_cache(maxsize=1024)
+def _plan_flash_bwd(dtype, B: int, Sq: int, Skv: int, H: int, KVH: int,
+                    d: int, vec: bool, tile: int,
+                    causal: bool) -> FlashBwdPlan:
+    G = H // KVH
+    warps, rows = _bwd_geometry(dtype, d, tile)
+    nrows = Sq * G
+    # the heaviest key tile sees all nrows rows (4 products over `tile`
+    # keys); the heaviest dQ block all Skv keys (3 products over `rows`
+    # rows): cut the first so a share weighs about half the second (finer
+    # blocks pack the grid's tail better), keeping at least
+    # SPLIT_MIN_CHUNKS chunks a share
+    want = -(-8 * tile * nrows // (3 * rows * Skv))
+    splits = max(1, min(want, nrows // (SPLIT_MIN_CHUNKS * rows),
+                        MAX_SPLITS))
+    ktiles = -(-Skv // tile)
+    kv_blocks, q_blocks = ktiles * splits, -(-nrows // rows)
+    grid = (kv_blocks + q_blocks, KVH, B)
+    if grid[0] >= 2 ** 31 or grid[1] >= 2 ** 16 or grid[2] >= 2 ** 16 \
+            or nrows >= 2 ** 31:
+        raise ValueError(f"flash_attention_bwd: grid {grid} too large")
+    return FlashBwdPlan(dtype, tile, warps, rows, splits, vec, grid,
+                        kv_blocks, q_blocks, Sq, Skv, G, causal)
+
+
+def bwd_scratch(B: int, KVH: int, Skv: int, tile: int, splits: int,
+                d: int) -> Tuple[int, int]:
+    """(f32 workspace, int32 counters) the backward kernel uses for these
+    C entry arguments: with splits > 1, every key tile of every (batch, KV
+    head) holds ``splits`` partials of dK and dV (2 tile d floats each) and
+    one counter; with one split, none."""
+    if splits <= 1:
+        return 0, 0
+    tiles = B * KVH * -(-Skv // tile)
+    return tiles * splits * 2 * tile * d, tiles
 
 
 def _unit_last(t: torch.Tensor) -> torch.Tensor:
@@ -142,19 +232,19 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, bk=None,
 
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
-                             bk=None, tile: int | None = None):
+                             bk=None, plan: FlashBwdPlan | None = None):
     """Gradients (dq, dk, dv) of ``flash_attention_cuda`` for output
     gradient ``do`` (q's shape), from the forward's output ``o`` and its
-    ``lse`` (B, H, Sq); f32 CUDA tensors.  ``bk``: the forward's KV chunk;
-    ``tile`` overrides ``kv_tile``'s choice (tests).  One launch of
-    csrc/flash_attention_bwd.cu: its dK/dV blocks and dQ blocks share the
-    grid."""
+    ``lse`` (B, H, Sq, f32); q, k, v, o and do CUDA tensors of one dtype,
+    f32 or bf16 (anything else raises ``TypeError``); the gradients come
+    out in it.  ``bk``: the forward's KV chunk; ``plan`` overrides
+    ``plan_flash_bwd``'s (tests: the C entry refuses a plan that is not its
+    own).  One launch of csrc/flash_attention_bwd.cu: its dK/dV blocks and
+    dQ blocks share the grid."""
     _check_shapes(q, k, v, causal)
     B, Sq, H, d = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     code = _build.check_inputs("flash_attention_bwd", q, k, v, o, do)
-    if code != _build.DTYPE_CODES[torch.float32]:
-        raise TypeError(f"flash_attention_bwd: f32 only, got {q.dtype}")
     if o.shape != q.shape or do.shape != q.shape:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
                          f"{tuple(do.shape)} != q {tuple(q.shape)}")
@@ -168,15 +258,26 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
     dv = torch.empty_like(dk)
     if dq.numel() == 0 or dk.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    if tile is None:
-        tile = kv_tile(bk, Skv, q.dtype)
+    if plan is None:
+        plan = plan_flash_bwd(q, k, v, o, do, bk, causal=causal)
+    stream = _build.stream()
+    ws = cnt = None
+    if plan.splits > 1:
+        # sized from what the C entry is given, not from the plan's other
+        # fields, so no plan can send the kernel past its scratch
+        ws, cnt = _build.scratch(q.device, stream, *bwd_scratch(
+            B, KVH, Skv, plan.tile, plan.splits, d))
     strides = [t.stride(i) for t in (q, k, v, o, do) for i in range(3)]
     launch = _build.entry("flash_attention_bwd", _BWD_ARGTYPES)
     err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(), B, H, KVH, Sq, Skv, d,
-                 *strides, 1.0 / math.sqrt(d), int(causal), tile, code,
-                 _build.stream())
+                 dk.data_ptr(), dv.data_ptr(),
+                 None if ws is None else ws.data_ptr(),
+                 None if cnt is None else cnt.data_ptr(),
+                 B, H, KVH, Sq, Skv, d, *strides, 1.0 / math.sqrt(d),
+                 int(causal), plan.tile, code, plan.warps, plan.rows,
+                 plan.splits, int(plan.vec), plan.kv_blocks, plan.q_blocks,
+                 stream)
     _build.check(err, "flash_attention_bwd")
     _build.launches["flash_attention_bwd"] += 1
     return dq, dk, dv

@@ -376,52 +376,149 @@ def test_rmsnorm_rejects_a_plan_with_other_geometry(cuda_device):
 FLASH_BWD_DIMS = [(1, 37, 37, 9, 3, 64), (2, 5, 12, 4, 2, 16),
                   (1, 33, 70, 4, 4, 8), (2, 96, 96, 8, 2, 32),
                   (1, 20, 20, 2, 1, 128), (2, 32, 32, 9, 3, 64),
-                  (1, 32, 32, 9, 3, 64)]
+                  (1, 32, 32, 9, 3, 64),
+                  # Skv >= 64 at d 128 and d 16, so that the kv_tile
+                  # clamp leaves every (dtype, d, tile) instantiation run
+                  (1, 80, 80, 4, 2, 128), (2, 70, 70, 4, 2, 16)]
 BWD_TOL = (1e-4, 1e-4)     # f32 sums in another order than the plain version
+# bf16: the kernel rounds P and dS to bf16 (8 significant bits) before their
+# products, as FlashAttention-2 does, where the plain version keeps them in
+# f32; both round the outputs.  So an element may differ by a few of its
+# own ulps (2^-8 relative: rtol 2e-2) plus the rounding of P and dS summed
+# over the rows or keys, which is relative to the tensor's largest
+# magnitude (atol 1e-2 x that; measured on the card: under 6e-3)
+BWD_TOL_BF16 = (2e-2, 1e-2)
 
 
-def _flash_inputs(dims, device, seed):
+def _flash_inputs(dims, device, seed, dtype=torch.float32):
     B, Sq, Skv, H, KVH, d = dims
     rng = np.random.default_rng(seed)
     mk = lambda *s: _dev(rng.standard_normal(s, np.float32),  # noqa: E731
-                         torch.float32, device)
+                         dtype, device)
     return mk(B, Sq, H, d), mk(B, Skv, KVH, d), mk(B, Skv, KVH, d), \
         mk(B, Sq, H, d)
+
+
+def _check_flash_bwd(got, want, dtype):
+    """Each of dq, dk, dv against the plain version at its dtype's
+    tolerance (bf16: atol relative to the tensor's largest magnitude)."""
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        if dtype == "bfloat16":
+            rtol, arel = BWD_TOL_BF16
+            atol = arel * float(w.float().abs().max())
+        else:
+            rtol, atol = BWD_TOL
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                   atol=atol)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dims", FLASH_BWD_DIMS)
 @pytest.mark.parametrize("bk", [16, 32, 64])
-def test_flash_attention_bwd_kernel_matches_plain(cuda_device, dims, bk):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_kernel_matches_plain(cuda_device, dims, bk,
+                                                  dtype):
     """Forward with lse at KV tile bk, then dq/dk/dv through the autograd
-    path, against the plain backward; two runs give the same bits."""
+    path, against the plain backward; two runs give the same bits; the
+    autograd path launches both kernels and calls no plain version."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_cuda)
-    q, k, v, do = _flash_inputs(dims, cuda_device, 21)
+    tdt = DTYPES[dtype]
+    q, k, v, do = _flash_inputs(dims, cuda_device, 21, tdt)
     o, lse = flash_attention_cuda(q, k, v, bk=bk, with_lse=True)
     o_ref, lse_ref = ref.flash_attention_ref(q, k, v, return_lse=True)
-    torch.testing.assert_close(o, o_ref, rtol=3e-4, atol=3e-4)
-    torch.testing.assert_close(lse, lse_ref, rtol=1e-5, atol=1e-5)
+    # the forward's own tolerances (test_flash_attention_forward_tiles_...)
+    otol, ltol = (4e-2, 4e-2) if dtype == "bfloat16" else (3e-4, 1e-5)
+    torch.testing.assert_close(o.float(), o_ref.float(), rtol=otol,
+                               atol=otol)
+    torch.testing.assert_close(lse, lse_ref, rtol=ltol, atol=ltol)
     n0 = ops.launches["flash_attention_bwd"]
     got = flash_attention_bwd_cuda(q, k, v, o, lse, do, bk=bk)
     again = flash_attention_bwd_cuda(q, k, v, o, lse, do, bk=bk)
     torch.cuda.synchronize()
     assert ops.launches["flash_attention_bwd"] == n0 + 2
     want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
-    rtol, atol = BWD_TOL
-    for g, a, w in zip(got, again, want):
+    for g, a in zip(got, again):
         assert torch.equal(g, a)
-        torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+    _check_flash_bwd(got, want, dtype)
     # the autograd Function: forward and backward both on the card
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-    n1 = dict(ops.launches)
+    n1, p1 = dict(ops.launches), dict(ops.plain_calls)
     out = ops.flash_attention(*leaves, bk=bk)
     grads = torch.autograd.grad(out, leaves, do)
     assert ops.launches["flash_attention"] == n1["flash_attention"] + 1
     assert ops.launches["flash_attention_bwd"] == \
         n1["flash_attention_bwd"] + 1
-    for g, w in zip(grads, want):
-        torch.testing.assert_close(g, w, rtol=rtol, atol=atol)
+    assert ops.plain_calls == p1
+    _check_flash_bwd(grads, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_splits_key_tiles(cuda_device, dtype):
+    """A long prompt: the plan cuts each key tile's rows over several
+    dK/dV blocks, summed in split order by the last to arrive; the same
+    bits twice, and the counters back at zero between calls."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (
+        bwd_scratch, flash_attention_bwd_cuda, flash_attention_cuda,
+        plan_flash_bwd)
+    tdt = DTYPES[dtype]
+    q, k, v, do = _flash_inputs((1, 512, 512, 6, 2, 64), cuda_device, 27,
+                                tdt)
+    o, lse = flash_attention_cuda(q, k, v, bk=64, with_lse=True)
+    plan = plan_flash_bwd(q, k, v, o, do, 64)
+    assert plan.splits > 1 and plan.vec
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, bk=64)
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, do, bk=64)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    _check_flash_bwd(got, ref.flash_attention_bwd_ref(q, k, v, o, lse, do),
+                     dtype)
+    # twice the splits, the dK/dV block count to match: the wrapper sizes
+    # the workspace from the splits it passes, so the plan runs and agrees
+    from dataclasses import replace as dc_replace
+    more = dc_replace(plan, splits=2 * plan.splits,
+                      kv_blocks=2 * plan.kv_blocks)
+    _check_flash_bwd(flash_attention_bwd_cuda(q, k, v, o, lse, do, plan=more),
+                     ref.flash_attention_bwd_ref(q, k, v, o, lse, do), dtype)
+    counters = bwd_scratch(1, 2, 512, plan.tile, more.splits, 64)[1]
+    _, cnt = _build.scratch(q.device, _build.stream(), 0, counters)
+    assert int(cnt[:counters].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_misaligned_and_strided(cuda_device, dtype):
+    """k/v one element off alignment and q, dO strided slices of wider
+    tensors: the element-load path, against the plain version; the same
+    views made contiguous take cp.async."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda, plan_flash_bwd)
+    B, S, H, KVH, d = 1, 45, 6, 2, 32
+    tdt = DTYPES[dtype]
+    rng = np.random.default_rng(28)
+    q = _dev(rng.standard_normal((B, S, 2 * H, d), np.float32), tdt,
+             cuda_device)[:, :, :H]
+    do = _dev(rng.standard_normal((B, S, 2 * H, d), np.float32), tdt,
+              cuda_device)[:, :, H:]
+    n = B * S * KVH * d
+    kbuf = _dev(rng.standard_normal(2 * n + 1, np.float32), tdt, cuda_device)
+    k = kbuf[1:n + 1].view(B, S, KVH, d)
+    v = kbuf[n + 1:].view(B, S, KVH, d)
+    for bk in (16, 64):
+        o, lse = flash_attention_cuda(q, k, v, bk=bk, with_lse=True)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
+        assert not plan_flash_bwd(q, k, v, o, do, bk).vec
+        got = flash_attention_bwd_cuda(q, k, v, o, lse, do, bk=bk)
+        _check_flash_bwd(got, want, dtype)
+        kc, vc = k.clone(), v.clone()
+        assert plan_flash_bwd(q, kc, vc, o, do, bk).vec
+        _check_flash_bwd(flash_attention_bwd_cuda(q, kc, vc, o, lse, do,
+                                                  bk=bk), want, dtype)
+        torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -445,18 +542,42 @@ def test_flash_attention_forward_tiles_match_plain(cuda_device, bk, dtype):
 
 @pytest.mark.cuda
 def test_flash_attention_bwd_rejects_what_it_cannot_run(cuda_device):
+    from dataclasses import replace as dc_replace
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bwd_cuda, flash_attention_cuda)
+        flash_attention_bwd_cuda, flash_attention_cuda, plan_flash_bwd)
     q, k, v, do = _flash_inputs((1, 37, 37, 9, 3, 64), cuda_device, 23)
     o, lse = flash_attention_cuda(q, k, v, with_lse=True)
     for tile in (8, 48, 128):      # not an instantiated tile
         with pytest.raises(RuntimeError, match="launch failed"):
-            flash_attention_bwd_cuda(q, k, v, o, lse, do, tile=tile)
-    with pytest.raises(TypeError, match="f32 only"):
-        bf = [t.to(torch.bfloat16) for t in (q, k, v, o, do)]
-        flash_attention_bwd_cuda(*bf[:4], lse, bf[4])
+            flash_attention_bwd_cuda(
+                q, k, v, o, lse, do,
+                plan=dc_replace(plan_flash_bwd(q, k, v, o, do), tile=tile))
+    # f16, and mixed dtypes, raise: no fallback
+    with pytest.raises(TypeError):
+        h = [t.half() for t in (q, k, v, o, do)]
+        flash_attention_bwd_cuda(*h[:4], lse, h[4])
+    with pytest.raises(TypeError):
+        flash_attention_bwd_cuda(q, k.bfloat16(), v, o, lse, do)
     with pytest.raises(ValueError, match="lse"):
         flash_attention_bwd_cuda(q, k, v, o, lse[:, :, :-1], do)
+    # a plan that is not the C entry's own is refused before any launch
+    plan = plan_flash_bwd(q, k, v, o, do)
+    n0 = ops.launches["flash_attention_bwd"]
+    for bad in (dc_replace(plan, warps=plan.warps * 2),
+                dc_replace(plan, rows=plan.rows // 2),
+                dc_replace(plan, q_blocks=plan.q_blocks + 1),
+                dc_replace(plan, kv_blocks=plan.kv_blocks + 1)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            flash_attention_bwd_cuda(q, k, v, o, lse, do, plan=bad)
+    off = torch.empty(k.numel() + 4, device=cuda_device)[1:k.numel() + 1]
+    off = off.view(k.shape).copy_(k)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        flash_attention_bwd_cuda(q, off, v, o, lse, do, plan=plan)
+    assert ops.launches["flash_attention_bwd"] == n0
+    _check_flash_bwd(flash_attention_bwd_cuda(q, k, v, o, lse, do,
+                                              plan=plan),
+                     ref.flash_attention_bwd_ref(q, k, v, o, lse, do),
+                     "float32")
 
 
 RMS_BWD_SHAPES = [(64, 576), (32, 576), (37, 577), (3, 7168), (1, 8),

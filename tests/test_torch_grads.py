@@ -145,29 +145,49 @@ FLASH_SHAPES = [(2, 16, 16, 4, 2, 8), (1, 5, 12, 3, 1, 16),
                 (2, 9, 9, 2, 2, 8)]
 
 
+# bf16 (q, k, v, dO in bf16; the plain backward computes in f32 from them
+# and rounds its outputs): JAX's bf16 vjp rounds P to bf16 before P V and
+# carries bf16 cotangents, so the two differ by a couple of bf16 ulps (2^-8
+# relative) of each tensor's largest magnitude (measured: at most 6.8e-3 of
+# it at these shapes), hence rtol 2e-2 and atol 1.5e-2 x that magnitude
+BF16_TOL = (2e-2, 1.5e-2)
+
+
 @pytest.mark.parametrize("shape", FLASH_SHAPES)
-def test_flash_bwd_ref_matches_autograd_and_jax(shape):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_bwd_ref_matches_autograd_and_jax(shape, dtype):
     B, Sq, Skv, H, KVH, d = shape
     rng = np.random.default_rng(3)
     q, do = (rng.standard_normal((B, Sq, H, d)).astype(np.float32)
              for _ in range(2))
     k, v = (rng.standard_normal((B, Skv, KVH, d)).astype(np.float32)
             for _ in range(2))
-    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    tdt, jdt = {"float32": (torch.float32, jnp.float32),
+                "bfloat16": (torch.bfloat16, jnp.bfloat16)}[dtype]
+    tq, tk, tv = (torch.from_numpy(a).to(tdt).requires_grad_()
+                  for a in (q, k, v))
+    tdo = torch.from_numpy(do).to(tdt)
     o, lse = ref.flash_attention_ref(tq, tk, tv, return_lse=True)
-    auto = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(do))
+    auto = torch.autograd.grad(o, (tq, tk, tv), tdo)
     mine = ref.flash_attention_bwd_ref(tq.detach(), tk.detach(), tv.detach(),
-                                       o.detach(), lse, torch.from_numpy(do))
-    for g, a in zip(mine, auto):
-        _close(g, a)
+                                       o.detach(), lse, tdo)
 
     def jfwd(q, k, v):
         return JL.chunked_attention(
             q, k, v, q_positions=jnp.arange(Skv - Sq, Skv),
             kv_positions=jnp.arange(Skv), causal=True, kv_chunk=Skv)
-    _, vjp = jax.vjp(jfwd, *(jnp.asarray(a) for a in (q, k, v)))
-    for g, j in zip(mine, vjp(jnp.asarray(do))):
-        _close(g, j)
+    _, vjp = jax.vjp(jfwd, *(jnp.asarray(a, jdt) for a in (q, k, v)))
+    for g, a, j in zip(mine, auto, vjp(jnp.asarray(do, jdt))):
+        assert g.dtype == tdt and a.dtype == tdt
+        if dtype == "float32":
+            _close(g, a)
+            _close(g, j)
+            continue
+        g, a = (x.detach().float().numpy() for x in (g, a))
+        j = np.asarray(j, np.float32)
+        rtol, arel = BF16_TOL
+        _close(g, a, rtol=rtol, atol=arel * np.abs(a).max())
+        _close(g, j, rtol=rtol, atol=arel * np.abs(j).max())
 
 
 def test_rmsnorm_bwd_ref_matches_autograd_and_jax():

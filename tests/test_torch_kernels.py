@@ -19,8 +19,9 @@ from repro.kernels import rmsnorm as jax_rmsnorm
 from repro.kernels import ref as jax_ref
 from repro.models.layers import chunked_attention
 from repro_torch.kernels import _build, ops, ref
-from repro_torch.kernels.flash_attention import (ROWS, flash_attention_cuda,
-                                                 plan_flash)
+from repro_torch.kernels.flash_attention import (
+    BK_TILES, HEAD_DIMS, ROWS, bwd_scratch, flash_attention_cuda, kv_tile,
+    plan_flash, plan_flash_bwd)
 from repro_torch.kernels.matmul import (A_STAGE_FLOATS, SKINNY_MAX_M,
                                         SKINNY_MAX_M_ROWB_BEYOND_L2,
                                         matmul_cuda, plan_matmul,
@@ -337,6 +338,164 @@ def test_flash_plan_misaligned_picks_scalar_loads():
     q = torch.zeros(1, 31, 9, 64)
     assert not plan_flash(q, k, k).vec
     assert plan_flash(q, k.clone(), k.clone()).vec
+
+
+# -- the flash backward plan (plain Python, no card) -------------------------
+
+def _bwd_plan(B, Sq, Skv, H, KVH, d, dtype, bk=None, causal=True):
+    q = torch.zeros(B, Sq, H, d, dtype=dtype)
+    k = torch.zeros(B, Skv, KVH, d, dtype=dtype)
+    return plan_flash_bwd(q, k, k, q, q, bk, causal=causal)
+
+
+def bwd_blocks(plan):
+    """grid.x in the kernel's order: ("kv", key tile, split) or ("q", row
+    block).  Mirrors csrc/flash_attention_bwd.cu flash_bwd_kernel: of the
+    first x blocks, ceil(x kv_blocks / N) are dK/dV blocks."""
+    n1, N = plan.kv_blocks, plan.kv_blocks + plan.q_blocks
+    for x in range(N):
+        before, upto = -(-x * n1 // N), -(-(x + 1) * n1 // N)
+        if upto > before:
+            yield ("kv", before // plan.splits, before % plan.splits)
+        else:
+            yield ("q", plan.q_blocks - 1 - (x - before))
+
+
+def bwd_rows(plan, kind, idx, split=0):
+    """The (position, head) rows [begin, end) of a KV head that block
+    (kind, idx[, split]) walks.  Mirrors csrc/flash_attention_bwd.cu
+    split_rows (dQ: its own rows)."""
+    nrows = plan.Sq * plan.G
+    if kind == "q":
+        return idx * plan.rows, min(idx * plan.rows + plan.rows, nrows)
+    i0 = max(0, idx * plan.tile - (plan.Skv - plan.Sq)) if plan.causal else 0
+    first = i0 * plan.G
+    share = -(-(nrows - first) // plan.splits)
+    per = -(-share // plan.rows) * plan.rows
+    return (min(first + split * per, nrows),
+            min(first + split * per + per, nrows))
+
+
+def _bwd_work(plan, block):
+    """Products x rows x keys of a block (causal): a dK/dV block 4 over its
+    tile's keys and its rows, a dQ block 3 over its rows and the keys its
+    last row sees."""
+    kind, idx = block[0], block[1]
+    b, e = bwd_rows(plan, kind, idx, *block[2:])
+    if kind == "kv":
+        return 4 * plan.tile * (e - b)
+    last_pos = (e - 1) // plan.G
+    return 3 * (e - b) * min(plan.Skv, plan.Skv - plan.Sq + last_pos + 1)
+
+
+@pytest.mark.parametrize("hk", [(9, 3), (4, 4), (16, 2), (8, 1)])
+@pytest.mark.parametrize("S", [(1, 1), (31, 31), (32, 32), (20, 300),
+                               (2048, 2048)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bk", [16, 64])
+def test_flash_bwd_plan_covers_every_key_tile_and_row_once(hk, S, dtype, bk):
+    """Every key tile's splits cover, once, exactly the rows that see its
+    first key; the dQ blocks cover every (position, head) row of a KV head
+    once; the grid holds each block once."""
+    (H, KVH), (Sq, Skv) = hk, S
+    plan = _bwd_plan(2, Sq, Skv, H, KVH, 64, dtype, bk)
+    G, nrows = H // KVH, Sq * H // KVH
+    blocks = list(bwd_blocks(plan))
+    assert plan.grid == (len(blocks), KVH, 2)
+    ktiles = -(-Skv // plan.tile)
+    assert sorted(b[1:] for b in blocks if b[0] == "kv") == \
+        [(t, s) for t in range(ktiles) for s in range(plan.splits)]
+    qbs = sorted(b[1] for b in blocks if b[0] == "q")
+    assert qbs == list(range(plan.q_blocks))
+    ranges = [bwd_rows(plan, "q", i) for i in qbs]
+    assert ranges[0][0] == 0 and ranges[-1][1] == nrows
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    for t in range(ktiles):
+        first = max(0, t * plan.tile - (Skv - Sq)) * G
+        # the first row that sees key t * tile; the row before it sees none
+        assert first == 0 or (first // G - 1) + Skv - Sq + 1 <= t * plan.tile
+        parts = [bwd_rows(plan, "kv", t, s) for s in range(plan.splits)]
+        assert parts[0][0] == first and parts[-1][1] == nrows
+        assert all(a[1] == b[0] for a, b in zip(parts, parts[1:]))
+        assert all((e - b) % plan.rows == 0 or e == nrows for b, e in parts)
+
+
+@pytest.mark.parametrize("hk", [(9, 3), (16, 2), (8, 1)])
+@pytest.mark.parametrize("S", [256, 2048])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_plan_launches_heaviest_first(hk, S, dtype):
+    """Under the causal mask early key tiles and late row blocks carry the
+    most work: along the grid each kind's work never rises from one tile
+    (or row block) to the next, the grid opens with the heaviest key tile,
+    and no block weighs much more than the heaviest dQ block (the plan
+    cuts long key tiles to about its weight)."""
+    H, KVH = hk
+    plan = _bwd_plan(1, S, S, H, KVH, 64, dtype, 64)
+    blocks = list(bwd_blocks(plan))
+    assert blocks[0] == ("kv", 0, 0)
+    tiles = [b[1] for b in blocks if b[0] == "kv"]
+    assert tiles == sorted(tiles)
+    tile_work = [sum(_bwd_work(plan, ("kv", t, s))
+                     for s in range(plan.splits)) for t in sorted(set(tiles))]
+    assert all(a >= b for a, b in zip(tile_work, tile_work[1:]))
+    q_work = [_bwd_work(plan, b) for b in blocks if b[0] == "q"]
+    assert all(a >= b for a, b in zip(q_work[:-1], q_work[1:-1]))
+    heaviest_q = max(q_work)
+    assert max(_bwd_work(plan, b) for b in blocks) <= 2 * heaviest_q
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bk", [None, 1, 16, 17, 32, 64, 100])
+@pytest.mark.parametrize("Skv", [8, 32, 2048])
+def test_flash_bwd_plan_tile_follows_kv_tile(dtype, bk, Skv):
+    """The backward's KV tile is the forward's: the study's kv_chunk means
+    the same in both."""
+    plan = _bwd_plan(1, Skv, Skv, 9, 3, 64, dtype, bk)
+    assert plan.tile == kv_tile(bk, Skv, dtype) in BK_TILES
+    assert plan.dtype == dtype and plan.vec
+
+
+@pytest.mark.parametrize("d", HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bk", BK_TILES)
+def test_flash_bwd_plan_geometry(d, dtype, bk):
+    """bf16: 4 warps of 16 rows (mma.sync); f32: 4 x 4 keys x rows a thread,
+    64 rows a chunk (4 x 2 and 32 rows at d 128); one split at the tuning
+    loop's shapes, several at a 2048-token prompt, with workspace and
+    counters for them."""
+    plan = _bwd_plan(2, 32, 32, 9, 3, d, dtype, bk)
+    if dtype == torch.bfloat16:
+        assert (plan.warps, plan.rows) == (4, 64)
+    else:
+        tile_rows = 2 if d > 64 else 4
+        assert plan.rows == (32 if d > 64 else 64)
+        assert plan.warps * 32 * 4 * tile_rows == plan.tile * plan.rows
+    assert plan.splits == 1
+    assert bwd_scratch(2, 3, 32, plan.tile, plan.splits, d) == (0, 0)
+    assert plan.q_blocks == -(-32 * 3 // plan.rows)
+    long = _bwd_plan(1, 2048, 2048, 9, 3, d, dtype, 64)
+    assert long.splits > 1
+    ws_floats, counters = bwd_scratch(1, 3, 2048, long.tile, long.splits, d)
+    assert counters == 3 * (2048 // 64)
+    assert ws_floats == counters * long.splits * 2 * 64 * d
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_plan_misaligned_or_strided_takes_element_loads(dtype):
+    """vec (cp.async) needs every q/k/v/o/dO row 16-byte aligned: a k one
+    element off, or a dO whose heads sit d + 1 apart, turn it off."""
+    B, S, H, KVH, d = 1, 31, 9, 3, 64
+    q = torch.zeros(B, S, H, d, dtype=dtype)
+    k = torch.zeros(B, S, KVH, d, dtype=dtype)
+    buf = torch.zeros(1 + k.numel(), dtype=dtype)
+    off = buf[1:].view(B, S, KVH, d)
+    wide = torch.zeros(B, S, H, d + 1, dtype=dtype)[..., :d]
+    assert plan_flash_bwd(q, k, k, q, q).vec
+    assert not plan_flash_bwd(q, off, k, q, q).vec
+    assert not plan_flash_bwd(q, k, k, q, wide).vec
+    assert not plan_flash_bwd(q, k, k, wide, q).vec
+    # the forward's plan looks at q, k, v only
+    assert plan_flash(q, k, k).vec
 
 
 # -- the RMSNorm plan: variant and geometry (plain Python, no card) ----------
