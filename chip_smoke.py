@@ -55,7 +55,29 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               configuration the predicted and full-reference step, the
               executed and skipped kernels; chosen vs true best; launches
               per thunk by kernel; one step of the chosen configuration
-              broken down by thunk and under the profiler.
+              broken down by thunk and under the profiler;
+7. daemon  -- the always-on tuning daemon (repro_torch.serve.tuner):
+              first its thunks at the shapes no earlier phase runs (batch
+              2 and 4 of 16 tokens: attn_fb at KV chunk 16 and 64, remat
+              none and full, dense_fb, embed_loss_fb) on the card against
+              the port's CPU run; "parity", the reduced demo synchronous
+              on virtual clocks on
+              the card and on the CPU, whose summaries (journal included)
+              must be equal; "full width", the CLI's `--daemon` at full
+              width in the background with the launch counters zeroed
+              just before and read just after (every shape tuned, drift
+              detected and every re-tune settled, no banked kernel re-run
+              cold in steady state, every kernel launched, no plain
+              version, no failed study in the journal); "wall clock", the
+              daemon on its default clocks over the demo's three shapes
+              (first tunes and steady serving): per shape the winner, the
+              kernels a tuned step executes, skips and forces, the charged
+              step against one full execution of the winner's kernels, and
+              the host ms of a shadow serve step with another shape's
+              study in flight and with none;
+8. sim     -- the golden protocol of tests/golden_runner.py through the
+              port's copy of the simulator, equal to
+              tests/golden_reports.json bit for bit.
 
 It prints the kernels as one JSON line, then the last line
 ``{"ok": true, "device": {...}}``.  ``--out PATH`` also writes the full
@@ -983,7 +1005,7 @@ def phase_grads(cfg):
     bound, plain version and one PyTorch library call; then one
     full-width attn_fb, dense_fb and embed_loss_fb gradient of the study
     on the card against the port's CPU run."""
-    from repro_torch.tune.lm_study import LMStudy, StepKnobs, _flatten
+    from repro_torch.tune.lm_study import StepKnobs
     torch.backends.cuda.matmul.allow_tf32 = False
     gen = torch.Generator().manual_seed(5)
     H, KVH, d, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.d_model
@@ -1028,19 +1050,29 @@ def phase_grads(cfg):
           f"versions, each with the same bits on a second run")
 
     # one full-width gradient of each kind, card against the port's CPU run
-    studies = [LMStudy("smollm-135m", reduced=False, device=dv, **STUDY)
-               for dv in ("cuda", "cpu")]
+    checks = study_grads_vs_cpu("[grads]", STUDY["batch"], STUDY["seq"], (
+        ("attn_fb kv16 remat full", lambda st: st._mixer_kernel(
+            "attn", 0, StepKnobs("k", remat="full", kv_chunk=16), 2)),
+        ("dense_fb", lambda st: st._ffn_kernel(
+            "dense", 0, StepKnobs("k"), 2)),
+        ("embed_loss_fb", lambda st: st._embed_loss_kernel(
+            StepKnobs("k"), 2))))
+    return rows, checks
+
+
+def study_grads_vs_cpu(tag, batch, seq, kinds):
+    """Full-width ``LMStudy`` thunks (``kinds``: (name, study -> (sig,
+    build))) on the card against the port's CPU run on the same weights
+    (random norm weights) and inputs: every gradient within ``STUDY_TOL``
+    of its largest magnitude."""
+    from repro_torch.tune.lm_study import LMStudy, _flatten
+    studies = [LMStudy("smollm-135m", reduced=False, device=dv,
+                       batch=batch, seq=seq) for dv in ("cuda", "cpu")]
     for st in studies:
         _random_norms(st, 11)
     checks = []
     rtol, atol = STUDY_TOL
-    for kind, mk in (
-            ("attn_fb kv16 remat full", lambda st: st._mixer_kernel(
-                "attn", 0, StepKnobs("k", remat="full", kv_chunk=16), 2)),
-            ("dense_fb", lambda st: st._ffn_kernel(
-                "dense", 0, StepKnobs("k"), 2)),
-            ("embed_loss_fb", lambda st: st._embed_loss_kernel(
-                StepKnobs("k"), 2))):
+    for kind, mk in kinds:
         out = []
         for st in studies:
             fn, args = mk(st)[1]()
@@ -1051,18 +1083,20 @@ def phase_grads(cfg):
             err = (g - c).abs()
             lim = atol * max(1.0, float(c.abs().max())) + rtol * c.abs()
             if not torch.isfinite(g).all() or bool((err > lim).any()):
-                raise AssertionError(f"[grads] {kind} {'/'.join(path)}: card "
+                raise AssertionError(f"{tag} {kind} {'/'.join(path)}: card "
                                      f"vs CPU max abs err "
                                      f"{float(err.max()):.3e}")
             worst = max(worst, float((err / c.abs().max().clamp(min=1))
                                      .max()))
-        checks.append({"kernel": kind, "max_err_over_scale": worst})
-        print(f"[grads] full-width {kind}: card vs the port's CPU run, every "
-              f"gradient within rtol {rtol} and atol {atol} x its largest "
-              f"magnitude (max err / scale {worst:.2e})")
+        checks.append({"kernel": kind, "batch": batch, "seq": seq,
+                       "max_err_over_scale": worst})
+        print(f"{tag} full-width {kind} at batch {batch} x seq {seq}: card "
+              f"vs the port's CPU run, every gradient within rtol {rtol} "
+              f"and atol {atol} x its largest magnitude (max err / scale "
+              f"{worst:.2e})")
     del studies
     torch.cuda.empty_cache()
-    return rows, checks
+    return checks
 
 
 # -- phase 6: the wall-clock tuning loop --------------------------------------
@@ -1210,6 +1244,323 @@ def tune_step_breakdown(study, knobs, reps: int = 3):
     return out
 
 
+# -- phase 7: the always-on tuning daemon -------------------------------------
+
+DAEMON_KEYS = ("counters", "steady_state_counters", "ratios",
+               "second_tuned_serves", "served_while_retuning",
+               "drift_detected", "retunes", "events")
+DAEMON_SHAPES = ((2, 16), (2, 24), (4, 16))     # run_daemon_demo's traffic
+DAEMON_BUCKETS = (16, 32)
+
+
+def _failure_events(events):
+    return [e for e in events if e["event"] in ("study_failed", "scheduler")]
+
+
+def phase_daemon_shapes():
+    """The daemon's thunks at the shapes no earlier phase runs (S 16: the
+    KV tile clamps to 16; mb 2 x 16 = 32 tokens: the tied head skinny; mb
+    4 x 16 = 64: tiled), on the card against the port's CPU run."""
+    from repro_torch.tune.lm_study import StepKnobs
+    checks = []
+    for batch, seq in ((2, 16), (4, 16)):
+        checks += study_grads_vs_cpu("[daemon]", batch, seq, tuple(
+            (f"attn_fb kv{kv} remat {rm}", lambda st, kv=kv, rm=rm, b=batch:
+             st._mixer_kernel("attn", 0, StepKnobs("k", remat=rm,
+                                                   kv_chunk=kv), b))
+            for kv in (16, 64) for rm in ("none", "full")) + (
+            ("dense_fb", lambda st, b=batch: st._ffn_kernel(
+                "dense", 0, StepKnobs("k"), b)),
+            ("embed_loss_fb", lambda st, b=batch: st._embed_loss_kernel(
+                StepKnobs("k"), b))))
+    return checks
+
+
+def phase_daemon_parity(devices=("cuda", "cpu")):
+    """The reduced daemon demo, synchronous on virtual clocks, on the card
+    and on the CPU: the two summaries must be equal, journal included."""
+    from repro_torch.serve.tuner import run_daemon_demo
+    out = {}
+    for dev in devices:
+        _zero_counts()
+        t0 = time.perf_counter()
+        out[dev] = run_daemon_demo("smollm-135m", device=dev,
+                                   synchronous=True)
+        dt = time.perf_counter() - t0
+        plain = {k: v for k, v in ops.plain_calls.items() if v}
+        print(f"[daemon] parity {dev}: {dt:.1f} s, counters "
+              f"{out[dev]['counters']}, {len(out[dev]['events'])} events, "
+              f"launches {dict(ops.launches)}")
+        if dev != "cpu" and plain:
+            raise AssertionError(f"[daemon] parity on {dev} called plain "
+                                 f"versions: {plain}")
+        if _failure_events(out[dev]["events"]):
+            raise AssertionError(f"[daemon] parity {dev}: "
+                                 f"{_failure_events(out[dev]['events'])}")
+    card, cpu = (out[d] for d in devices)
+    differ = [k for k in DAEMON_KEYS if card[k] != cpu[k]]
+    if differ:
+        raise AssertionError(f"[daemon] parity: {devices[0]} and "
+                             f"{devices[1]} differ in {differ}")
+    print(f"[daemon] parity: {devices[0]} equals {devices[1]} in "
+          f"{', '.join(DAEMON_KEYS)}")
+    return {"events": len(card["events"]), "counters": card["counters"]}
+
+
+def phase_daemon_full(argv=("--arch", "smollm-135m", "--daemon")):
+    """The CLI's daemon demo at full width on the card, in the background
+    (the CLI's default), launch counters zeroed just before and read just
+    after."""
+    from repro_torch.launch import serve
+    _zero_counts()
+    t0 = time.perf_counter()
+    summary = serve.main(list(argv))
+    dt = time.perf_counter() - t0
+    launches, plain = dict(ops.launches), dict(ops.plain_calls)
+    events = summary["events"]
+    tuned = {e["shape"] for e in events if e["event"] == "tune_complete"}
+    started = {e["shape"] for e in events if e["event"] == "tune_started"}
+    retunes = [e for e in events if e["event"] == "retune_started"]
+    settled = [e for e in events if e["event"] == "retune_complete"]
+    print(f"[daemon] full width: {dt:.1f} s; shapes tuned {len(tuned)} of "
+          f"{summary['shapes']}; drift detected {summary['drift_detected']}; "
+          f"re-tunes {len(settled)} of {len(retunes)} settled; served while "
+          f"re-tuning {summary['served_while_retuning']}; steady-state "
+          f"cold_banked_exec "
+          f"{summary['steady_state_counters']['cold_banked_exec']}")
+    print(f"[daemon] full width launches {launches}; plain calls {plain}")
+    if len(tuned) != summary["shapes"] or tuned != started:
+        raise AssertionError(f"[daemon] full width: shapes tuned {tuned}")
+    if not summary["drift_detected"] or len(settled) != len(retunes) \
+            or summary["retunes"] != len(settled) or not settled:
+        raise AssertionError("[daemon] full width: drift not detected or "
+                             "re-tunes not settled")
+    if summary["steady_state_counters"]["cold_banked_exec"]:
+        raise AssertionError("[daemon] full width: banked kernels re-ran "
+                             "cold in steady state")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing or any(plain.values()):
+        raise AssertionError(f"[daemon] full width: kernels never launched "
+                             f"{missing}; plain calls {plain}")
+    if _failure_events(events):
+        raise AssertionError(f"[daemon] full width: "
+                             f"{_failure_events(events)}")
+    return {"seconds": dt, "launches": launches,
+            "counters": summary["counters"],
+            "steady_state_counters": summary["steady_state_counters"],
+            "served_while_retuning": summary["served_while_retuning"],
+            "retunes": summary["retunes"], "events": len(events)}
+
+
+def _timed_serve(tuner, b, s, rows):
+    """Serve one step, appending to ``rows`` its host ms, its counts,
+    whether a study (of any shape) was in flight when it started, and the
+    banked kernels its serving timer did not hold confident then."""
+    from repro_torch.api.daemon import TUNED
+    daemon = tuner.daemon
+    busy = any(v != TUNED for v in daemon.state.values())
+    before = _unconfident_banked(daemon, tuner.shape_of(b, s)[0])
+    t0 = time.perf_counter()
+    info = tuner.serve_step(b, s)
+    rows.append({**info, "ms": 1e3 * (time.perf_counter() - t0),
+                 "busy": busy, "batch_seq": (b, s),
+                 "unconfident_before": before})
+    return info
+
+
+def _step_stats(rows):
+    """Median, least and most host ms of the shadow serve steps in
+    ``rows`` (those that forced kernels), and how many there were."""
+    ms = sorted(r["ms"] for r in rows if r["forced"])
+    if not ms:
+        return {"n": 0}
+    return {"n": len(ms), "median_ms": ms[len(ms) // 2], "min_ms": ms[0],
+            "max_ms": ms[-1]}
+
+
+def _unconfident_banked(daemon, key):
+    """The banked kernels (in the fleet store when ``key``'s serving timer
+    was built) that the timer does not hold confident, so that a
+    non-shadow step may execute them: each with its occurrences in the
+    step and the timer's evidence for it (samples, mean, spread and most,
+    ms; none where the timer has not met it yet).  None where ``key`` has
+    no serving timer."""
+    from repro_torch.core.signatures import structural_key
+    srv = daemon._servers.get(key)
+    if srv is None:
+        return None
+    occurrences = {}
+    for sig, _, _ in srv.kernels:
+        occurrences[sig] = occurrences.get(sig, 0) + 1
+    rows = []
+    for sig, occ in occurrences.items():
+        if structural_key(sig, 1) not in srv.banked \
+                or sig in srv.timer.global_off:
+            continue
+        st = srv.timer.kbar.get(sig)
+        rows.append({"kernel": sig.name, "occurrences": occ,
+                     "n": st.n if st else None,
+                     "mean_ms": 1e3 * st.mean if st else None,
+                     "std_ms": 1e3 * st.std if st else None,
+                     "max_ms": 1e3 * st.max_t if st else None})
+    return rows
+
+
+def phase_daemon_wallclock(reduced=False, device=None, rounds=64,
+                           steady_rounds=32):
+    """The daemon on its default clocks (wall clock: time.time for the
+    daemon, perf_counter for the studies), studies in the background, the
+    demo's three shapes, phases 1-2 (the drift drill scales virtual clocks,
+    so it runs only under them).  While each later shape's study is in
+    flight the loop serves the shapes already tuned (up to ``rounds``
+    rounds), then serves them as many rounds again; each step is timed and
+    filed by whether any study was in flight when it started."""
+    from repro_torch.api.daemon import TUNED
+    from repro_torch.serve.tuner import (LMShapeProvider, ServingTuner,
+                                         _pump_until)
+    tuner = ServingTuner("smollm-135m", seq_buckets=DAEMON_BUCKETS,
+                         provider=LMShapeProvider(reduced=reduced, trials=2,
+                                                  max_configs=3,
+                                                  device=device))
+    daemon = tuner.daemon
+    t0 = time.perf_counter()
+    timed = []
+    for i, (b, s) in enumerate(DAEMON_SHAPES):
+        key = tuner.shape_of(b, s)[0]
+        ts = time.perf_counter()
+        tuner.serve_step(b, s)                  # the miss opens the study
+        n = 0
+        while i and daemon.state.get(key) != TUNED and n < rounds:
+            for bb, ss in DAEMON_SHAPES[:i]:
+                _timed_serve(tuner, bb, ss, timed)
+            n += 1
+        keys = [tuner.shape_of(bb, ss)[0] for bb, ss in DAEMON_SHAPES[:i + 1]]
+        if not _pump_until(daemon, keys):
+            raise AssertionError(f"[daemon] wall clock: studies for "
+                                 f"{DAEMON_SHAPES[:i + 1]} did not land")
+        print(f"[daemon] wall clock: shape {(b, s)} tuned in "
+              f"{time.perf_counter() - ts:.2f} s while serving {n} rounds "
+              f"of the {i} tuned shapes")
+        for _ in range(n):
+            for bb, ss in DAEMON_SHAPES[:i]:
+                _timed_serve(tuner, bb, ss, timed)
+    all_keys = [tuner.shape_of(b, s)[0] for b, s in DAEMON_SHAPES]
+    if not _pump_until(daemon, all_keys):
+        raise AssertionError("[daemon] wall clock: re-tunes did not land")
+    tune_s = time.perf_counter() - t0
+    drifts0 = daemon.counters["drifts"]
+    seq0 = len(daemon.events)
+    steady_rows = []
+    for _ in range(steady_rounds):
+        for b, s in DAEMON_SHAPES:
+            _timed_serve(tuner, b, s, steady_rows)
+    steady_drifts = [e for e in daemon.events[seq0:]
+                     if e["event"] == "drift_detected"]
+    timed += steady_rows
+    if not _pump_until(daemon, all_keys):
+        raise AssertionError("[daemon] wall clock: re-tunes did not land")
+    out = {"tune_s": tune_s, "shapes": {},
+           "drifts_while_tuning": drifts0,
+           "drifts_steady": daemon.counters["drifts"] - drifts0}
+    faults = []
+    for (b, s) in DAEMON_SHAPES:
+        key, meta = tuner.shape_of(b, s)
+        rows = [r for r in steady_rows if r["shape"] == key]
+        winner = daemon.winners[key]["name"]
+        plain_steps = [r for r in rows if not r["forced"]
+                       and r["state"] == TUNED]
+        shadow = [r for r in rows if r["forced"]]
+        # a banked kernel the timer holds confident is never executed on a
+        # non-shadow step; one it does not may be (a steady-state reading)
+        cold = [r["cold_banked"] for r in plain_steps]
+        over = [(r["cold_banked"], r["unconfident_before"])
+                for r in plain_steps if r["unconfident_before"] is not None
+                and r["cold_banked"] > sum(u["occurrences"] for u in
+                                           r["unconfident_before"])]
+        if over:
+            faults.append(f"{b}x{s}: {len(plain_steps)} tuned non-shadow "
+                          f"steady steps; banked kernels held confident "
+                          f"that re-ran {over}")
+        first_cold = next((r["unconfident_before"] for r in plain_steps
+                           if r["cold_banked"]), None)
+        kernels = tuner.provider.kernels_for(key, meta, winner)
+        full = []
+        for _ in range(3):
+            tf = time.perf_counter()
+            for _, thunk, _ in kernels:
+                thunk()
+            full.append(1e3 * (time.perf_counter() - tf))
+        charged = [1e3 * r["charged"] for r in plain_steps] or [math.nan]
+        n_drift = sum(key in e["shapes"] for e in steady_drifts)
+        mine = [r for r in timed if r["batch_seq"] == (b, s)]
+        busy = _step_stats([r for r in mine if r["busy"]])
+        idle = _step_stats([r for r in mine if not r["busy"]])
+        row = {"winner": winner, "steps": len(rows),
+               "shadow_ms_study_in_flight": busy,
+               "shadow_ms_no_study": idle,
+               "executed": [r["executed"] for r in plain_steps][:3],
+               "skipped": [r["skipped"] for r in plain_steps][:3],
+               "shadow_executed": [r["executed"] for r in shadow][:3],
+               "shadow_forced": [r["forced"] for r in shadow][:3],
+               "charged_ms": charged[-1], "full_ms": min(full),
+               "full_ms_all": full, "drift_events": n_drift,
+               "cold_banked": cold, "first_cold_unconfident": first_cold}
+        out["shapes"][f"{b}x{s}"] = row
+        print(f"[daemon] wall clock {b}x{s} ({meta['seq']} bucket): winner "
+              f"{winner}; per tuned step executed {row['executed']} skipped "
+              f"{row['skipped']}, shadow steps executed "
+              f"{row['shadow_executed']} forced {row['shadow_forced']}; "
+              f"charged {row['charged_ms']:.3f} ms against one full "
+              f"execution {row['full_ms']:.3f} ms (least of 3: "
+              + ", ".join(f"{x:.3f}" for x in full)
+              + f"); drift events naming it {n_drift}")
+        print(f"[daemon] wall clock {b}x{s}: shadow serve step host ms with "
+              f"a study in flight {busy}, with none {idle}")
+        print(f"[daemon] wall clock {b}x{s}: banked kernels re-run "
+              f"{sum(cold)} times over {len(cold)} tuned non-shadow steady "
+              f"steps (in {sum(1 for c in cold if c)} of them); before the "
+              f"first such step the timer did not hold confident "
+              f"{first_cold}")
+    print(f"[daemon] wall clock: tuning {tune_s:.1f} s; drifts counted "
+          f"while tuning {drifts0}, in steady state {out['drifts_steady']}; "
+          f"counters {daemon.counters}")
+    tuner.close(checkpoint=False)
+    faults += [str(e) for e in _failure_events(daemon.events)]
+    if faults:
+        raise AssertionError(f"[daemon] wall clock: {faults}")
+    return out
+
+
+# -- phase 8: the simulator ---------------------------------------------------
+
+def phase_sim():
+    """The golden protocol (tests/golden_runner.py's own source, its
+    ``repro.`` imports rewritten to ``repro_torch.``) through the port's
+    copy of the simulator must equal tests/golden_reports.json bit for
+    bit."""
+    import types
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_copies import port_imports
+    path = ROOT / "tests" / "golden_runner.py"
+    runner = types.ModuleType("port_golden_runner")
+    runner.__file__ = str(path)
+    exec(compile(port_imports(path.read_text()), str(path), "exec"),
+         runner.__dict__)
+    t0 = time.perf_counter()
+    got = json.loads(json.dumps(runner.compute_goldens()))
+    dt = time.perf_counter() - t0
+    want = json.loads((ROOT / "tests" / "golden_reports.json").read_text())
+    records = sum(len(v) for s in want.values() for v in s.values())
+    if got != want:
+        bad = [(s, p) for s in want for p in want[s]
+               if got.get(s, {}).get(p) != want[s][p]]
+        raise AssertionError(f"[sim] goldens differ in {bad}")
+    print(f"[sim] golden protocol through repro_torch: {len(want)} studies "
+          f"x {len(next(iter(want.values())))} policies, {records} records "
+          f"equal tests/golden_reports.json bit for bit ({dt:.2f} s)")
+    return {"records": records, "seconds": dt}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -1232,6 +1583,13 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     grad_rows, grad_checks = phase_grads(cfg)
     tune = phase_tune(cfg)
+    torch.cuda.empty_cache()
+    daemon = {"shapes": phase_daemon_shapes(),
+              "parity": phase_daemon_parity(),
+              "full_width": phase_daemon_full(),
+              "wall_clock": phase_daemon_wallclock()}
+    torch.cuda.empty_cache()
+    sim = phase_sim()
 
     # one entry per kernel: its largest main-path shape at f32 (forward:
     # the serving path's, launches counted there; backward: the tuning
@@ -1252,6 +1610,7 @@ def main(argv=None) -> int:
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "launches_tune": tune["session"]["launches"][name],
+            "launches_daemon": daemon["full_width"]["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in table
                                if r["kernel"] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -1270,7 +1629,8 @@ def main(argv=None) -> int:
                                         "ptxas": ptxas, "serve": serve_stats,
                                         "grads": grad_rows,
                                         "grad_checks": grad_checks,
-                                        "tune": tune},
+                                        "tune": tune, "daemon": daemon,
+                                        "sim": sim},
                                        indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """repro_torch.api — the autotuning front-end of the port.
 
 Session-based access to the paper's confidence-interval-gated selective
-execution, measured by wall clock on the card::
+execution over pluggable measurement backends: wall clock on the card, or
+the simulator on the host::
 
     from repro_torch.tune import LMStudy
 
@@ -9,16 +10,28 @@ execution, measured by wall clock on the card::
                                             tolerance=0.25).run()
     print(result.speedup, result.chosen.name)
 
+    from repro_torch.api import AutotuneSession, SimBackend
+    from repro_torch.linalg.studies import search_space
+
+    result = AutotuneSession(search_space("slate-cholesky"),
+                             backend=SimBackend(), policy="online",
+                             tolerance=0.25).run()
+
 Verbatim copies of ``repro.api``'s NumPy-only modules (``space``,
 ``result``, ``serialize``, ``search``, ``scheduler``, ``transfer``,
-``session``) and of the wall-clock subset of ``backends``; only
-``repro.`` imports are rewritten (``tests/test_torch_copies.py``).  Not
-ported: ``SimBackend``, ``DryRunBackend`` and the daemon, fault and worker
-modules.
+``session``, ``daemon``, ``faults``, ``parallel``) and of the wall-clock
+and simulator subset of ``backends``; only ``repro.`` imports are
+rewritten (``tests/test_torch_copies.py``).  The always-on tuning daemon
+(``daemon``) is bound to the LM studies by ``repro_torch.serve.tuner``.
+Not ported: ``DryRunBackend``/``dryrun_space`` and the worker and
+supervisor modules.
 """
 
-from .backends import (Backend, BackendRun, Measurement, WallClockBackend,
-                       WallClockRun)
+from .backends import (Backend, BackendRun, Measurement, SimBackend,
+                       WallClockBackend, WallClockRun)
+from .daemon import (BackgroundTuner, DaemonCheckpoint, DaemonConfig,
+                     DriftDetector, FleetStore, TuningDaemon)
+from .faults import FaultInjector, FaultPlan
 from .result import ConfigRecord, StudyResult
 from .scheduler import (Executor, ForkExecutor, InProcessExecutor,
                         RemoteExecutor, Scheduler, SchedulerError, Task,
@@ -31,12 +44,14 @@ from .space import RESET_POLICY, ConfigPoint, SearchSpace
 from .transfer import CopulaModel, StatisticsBank
 
 __all__ = [
-    "AutotuneSession", "Backend", "BackendRun", "ConfigPoint",
-    "ConfigRecord", "CopulaModel", "Executor", "ForkExecutor",
-    "InProcessExecutor", "Measurement", "RESET_POLICY", "RemoteExecutor",
-    "SEARCHES", "Scheduler", "SchedulerError", "SearchSpace",
-    "StatisticsBank", "StudyResult", "Task", "WallClockBackend",
-    "WallClockRun", "dumps_canonical", "exhaustive", "fork_available",
-    "from_jsonable", "measure_config", "model_guided", "racing",
-    "run_payload", "to_jsonable",
+    "AutotuneSession", "Backend", "BackendRun", "BackgroundTuner",
+    "ConfigPoint", "ConfigRecord", "CopulaModel", "DaemonCheckpoint",
+    "DaemonConfig", "DriftDetector", "Executor", "FaultInjector",
+    "FaultPlan", "FleetStore", "ForkExecutor", "InProcessExecutor",
+    "Measurement", "RESET_POLICY", "RemoteExecutor", "SEARCHES",
+    "Scheduler", "SchedulerError", "SearchSpace", "SimBackend",
+    "StatisticsBank", "StudyResult", "Task", "TuningDaemon",
+    "WallClockBackend", "WallClockRun", "dumps_canonical", "exhaustive",
+    "fork_available", "from_jsonable", "measure_config", "model_guided",
+    "racing", "run_payload", "to_jsonable",
 ]

@@ -1,21 +1,26 @@
 """Measurement backends for the session front-end (the subset of
-``repro.api.backends`` that the wall-clock tuning loop needs).
+``repro.api.backends`` that the port runs).
 
+- ``SimBackend``       virtual-machine studies: the simmpi ``Runtime``
+                       driving ``Critter`` interception over a schedule
+                       program (the paper's evaluation vehicle; NumPy only);
 - ``WallClockBackend`` real timing of kernel sequences (closures running a
                        forward+backward through the port's CUDA kernels)
                        via ``SelectiveTimer``: the paper's technique on the
                        LM framework itself.
 
-``Measurement``, ``BackendRun``, ``Backend``, ``WallClockBackend`` and
-``WallClockRun`` are verbatim copies of the originals (only ``repro.``
-imports rewritten; ``tests/test_torch_copies.py`` holds them to it).
-``SimBackend`` and ``DryRunBackend`` are not ported: they stand on the
-simulator and on HLO lowering.
+``Measurement``, ``BackendRun``, ``Backend``, ``SimBackend``, ``SimRun``,
+``WallClockBackend`` and ``WallClockRun`` are verbatim copies of the
+originals (only ``repro.`` imports rewritten; ``tests/test_torch_copies.py``
+holds them to it).  ``DryRunBackend`` is not ported: it stands on HLO
+lowering.
 
 The run protocol (the paper's per-configuration measurement sequence,
 section VI.A), which the search drivers orchestrate:
 
 - ``run_reference``  full execution, models untouched (error reference);
+- ``run_offline``    full execution that feeds the models (the a-priori
+                     policy's charged offline pass);
 - ``run_trial``      one selective execution;
 - ``reset_models``   forget kernel statistics (between configurations).
 """
@@ -23,7 +28,9 @@ section VI.A), which the search drivers orchestrate:
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+
+import numpy as np
 
 from repro_torch.core.policies import Policy
 
@@ -140,6 +147,278 @@ class Backend:
         (dry run) ignore it."""
         raise NotImplementedError
 
+
+# --------------------------------------------------------------------- sim
+
+class SimBackend(Backend):
+    """Virtual-machine measurement: simmpi ``Runtime`` + ``Critter``.
+
+    Point payloads are program factories ``make_program(world) ->
+    program_factory(rank, world)`` (the ``Configuration.make_program``
+    convention of the linalg studies).
+    """
+
+    name = "sim"
+
+    def __init__(self, *, machine=None, timer: Optional[Callable] = None,
+                 cost_model=None, overhead: float = 1e-6,
+                 program_cache=None):
+        self.machine = machine
+        self.timer = timer
+        self.cost_model = cost_model
+        self.overhead = overhead
+        # cross-run event-program cache (repro.simmpi.program.ProgramCache):
+        # pass an instance to share one across backends, a directory path
+        # for the crash-atomic on-disk store, or "mem" for a process-local
+        # LRU.  All runs this backend opens share it — the recording pass
+        # then executes once per unique geometry across the whole sweep.
+        if isinstance(program_cache, str):
+            from repro_torch.simmpi.program import ProgramCache
+            program_cache = ProgramCache(
+                None if program_cache == "mem" else program_cache)
+        self.program_cache = program_cache
+
+    def fingerprint(self) -> dict:
+        # custom timing callables cannot be fingerprinted beyond their
+        # presence; "custom" still prevents the worst confusion (replaying
+        # a deterministic-timer journal as a default-cost-model study).
+        # The program cache is deliberately absent: cache-hit replay is
+        # bit-identical to re-recording, so it must not split checkpoint
+        # identity.
+        return {"name": self.name, "overhead": self.overhead,
+                "machine": getattr(self.machine, "name", None),
+                "timer": "custom" if self.timer is not None else "default",
+                "cost_model": "custom" if self.cost_model is not None
+                else "default"}
+
+    def point_fingerprints(self, space: SearchSpace) -> Optional[Dict]:
+        """Structural fingerprints of every point in ``space`` — what task
+        payloads advertise so remote dispatch knows which programs a worker
+        already holds.  ``None`` when no program cache is configured."""
+        if self.program_cache is None:
+            return None
+        from repro_torch.simmpi.program import structural_fingerprint
+        return {p.name: structural_fingerprint(space.name, p.name, p.params,
+                                               space.world_size)
+                for p in space.points}
+
+    def open(self, space: SearchSpace, policy: Policy, *,
+             seed: int = 0, allocation: int = 0,
+             prior=None) -> "SimRun":
+        return SimRun(space, policy, machine=self.machine,
+                      timer=self.timer, cost_model=self.cost_model,
+                      overhead=self.overhead, seed=seed,
+                      allocation=allocation, prior=prior,
+                      program_cache=self.program_cache)
+
+
+class SimRun(BackendRun):
+    def __init__(self, space: SearchSpace, policy: Policy, *, machine,
+                 timer, cost_model, overhead, seed: int, allocation: int,
+                 prior=None, program_cache=None):
+        # local imports keep repro.api importable without the sim stack
+        from repro_torch.core.critter import Critter
+        from repro_torch.simmpi.comm import World
+        from repro_torch.simmpi.costmodel import CostModel, KNL_STAMPEDE2
+        from repro_torch.simmpi.runtime import Runtime
+
+        if not space.world_size:
+            raise ValueError(f"space {space.name!r} has no world_size; "
+                             "SimBackend needs a virtual machine size")
+        from repro_torch.api.transfer import Harvest
+
+        self.policy = policy
+        self.world = World(space.world_size)
+        self.critter = Critter(self.world, policy)
+        if prior:
+            self.critter.set_prior(prior.resolver(self.world.size))
+        # transfer harvest: measured statistics accumulated across model
+        # resets, prior-deduplicated (see transfer.Harvest)
+        self._harvest = Harvest(self.world.size, prior)
+        cm = cost_model
+        if timer is None:
+            if cm is None:
+                cm = CostModel(machine or space.machine or KNL_STAMPEDE2,
+                               allocation=allocation, seed=seed)
+            timer = cm.sample
+        elif cm is None:
+            # a bound CostModel.sample still reveals its machine spec; a
+            # fully opaque timer leaves no spec and cost_lower_bound then
+            # declines to prune
+            owner = getattr(timer, "__self__", None)
+            cm = owner if isinstance(owner, CostModel) else None
+        self._spec = cm.spec if cm is not None else None
+        self.runtime = Runtime(self.world, self.critter, timer,
+                               seed=seed + 17 * allocation,
+                               overhead=overhead,
+                               program_cache=program_cache)
+        self._space_name = space.name
+        # one program factory per configuration payload, created on first
+        # use — its identity keys the runtime's event-trace cache.  Keyed
+        # by the payload callable (not the point name) so an ad-hoc point
+        # that reuses a study point's name still measures its own program.
+        # With a program cache configured, factories are ALSO stamped with
+        # their structural fingerprint (``program_key``), switching the
+        # runtime to the fingerprint-keyed path: equal geometries share one
+        # recording, in-process and across runs — the opt-in trades the
+        # payload-identity property for the (name, params)-determine-
+        # structure contract of repro.simmpi.program.
+        self._progs: Dict[Any, Any] = {}
+        self._cached = program_cache is not None
+        # point name -> structural fingerprint, for StudyResult.extra
+        self._fps: Dict[str, str] = {}
+        # structural profiles per payload (see _structure)
+        self._structures: Dict[Any, tuple] = {}
+
+    def _prog(self, point: ConfigPoint):
+        prog = self._progs.get(point.payload)
+        if prog is None:
+            prog = self._progs[point.payload] = point.payload(self.world)
+            if self._cached:
+                from repro_torch.simmpi.program import structural_fingerprint
+                fp = structural_fingerprint(self._space_name, point.name,
+                                            point.params, self.world.size)
+                self._fps[point.name] = prog.program_key = fp
+        return prog
+
+    @staticmethod
+    def _measure(res) -> Measurement:
+        return Measurement(predicted=res.predicted_time,
+                           time=res.wall_time, cost=res.wall_time,
+                           comp=res.crit_comp, executed=res.executed,
+                           skipped=res.skipped)
+
+    def carry_state(self) -> dict:
+        # the lognormal sampling stream runs continuously across
+        # configurations; a resumed study must pick it up where the
+        # interrupted one left off
+        return {"rng": self.runtime._rng.bit_generator.state}
+
+    def restore_carry(self, state: Optional[dict]) -> None:
+        if state is not None:
+            self.runtime._rng.bit_generator.state = state["rng"]
+
+    def export_stats(self) -> dict:
+        return self._harvest.payload(self.critter.pooled_kbar())
+
+    def reset_models(self) -> None:
+        # bank measured statistics before they are forgotten
+        self._harvest.add(self.critter.pooled_kbar())
+        self.critter.reset_models()
+
+    def run_reference(self, point: ConfigPoint) -> Measurement:
+        res = self.runtime.run(self._prog(point), force_execute=True,
+                               update_stats=False)
+        return self._measure(res)
+
+    def run_offline(self, point: ConfigPoint) -> Measurement:
+        res = self.runtime.run(self._prog(point), force_execute=True,
+                               update_stats=True)
+        self.critter.snapshot_apriori_counts()
+        return self._measure(res)
+
+    def run_trial(self, point: ConfigPoint) -> Measurement:
+        return self._measure(self.runtime.run(self._prog(point)))
+
+    # -- model-guided search hooks -------------------------------------------
+
+    def _structure(self, point: ConfigPoint) -> tuple:
+        """Structural profile of one configuration via the RNG-free
+        recording pass (``Runtime._record`` matches communication without
+        touching the Critter protocol or the sampling RNG, so profiling
+        any number of candidates leaves measurement state bit-identical):
+        per-structural-key per-rank occurrence counts, plus per-rank
+        computation flop/byte totals for the roofline bound.  Collectives
+        are charged to every participant rank, point-to-points (including
+        matched isends) to both endpoints — the per-rank attribution that
+        makes ``max`` over ranks a critical-path surrogate."""
+        got = self._structures.get(point.payload)
+        if got is not None:
+            return got
+        from repro_torch.core.signatures import (bytes_of, flops_of,
+                                           structural_key)
+        from repro_torch.simmpi.runtime import (EV_BLOCK, EV_COLL, EV_COMP,
+                                          EV_IMATCH, EV_P2P)
+        w = self.world.size
+        sigs = self.world.interner.sigs
+        keys: Dict[int, str] = {}
+        counts: Dict[str, np.ndarray] = {}
+        flops = np.zeros(w)
+        nbytes = np.zeros(w)
+
+        def key_of(sid):
+            key = keys.get(sid)
+            if key is None:
+                key = keys[sid] = structural_key(sigs[sid], w)
+            return key
+
+        def bump(key, ranks):
+            arr = counts.get(key)
+            if arr is None:
+                arr = counts[key] = np.zeros(w)
+            arr[ranks] += 1.0
+
+        def comp(r, sid):
+            bump(key_of(sid), r)
+            sig = sigs[sid]
+            flops[r] += flops_of(sig)
+            nbytes[r] += bytes_of(sig)
+
+        # the COMPILED program, not a raw re-recording: profiling shares
+        # the runtime's program map (and the cross-run cache when one is
+        # configured), so the model-guided driver scoring the full grid
+        # records each unique geometry at most once — and a surviving
+        # candidate's later measurement reuses the scorer's program
+        for ev in self.runtime._get_program(self._prog(point)).events:
+            kind = ev[0]
+            if kind == EV_COMP:
+                comp(ev[1], ev[2])
+            elif kind == EV_BLOCK:
+                r = ev[1]
+                for sid in ev[2].sids:
+                    comp(r, sid)
+            elif kind == EV_COLL:
+                _, sid, comm = ev
+                bump(key_of(sid), comm.ranks_np)
+            elif kind == EV_P2P:
+                _, src, dst, sid = ev
+                key = key_of(sid)
+                bump(key, src)
+                bump(key, dst)
+            elif kind == EV_IMATCH:
+                key = key_of(ev[3])
+                bump(key, ev[1])
+                bump(key, ev[2])
+        got = (counts, flops, nbytes)
+        self._structures[point.payload] = got
+        return got
+
+    def kernel_profile(self, point: ConfigPoint) -> Dict[str, np.ndarray]:
+        return self._structure(point)[0]
+
+    def cost_lower_bound(self, point: ConfigPoint) -> Optional[float]:
+        if self._spec is None:
+            return None
+        _, flops, nbytes = self._structure(point)
+        per_rank = np.maximum(flops / self._spec.peak_flops,
+                              nbytes / self._spec.mem_bw)
+        # computation-only: communication at any bandwidth only adds time,
+        # so the slowest rank's roofline is a valid lower bound
+        return float(per_rank.max()) if per_rank.size else 0.0
+
+    def cache_info(self) -> Optional[dict]:
+        if not self._cached:
+            return None
+        rt = self.runtime
+        info = {"fingerprints": dict(self._fps),
+                "hits": rt.cache_hits, "misses": rt.cache_misses,
+                "recordings": rt.recordings}
+        if rt.program_cache is not None:
+            info["store"] = rt.program_cache.stats()
+        return info
+
+
+# --------------------------------------------------------------- wall clock
 
 class WallClockBackend(Backend):
     """Real wall-clock timing of recurring kernels via ``SelectiveTimer``.

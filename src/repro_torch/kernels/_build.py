@@ -5,7 +5,10 @@ headers, so a build takes seconds).  The first kernel call builds every
 source that has no library yet, one ``nvcc`` per source, all started
 together.  A library's file name carries a hash of the sources and flags,
 so an edit rebuilds it; it is written under a temporary name and renamed,
-so processes that build at once never load a torn file.
+so processes that build at once never load a torn file.  Within a process
+one lock guards the build, the loaded libraries and the cached workspace,
+so two threads that launch kernels (the serve loop and a background
+study) never build a source twice or replace a workspace the other holds.
 
 Every C entry point takes pointers and strides as ``c_void_p``/``c_int64``
 plus the stream of ``torch.cuda.current_stream()``, and returns
@@ -20,6 +23,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Callable, Dict, Sequence, Tuple
 
@@ -44,6 +48,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # backward's dw), which return the counters to zero after each call
 _scratch: Dict[Tuple[int, int], Tuple[torch.Tensor, torch.Tensor]] = {}
 _entries: Dict[str, Callable[..., int]] = {}
+# guards _libs, _entries, _scratch and the build (reentrant: load builds)
+_lock = threading.RLock()
 
 
 def _nvcc() -> str:
@@ -66,50 +72,53 @@ def build_all() -> Dict[str, str]:
     """Build every source whose library is missing, in parallel.  Returns
     ``{name: nvcc output}`` (with ``-Xptxas -v``: registers, shared memory
     and spills per kernel) for the sources it built."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
-    jobs = []
-    for src in sorted(CSRC.glob("*.cu")):
-        out = _lib_path(src.stem)
-        if out.exists():
-            continue
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
-        proc = subprocess.Popen([nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        jobs.append((src.stem, out, tmp, proc))
-    logs, failed = {}, []
-    for name, out, tmp, proc in jobs:
-        logs[name], _ = proc.communicate()
-        if proc.returncode == 0:
-            os.replace(tmp, out)
-        else:
-            failed.append(f"{name}.cu:\n{logs[name]}")
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-    return logs
+    with _lock:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        jobs = []
+        for src in sorted(CSRC.glob("*.cu")):
+            out = _lib_path(src.stem)
+            if out.exists():
+                continue
+            tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
+            proc = subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            jobs.append((src.stem, out, tmp, proc))
+        logs, failed = {}, []
+        for name, out, tmp, proc in jobs:
+            logs[name], _ = proc.communicate()
+            if proc.returncode == 0:
+                os.replace(tmp, out)
+            else:
+                failed.append(f"{name}.cu:\n{logs[name]}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        return logs
 
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    lib = _libs.get(name)
-    if lib is None:
-        path = _lib_path(name)
-        if not path.exists():
-            build_all()
-        lib = _libs[name] = ctypes.CDLL(str(path))
-    return lib
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            path = _lib_path(name)
+            if not path.exists():
+                build_all()
+            lib = _libs[name] = ctypes.CDLL(str(path))
+        return lib
 
 
 def entry(name: str, argtypes: Sequence) -> Callable[..., int]:
     """The C entry point ``name`` of ``csrc/<name>.cu`` with its argument
     types set, loaded once per process."""
-    fn = _entries.get(name)
-    if fn is None:
-        fn = getattr(load(name), name)
-        fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
-        _entries[name] = fn
-    return fn
+    with _lock:
+        fn = _entries.get(name)
+        if fn is None:
+            fn = getattr(load(name), name)
+            fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+            _entries[name] = fn
+        return fn
 
 
 def check_inputs(name: str, *tensors: torch.Tensor) -> int:
@@ -139,15 +148,16 @@ def scratch(device, stream: int, n_floats: int, n_counters: int):
     counters for kernels on ``stream``, cached and grown as needed (launches
     on one stream run in turn, so the kernels there share them)."""
     key = (device.index, stream)
-    ws, cnt = _scratch.get(key, (None, None))
-    if ws is None or ws.numel() < n_floats:
-        ws = torch.empty(max(n_floats, 1 << 16), dtype=torch.float32,
-                         device=device)
-    if cnt is None or cnt.numel() < n_counters:
-        cnt = torch.zeros(max(n_counters, 1 << 12), dtype=torch.int32,
-                          device=device)
-    _scratch[key] = (ws, cnt)
-    return ws, cnt
+    with _lock:
+        ws, cnt = _scratch.get(key, (None, None))
+        if ws is None or ws.numel() < n_floats:
+            ws = torch.empty(max(n_floats, 1 << 16), dtype=torch.float32,
+                             device=device)
+        if cnt is None or cnt.numel() < n_counters:
+            cnt = torch.zeros(max(n_counters, 1 << 12), dtype=torch.int32,
+                              device=device)
+        _scratch[key] = (ws, cnt)
+        return ws, cnt
 
 
 def stream() -> int:

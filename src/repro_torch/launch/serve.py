@@ -6,8 +6,16 @@
 Spins up the slot-based engine on a model with seeded random weights and
 replays synthetic prompts (lengths 4-31, drawn as in the JAX driver),
 reporting prefill time per request, decode time per step and aggregate
-throughput.  Runs on the card unless ``--device cpu`` is given.  The JAX
-driver's ``--daemon`` mode (the always-on tuning daemon) is not ported yet.
+throughput.  Runs on the card unless ``--device cpu`` is given.
+
+With ``--daemon``, instead drives simulated traffic through the always-on
+tuning daemon (``repro_torch.serve.tuner.run_daemon_demo``): shape misses
+open background studies, later shapes warm-start from the fleet store, and
+an injected kernel-cost shift exercises the drift -> re-tune path without
+serving ever stopping.  ``--device`` and ``--reduced`` apply to it too: the
+one difference from the JAX driver, whose daemon always tunes the reduced
+configuration, is that without ``--reduced`` the studies here run the
+published widths.
 """
 
 from __future__ import annotations
@@ -23,9 +31,10 @@ from ..models.model import Model
 from ..serve.engine import Engine, Request, ServeConfig
 
 
-def main(argv=None) -> Engine:
-    """Serve the synthetic requests; returns the drained engine (results,
-    timings, parameters)."""
+def main(argv=None):
+    """Serve the synthetic requests and return the drained engine (results,
+    timings, parameters); with ``--daemon``, return the daemon demo's
+    summary."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -37,12 +46,17 @@ def main(argv=None) -> Engine:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     ap.add_argument("--daemon", action="store_true",
-                    help="the tuning daemon demo: not ported yet")
+                    help="run the always-on tuning daemon demo instead")
+    ap.add_argument("--rounds", type=int, default=4,
+                    help="steady-state serving rounds (daemon demo)")
+    ap.add_argument("--bank", default=None,
+                    help="save the fleet statistics bank here (daemon demo)")
+    ap.add_argument("--checkpoint", default=None,
+                    help="daemon checkpoint path (daemon demo)")
     args = ap.parse_args(argv)
+
     if args.daemon:
-        ap.error("--daemon (the always-on tuning daemon) is not ported to "
-                 "repro_torch yet; run `python -m repro.launch.serve "
-                 "--daemon` for the JAX version")
+        return _daemon_demo(args)
 
     cfg = get_config(args.arch, reduced=args.reduced)
     model = Model(cfg, device=args.device)
@@ -71,6 +85,23 @@ def main(argv=None) -> Engine:
     for uid in sorted(eng.results)[:4]:
         print(f"  req {uid}: {eng.results[uid].tokens[:12]} ...")
     return eng
+
+
+def _daemon_demo(args) -> dict:
+    from ..serve.tuner import run_daemon_demo
+
+    summary = run_daemon_demo(
+        args.arch, rounds=args.rounds, checkpoint=args.checkpoint,
+        bank_path=args.bank, log=print, device=args.device,
+        reduced=args.reduced)
+    r = summary["ratios"]
+    print(f"hit ratio {r['hit_ratio']:.2f}, warm-start ratio "
+          f"{r['warm_start_ratio']:.2f}, drift detected: "
+          f"{summary['drift_detected']}, re-tunes: {summary['retunes']}, "
+          f"served while re-tuning: {summary['served_while_retuning']}")
+    for key, info in summary["second_tuned_serves"].items():
+        print(f"  2nd tuned serve {key}: {info}")
+    return summary
 
 
 if __name__ == "__main__":

@@ -29,6 +29,7 @@ the reduced configuration).
 from __future__ import annotations
 
 import itertools
+import threading
 from dataclasses import dataclass
 from typing import Callable, Dict, List, Optional
 
@@ -173,6 +174,9 @@ class LMStudy:
             for k in ("tokens", "labels")}
         self._fns: Dict[Signature, callable] = {}
         self._args: Dict[Signature, tuple] = {}
+        # one build per signature when two threads (a daemon's serve loop
+        # and its background study) ask for the same kernel at once
+        self._kernel_lock = threading.Lock()
 
     # -- kernel construction ---------------------------------------------------
 
@@ -180,12 +184,13 @@ class LMStudy:
         """Get-or-build the closure + concrete args for a signature; the
         first call (which builds the CUDA kernels on first use, and warms
         up) happens outside the timed region."""
-        if sig not in self._fns:
-            fn, args = build()
-            fn(*args)
-            self._fns[sig] = fn
-            self._args[sig] = args
-        return self._fns[sig], self._args[sig]
+        with self._kernel_lock:
+            if sig not in self._fns:
+                fn, args = build()
+                fn(*args)
+                self._fns[sig] = fn
+                self._args[sig] = args
+            return self._fns[sig], self._args[sig]
 
     def _randn(self, seed: int, shape) -> torch.Tensor:
         gen = torch.Generator().manual_seed(seed)

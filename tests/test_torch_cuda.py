@@ -797,3 +797,58 @@ def test_study_thunk_grads_match_cpu_port(cuda_device, kind):
         scale = max(1.0, float(c.abs().max()))
         torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-5 * scale,
                                    msg=lambda m: f"{path}: {m}")
+
+
+DAEMON_KEYS = ["counters", "steady_state_counters", "ratios",
+               "second_tuned_serves", "served_while_retuning",
+               "drift_detected", "retunes", "events"]
+
+
+def _no_failure_events(summary_or_events):
+    events = summary_or_events if isinstance(summary_or_events, list) \
+        else summary_or_events["events"]
+    kinds = {e["event"] for e in events}
+    assert "study_failed" not in kinds and "scheduler" not in kinds, \
+        [e for e in events if e["event"] in ("study_failed", "scheduler")]
+
+
+@pytest.mark.cuda
+def test_daemon_demo_on_the_card_equals_cpu(cuda_device):
+    """The reduced daemon demo (synchronous, virtual clocks) on the card
+    gives the CPU run's summary, journal included: under virtual clocks
+    the protocol does not depend on the device."""
+    from repro_torch.serve.tuner import run_daemon_demo
+    plain0 = dict(ops.plain_calls)
+    card = run_daemon_demo("smollm-135m", device="cuda", synchronous=True)
+    assert ops.plain_calls == plain0
+    cpu = run_daemon_demo("smollm-135m", device="cpu", synchronous=True)
+    _no_failure_events(card)
+    for key in DAEMON_KEYS:
+        assert card[key] == cpu[key], key
+
+
+@pytest.mark.cuda
+def test_daemon_full_width_shape_miss_lands(cuda_device):
+    """A full-width shape miss opens a study on the card that lands a
+    winner with no failure hidden in the journal, every kernel launched
+    and no plain version called."""
+    from repro_torch.api.daemon import TUNED, DaemonConfig
+    from repro_torch.serve.tuner import (LMShapeProvider, ServingTuner,
+                                         VirtualClock)
+    tuner = ServingTuner(
+        "smollm-135m", seq_buckets=(16,), clock=VirtualClock(),
+        provider=LMShapeProvider(trials=2, max_configs=3, reduced=False,
+                                 clock=VirtualClock()),
+        config=DaemonConfig(shadow_every=3, serve_min_samples=2,
+                            synchronous=True))
+    launches0, plain0 = dict(ops.launches), dict(ops.plain_calls)
+    assert tuner.serve_step(2, 16)["state"] == "miss"
+    assert tuner.daemon.pump() == 1
+    info = tuner.serve_step(2, 16)
+    torch.cuda.synchronize()
+    assert info["state"] == TUNED and info["winner"] is not None
+    assert info["cold_banked"] == 0
+    assert ops.plain_calls == plain0
+    assert all(ops.launches[k] > launches0[k] for k in ops.launches)
+    _no_failure_events(tuner.daemon.events)
+    tuner.close(checkpoint=False)

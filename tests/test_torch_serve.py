@@ -4,6 +4,7 @@
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import get_config as jax_get_config
 from repro.models.model import Model as JaxModel, ModelKnobs as JaxKnobs
@@ -91,7 +92,9 @@ def test_serve_main_cpu(capsys):
     assert "3 requests, 12 tokens" in out and "ms/step" in out
 
 
-def test_serve_main_daemon_is_a_clear_error(capsys):
-    with pytest.raises(SystemExit):
-        serve.main(["--arch", "smollm-135m", "--daemon", "--device", "cpu"])
-    assert "not ported" in capsys.readouterr().err
+def test_serve_main_daemon_is_a_clear_error(monkeypatch):
+    """``--daemon`` studies on the card by default: with no card and no
+    ``--device cpu`` the first shape's study raises, naming the way out."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve.main(["--arch", "smollm-135m", "--daemon", "--reduced"])
