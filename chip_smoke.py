@@ -77,7 +77,28 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               study in flight and with none;
 8. sim     -- the golden protocol of tests/golden_runner.py through the
               port's copy of the simulator, equal to
-              tests/golden_reports.json bit for bit.
+              tests/golden_reports.json bit for bit;
+9. measured -- the paper's SLATE Cholesky (conditional and eager) and
+              CANDMC QR (conditional) ci tuning studies through
+              core/tuner.py's Autotuner with linalg/blas.py's MeasuredTimer
+              on the card (gemm, syrk, trmm, ormqr, tpmqrt on the matmul
+              kernel; trsm, trtri, potrf, geqrf, tpqrt on torch.linalg),
+              the launch counters zeroed just before each study and read
+              just after: per configuration full and predicted ms and the
+              relative error, per study the speedup and the mean and max
+              prediction error; every compute kind timed once and held
+              against the port's CPU run; the matmul at the tile widths
+              256/512/832 timed as a [kernels] row;
+10. workers -- (B1) two `python -m repro_torch.api.worker` processes under
+              a WorkerPool serve the golden space to a listening
+              RemoteExecutor, one chaos-killed on its first task and
+              restarted: the sweep equals the serial one bit for bit;
+              (B2) one worker serving the full-width smollm-135m
+              wall-clock study on the card (spec `lm_space`), killed when
+              its second task arrives and restarted: both tasks finish,
+              every point measured, every kernel launched in the worker,
+              no plain call.  The workers import their specs
+              (`golden_space`, `lm_space`) from this file.
 
 It prints the kernels as one JSON line, then the last line
 ``{"ok": true, "device": {...}}``.  ``--out PATH`` also writes the full
@@ -1533,19 +1554,28 @@ def phase_daemon_wallclock(reduced=False, device=None, rounds=64,
 
 # -- phase 8: the simulator ---------------------------------------------------
 
-def phase_sim():
-    """The golden protocol (tests/golden_runner.py's own source, its
-    ``repro.`` imports rewritten to ``repro_torch.``) through the port's
-    copy of the simulator must equal tests/golden_reports.json bit for
-    bit."""
+def _port_golden_runner():
+    """tests/golden_runner.py's own source, its ``repro.`` imports rewritten
+    to ``repro_torch.`` (``port_imports`` of tests/test_torch_copies.py),
+    as a module."""
     import types
-    sys.path.insert(0, str(ROOT / "tests"))
+    if str(ROOT / "tests") not in sys.path:
+        sys.path.insert(0, str(ROOT / "tests"))
     from test_torch_copies import port_imports
     path = ROOT / "tests" / "golden_runner.py"
     runner = types.ModuleType("port_golden_runner")
     runner.__file__ = str(path)
     exec(compile(port_imports(path.read_text()), str(path), "exec"),
          runner.__dict__)
+    return runner
+
+
+def phase_sim():
+    """The golden protocol (tests/golden_runner.py's own source, its
+    ``repro.`` imports rewritten to ``repro_torch.``) through the port's
+    copy of the simulator must equal tests/golden_reports.json bit for
+    bit."""
+    runner = _port_golden_runner()
     t0 = time.perf_counter()
     got = json.loads(json.dumps(runner.compute_goldens()))
     dt = time.perf_counter() - t0
@@ -1559,6 +1589,367 @@ def phase_sim():
           f"x {len(next(iter(want.values())))} policies, {records} records "
           f"equal tests/golden_reports.json bit for bit ({dt:.2f} s)")
     return {"records": records, "seconds": dt}
+
+
+# -- phase 9: the measured mode (real BLAS/LAPACK kernels on the card) --------
+
+# the paper's harness on two ci studies: (study, policies); the comm model
+# is the simulator's Stampede2 model
+MEASURED = (("slate-cholesky", ("conditional", "eager")),
+            ("candmc-qr", ("conditional",)))
+# one signature of each compute kind the four ci studies emit, at path
+# (A)'s shapes: SLATE Cholesky's tiles, CANDMC QR's panels, SLATE QR's and
+# Capital's
+MEASURED_KINDS = [("gemm", (256, 256, 256)), ("gemm", (832, 832, 832)),
+                  ("gemm", (8, 63, 512)), ("syrk", (256, 256)),
+                  ("syrk", (832, 832)), ("syrk", (128, 128)),
+                  ("trmm", (8, 63)), ("trmm", (128, 128)),
+                  ("trsm", (256, 256)), ("trsm", (832, 832)),
+                  ("potrf", (256,)), ("potrf", (832,)), ("trtri", (8,)),
+                  ("trtri", (64,)), ("geqrf", (512, 8)), ("geqrf", (64, 32)),
+                  ("tpqrt", (16, 8)), ("tpqrt", (64, 8)),
+                  ("ormqr", (512, 8, 8)), ("tpmqrt", (64, 64, 8)),
+                  ("blk2cyc", (2048,))]
+MEASURED_MATMUL = {"gemm", "syrk", "trmm", "ormqr", "tpmqrt"}
+# the card's result against the port's CPU run on the same operands:
+# (rtol, atol as a fraction of the CPU result's largest magnitude), the CPU
+# tests' tolerances against the JAX package (tests/test_torch_blas.py)
+MEASURED_TOL = {"matmul": (1e-4, 1e-4), "solve": (1e-3, 1e-5)}
+MEASURED_TILES = (256, 512, 832)        # SLATE Cholesky's tile widths
+
+
+def measured_kinds(device="cuda"):
+    """Every compute kind timed once on ``device`` by a ``MeasuredTimer``
+    and its result held against the port's CPU run on the same operands
+    (geqrf/tpqrt: R^T R, R being unique up to row signs)."""
+    from repro_torch.core.signatures import Signature
+    from repro_torch.linalg.blas import MeasuredTimer
+    card = MeasuredTimer(seed=0, device=device)
+    host = MeasuredTimer(seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    rows = []
+    for name, params in MEASURED_KINDS:
+        sig = Signature("comp", name, params)
+        before = ops.launches["matmul"]
+        ms = 1e3 * card(sig, rng)
+        fn, args = card._operands(sig)
+        _, hargs = host._operands(sig)
+        if not all(torch.equal(a.cpu(), h) for a, h in zip(args, hargs)):
+            raise AssertionError(f"[measured] {sig}: operands differ")
+        if fn == "copy":
+            got, want = args[0].clone().cpu(), hargs[0].clone()
+        else:
+            got, want = fn(*args).cpu(), fn(*hargs)
+        if name in ("geqrf", "tpqrt"):
+            got, want = got.T @ got, want.T @ want
+        rtol, arel = MEASURED_TOL["matmul" if name in MEASURED_MATMUL
+                                  else "solve"]
+        scale = float(want.abs().max())
+        err = check_close(f"measured {sig}", got, want, "float32",
+                          (rtol, arel * scale) if fn != "copy" else (0, 0))
+        launched = ops.launches["matmul"] - before
+        if device != "cpu" and (launched > 0) != (name in MEASURED_MATMUL):
+            raise AssertionError(f"[measured] {sig}: {launched} matmul "
+                                 f"launches")
+        rows.append({"sig": str(sig), "ms": ms, "max_abs_err": err,
+                     "scale": scale, "matmul_launches": launched})
+    print("[measured] every kind on the card against the port's CPU run "
+          "(ms of one timed call; max abs err / scale): " + "; ".join(
+              f"{r['sig']} {r['ms']:.4f} ms {r['max_abs_err']:.1e}/"
+              f"{r['scale']:.1e}" for r in rows))
+    return rows
+
+
+def phase_measured(device="cuda"):
+    """The paper's Cholesky and QR tuning studies (``core/tuner.py``
+    ``Autotuner``, trials 2, seed 0, every configuration of the ci scale)
+    with every compute kernel run and timed on ``device`` by
+    ``linalg/blas.py``'s ``MeasuredTimer`` and the communication drawn
+    from the Stampede2 cost model; the launch counters zeroed just before
+    each study and read just after."""
+    from repro_torch.core.policies import policy
+    from repro_torch.core.tuner import Autotuner
+    from repro_torch.linalg.blas import MeasuredTimer
+    from repro_torch.linalg.studies import STUDIES
+    from repro_torch.simmpi.costmodel import KNL_STAMPEDE2, CostModel
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"studies": []}
+    for name, policies in MEASURED:
+        for pol in policies:
+            study = STUDIES[name]("ci")
+            timer = MeasuredTimer(comm_model=CostModel(
+                KNL_STAMPEDE2, allocation=0, seed=0), seed=0, device=device)
+            _zero_counts()
+            t0 = time.perf_counter()
+            rep = Autotuner(study, policy(pol, tolerance=0.25), trials=2,
+                            seed=0, timer=timer).tune()
+            wall = time.perf_counter() - t0
+            launches, plain = dict(ops.launches), dict(ops.plain_calls)
+            errs = [abs(r.rel_error) for r in rep.records]
+            for r in rep.records:
+                if not (math.isfinite(r.predicted) and r.predicted > 0
+                        and r.full_time > 0):
+                    raise AssertionError(f"[measured] {r.name}: bad times "
+                                         f"{r.to_json()}")
+                print(f"[measured] {study.name} {pol} {r.name:22s} full "
+                      f"{1e3 * r.full_time:10.3f} ms predicted "
+                      f"{1e3 * r.predicted:10.3f} ms rel err "
+                      f"{r.rel_error:+.4f} executed {r.executed:6d} skipped "
+                      f"{r.skipped:6d}")
+            row = {"study": study.name, "policy": pol, "tolerance": 0.25,
+                   "configs": len(rep.records),
+                   "speedup": rep.speedup,
+                   "full_tuning_time_s": rep.full_tuning_time,
+                   "selective_tuning_time_s": rep.selective_tuning_time,
+                   "mean_abs_rel_error": float(np.mean(errs)),
+                   "max_abs_rel_error": float(np.max(errs)),
+                   "chosen": rep.chosen.name, "true_best": rep.true_best.name,
+                   "optimum_quality": rep.optimum_quality,
+                   "calls": timer.calls, "launches": launches,
+                   "plain_calls": plain, "wall_s": wall}
+            out["studies"].append(row)
+            print(f"[measured] {study.name} {pol} tol 0.25 on {device}: "
+                  f"speedup {rep.speedup:.3f}x (full "
+                  f"{rep.full_tuning_time:.4f} s, selective "
+                  f"{rep.selective_tuning_time:.4f} s); "
+                  f"prediction error mean {row['mean_abs_rel_error']:.4f} max "
+                  f"{row['max_abs_rel_error']:.4f}; chosen {row['chosen']} "
+                  f"true best {row['true_best']} (quality "
+                  f"{rep.optimum_quality:.4f}); MeasuredTimer.calls "
+                  f"{timer.calls}, matmul launches {launches['matmul']}, "
+                  f"plain calls {sum(plain.values())}; wall {wall:.1f} s; "
+                  f"no cut")
+            if device != "cpu" and (any(plain.values())
+                                    or launches["matmul"] <= 0):
+                raise AssertionError(f"[measured] {study.name}: launches "
+                                     f"{launches}, plain calls {plain}")
+    out["kinds"] = measured_kinds(device)
+    if device != "cpu":
+        gen = torch.Generator().manual_seed(9)
+        out["tiles"] = []
+        for n in MEASURED_TILES:
+            a, b = matmul_case(n, n, n, torch.float32, gen)
+            row = {"kernel": "matmul", "shape": f"measured gemm {n}x{n}x{n}",
+                   "dtype": "float32", "path": matmul_path(a, b),
+                   "max_abs_err": check_close("matmul", ops.matmul(a, b),
+                                              ref.matmul_ref(a, b),
+                                              "float32")}
+            time_row(row, "matmul", (a, b), "float32")
+            out["tiles"].append(row)
+    return out
+
+
+# -- phase 10: the port's workers under the supervisor ------------------------
+
+GOLDEN_SWEEP = dict(policies=["conditional", "eager"], tolerances=[0.25])
+
+
+def golden_space(index: int = 1):
+    """Worker spec (``python -m repro_torch.api.worker --spec
+    chip_smoke:golden_space``): the session-API space of one golden study
+    of the ported golden runner, as ``phase_sim`` builds it."""
+    return _port_golden_runner().golden_space(index)
+
+
+def lm_space(reduced: bool = False, device=None, counts=None):
+    """Worker spec (``--spec chip_smoke:lm_space``): smollm-135m's
+    ``LMStudy`` StepKnobs space at the tuning loop's traffic (``STUDY``)
+    and the ``WallClockBackend`` that ``LMStudy.session`` builds over it;
+    full width on the card by default.  Thunks are built on first use, so
+    the dispatching process can build the same pair to check a worker's
+    identity without launching a kernel.  ``counts``: a file that
+    receives the process's ``ops.launches`` and ``ops.plain_calls``
+    (JSON) when it exits."""
+    from repro_torch.api import WallClockBackend
+    from repro_torch.tune.lm_study import LMStudy
+    study = LMStudy("smollm-135m", reduced=reduced, device=device, **STUDY)
+    if counts is not None:
+        import atexit
+        atexit.register(_write_counts, counts)
+    return study.search_space(), WallClockBackend(study.kernels_of)
+
+
+def _write_counts(path) -> None:
+    Path(path).write_text(json.dumps({"launches": dict(ops.launches),
+                                      "plain_calls": dict(ops.plain_calls)}))
+
+
+def _strip(result) -> dict:
+    """A sweep result's JSON less what differs between a remote and a
+    serial run by design (tests/test_faults.py ``_strip``)."""
+    d = result.to_json()
+    d.pop("wall_s", None)
+    d.get("extra", {}).pop("recovery", None)
+    d.get("extra", {}).pop("program_cache", None)
+    return d
+
+
+def _worker_env() -> dict:
+    """PYTHONPATH for a port worker: the package and this script (its
+    specs)."""
+    import os
+    paths = [str(ROOT / "src"), str(ROOT)] + [
+        p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]
+    return {"PYTHONPATH": os.pathsep.join(paths)}
+
+
+def _ready_watch(log: Path, n: int, out: dict) -> None:
+    """Set ``out["ready"]`` to the perf_counter at which ``log`` holds its
+    ``n``-th WORKER_READY line (polled every 10 ms, up to 15 minutes)."""
+    deadline = time.perf_counter() + 900
+    while time.perf_counter() < deadline:
+        if log.exists() and log.read_bytes().count(b"WORKER_READY") >= n:
+            out["ready"] = time.perf_counter()
+            return
+        time.sleep(0.01)
+
+
+def _wait_exit(pool, timeout: float) -> None:
+    """Wait for every worker of ``pool`` to end service (exit 0 after the
+    executor hangs up), so that their exit hooks have run."""
+    deadline = time.perf_counter() + timeout
+    while pool.alive and time.perf_counter() < deadline:
+        time.sleep(0.05)
+    if pool.alive:
+        raise AssertionError(f"{pool.alive} workers still running "
+                             f"{timeout} s after the sweep")
+
+
+def _sweep_events(sess, pool) -> set:
+    return ({e["event"] for e in sess.last_sweep_events}
+            | {e["event"] for e in pool.events})
+
+
+def phase_workers_protocol(log_dir: Path):
+    """(B1) Two port workers under a ``WorkerPool``, dialing a listening
+    ``RemoteExecutor``, serve the golden space; one is chaos-killed on its
+    first task, restarted by the supervisor and rejoins; the sweep equals
+    the serial sweep bit for bit."""
+    from repro_torch.api import (AutotuneSession, RemoteExecutor,
+                                 SimBackend, WorkerPool, WorkerSpec)
+    space = golden_space(1)
+    serial = [_strip(r) for r in AutotuneSession(
+        space, backend=SimBackend(), trials=2).sweep(workers=1,
+                                                     **GOLDEN_SWEEP)]
+    ex = RemoteExecutor(listen="127.0.0.1:0", join_timeout=120,
+                        task_timeout=300, expect={"space": space.name})
+    marker = log_dir / "b1-kill.marker"
+    spec = dict(spec="chip_smoke:golden_space", spec_args={"index": 1},
+                connect=ex.listen_address, env=_worker_env())
+    specs = [WorkerSpec(faults={"kill_after": 1, "marker": str(marker)},
+                        **spec), WorkerSpec(**spec)]
+    sess = AutotuneSession(space, backend=SimBackend(), trials=2)
+    t0 = time.perf_counter()
+    with WorkerPool(specs, restart_backoff=0.1, ready_timeout=300,
+                    log_dir=str(log_dir / "b1")) as pool:
+        got = sess.sweep(executor=ex, max_retries=3, **GOLDEN_SWEEP)
+    dt = time.perf_counter() - t0
+    events = _sweep_events(sess, pool)
+    want = {"worker_restart", "worker_joined", "worker_lost", "task_retry"}
+    if [_strip(r) for r in got] != serial:
+        raise AssertionError("[workers] B1: the remote sweep differs from "
+                             "the serial sweep")
+    if not marker.exists() or not want <= events or pool.restarts() < 1:
+        raise AssertionError(f"[workers] B1: kill fired {marker.exists()}, "
+                             f"restarts {pool.restarts()}, events {events}")
+    print(f"[workers] B1 protocol: 2 port workers serving "
+          f"chip_smoke:golden_space(1) ({space.name}), one killed on its "
+          f"first task and restarted ({pool.restarts()} restart): "
+          f"{len(got)} results equal the serial sweep bit for bit; events "
+          f"{sorted(events)}; {dt:.1f} s")
+    return {"results": len(got), "restarts": pool.restarts(),
+            "events": sorted(events), "seconds": dt}
+
+
+def phase_workers_card(log_dir: Path, device="cuda", reduced=False):
+    """(B2) One port worker serving ``lm_space`` (the full-width
+    smollm-135m wall-clock study) on the card, killed when its second task
+    arrives (after its first) and restarted by the supervisor; the sweep
+    of seeds 0 and 1 (the 12 StepKnobs points each, conditional 0.25,
+    trials 3) finishes after the retry.  Only one card worker at a time: two
+    processes on one card time-slice it and would time each other's
+    work."""
+    from repro_torch.api import (AutotuneSession, RemoteExecutor,
+                                 WorkerPool, WorkerSpec)
+    counts = log_dir / "b2-counts.json"
+    marker = log_dir / "b2-kill.marker"
+    args = {"reduced": reduced, "device": device, "counts": str(counts)}
+    space, backend = lm_space(reduced=reduced, device=device)
+    ex = RemoteExecutor(listen="127.0.0.1:0", join_timeout=600,
+                        task_timeout=900,
+                        expect={"space": space.name, "n_points": len(space),
+                                "backend": backend.fingerprint()})
+    spec = WorkerSpec(spec="chip_smoke:lm_space", spec_args=args,
+                      connect=ex.listen_address, env=_worker_env(),
+                      faults={"kill_after": 2, "marker": str(marker)})
+    sess = AutotuneSession(space, backend=backend, policy="conditional",
+                           tolerance=0.25, trials=3)
+    watch = {}
+
+    def on_event(e):
+        if e["event"] == "worker_restart":
+            import threading
+            watch["restart"] = time.perf_counter()
+            threading.Thread(target=_ready_watch, daemon=True, args=(
+                log_dir / "b2" / "worker-0.log", 2, watch)).start()
+    t0 = time.perf_counter()
+    with WorkerPool(spec, restart_backoff=0.1, ready_timeout=600,
+                    on_event=on_event, log_dir=str(log_dir / "b2")) as pool:
+        ready_s = time.perf_counter() - t0
+        got = sess.sweep(seeds=(0, 1), executor=ex, max_retries=2)
+        _wait_exit(pool, 120)
+    dt = time.perf_counter() - t0
+    events = _sweep_events(sess, pool)
+    if not marker.exists() or pool.restarts() < 1 or \
+            not {"worker_restart", "worker_lost", "task_retry"} <= events:
+        raise AssertionError(f"[workers] B2: kill fired {marker.exists()}, "
+                             f"restarts {pool.restarts()}, events {events}")
+    if "ready" not in watch:
+        raise AssertionError("[workers] B2: the restarted worker never "
+                             "printed WORKER_READY")
+    restart_s = watch["ready"] - watch["restart"]
+    n_pts = len(space)
+    for res in got:
+        if len(res.records) != n_pts or not all(
+                math.isfinite(r.predicted) and r.predicted > 0
+                and r.full_time > 0 for r in res.records):
+            raise AssertionError(f"[workers] B2 seed {res.seed}: "
+                                 f"{len(res.records)} of {n_pts} points "
+                                 f"measured")
+        print(f"[workers] B2 seed {res.seed}: {n_pts} points measured; "
+              f"chosen {res.chosen.name} true best {res.true_best.name} "
+              f"(quality {res.optimum_quality:.4f}); speedup "
+              f"{res.speedup:.3f}x; retries "
+              f"{res.extra.get('recovery', {}).get('retries', 0)}")
+    worker = json.loads(counts.read_text())
+    launches, plain = worker["launches"], worker["plain_calls"]
+    print(f"[workers] B2 card worker (restarted incarnation, exit hook): "
+          f"launches {launches}; plain calls {plain}")
+    if device != "cpu" and (any(plain.values())
+                            or not all(launches.values())):
+        raise AssertionError(f"[workers] B2: launches {launches}, plain "
+                             f"calls {plain}")
+    print(f"[workers] B2: 1 card worker, {len(got)} tasks (seeds 0 and 1) "
+          f"finished after {pool.restarts()} restart; first "
+          f"WORKER_READY {ready_s:.1f} s after launch, restart to "
+          f"WORKER_READY {restart_s:.1f} s; events {sorted(events)}; "
+          f"{dt:.1f} s")
+    return {"tasks": len(got), "points": n_pts, "restarts": pool.restarts(),
+            "first_ready_s": ready_s, "restart_to_ready_s": restart_s,
+            "launches": launches, "plain_calls": plain,
+            "chosen": [r.chosen.name for r in got],
+            "true_best": [r.true_best.name for r in got],
+            "speedup": [r.speedup for r in got],
+            "events": sorted(events), "seconds": dt}
+
+
+def phase_workers(device="cuda", reduced=False):
+    """(B1) then (B2), worker logs under a temporary directory."""
+    import tempfile
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-workers-") as d:
+        return {"protocol": phase_workers_protocol(Path(d)),
+                "card": phase_workers_card(Path(d), device=device,
+                                           reduced=reduced)}
 
 
 def main(argv=None) -> int:
@@ -1590,6 +1981,9 @@ def main(argv=None) -> int:
               "wall_clock": phase_daemon_wallclock()}
     torch.cuda.empty_cache()
     sim = phase_sim()
+    measured = phase_measured()
+    torch.cuda.empty_cache()
+    workers = phase_workers()
 
     # one entry per kernel: its largest main-path shape at f32 (forward:
     # the serving path's, launches counted there; backward: the tuning
@@ -1611,6 +2005,10 @@ def main(argv=None) -> int:
             "replaces": replaces, "launches": launches,
             "launches_tune": tune["session"]["launches"][name],
             "launches_daemon": daemon["full_width"]["launches"][name],
+            "launches_measured": {
+                f"{r['study']} {r['policy']}": r["launches"][name]
+                for r in measured["studies"]},
+            "launches_workers": workers["card"]["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in table
                                if r["kernel"] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -1630,7 +2028,8 @@ def main(argv=None) -> int:
                                         "grads": grad_rows,
                                         "grad_checks": grad_checks,
                                         "tune": tune, "daemon": daemon,
-                                        "sim": sim},
+                                        "sim": sim, "measured": measured,
+                                        "workers": workers},
                                        indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -19,12 +19,13 @@ the simulator on the host::
 
 Verbatim copies of ``repro.api``'s NumPy-only modules (``space``,
 ``result``, ``serialize``, ``search``, ``scheduler``, ``transfer``,
-``session``, ``daemon``, ``faults``, ``parallel``) and of the wall-clock
-and simulator subset of ``backends``; only ``repro.`` imports are
-rewritten (``tests/test_torch_copies.py``).  The always-on tuning daemon
-(``daemon``) is bound to the LM studies by ``repro_torch.serve.tuner``.
-Not ported: ``DryRunBackend``/``dryrun_space`` and the worker and
-supervisor modules.
+``session``, ``daemon``, ``faults``, ``parallel``, ``worker``,
+``supervisor``) and of the wall-clock and simulator subset of
+``backends``; only ``repro.`` imports are rewritten, and in
+``supervisor`` the worker's module path, so that a ``WorkerPool``
+spawns ``python -m repro_torch.api.worker`` (``tests/test_torch_copies.py``).
+The always-on tuning daemon (``daemon``) is bound to the LM studies by
+``repro_torch.serve.tuner``.  Not ported: ``DryRunBackend``/``dryrun_space``.
 """
 
 from .backends import (Backend, BackendRun, Measurement, SimBackend,
@@ -41,6 +42,7 @@ from .search import (SEARCHES, exhaustive, measure_config, model_guided,
 from .serialize import dumps_canonical, from_jsonable, to_jsonable
 from .session import AutotuneSession, run_payload
 from .space import RESET_POLICY, ConfigPoint, SearchSpace
+from .supervisor import WorkerPool, WorkerSpec
 from .transfer import CopulaModel, StatisticsBank
 
 __all__ = [
@@ -51,7 +53,8 @@ __all__ = [
     "Measurement", "RESET_POLICY", "RemoteExecutor", "SEARCHES",
     "Scheduler", "SchedulerError", "SearchSpace", "SimBackend",
     "StatisticsBank", "StudyResult", "Task", "TuningDaemon",
-    "WallClockBackend", "WallClockRun", "dumps_canonical", "exhaustive",
+    "WallClockBackend", "WallClockRun", "WorkerPool", "WorkerSpec",
+    "dumps_canonical", "exhaustive",
     "fork_available", "from_jsonable", "measure_config", "model_guided",
     "racing", "run_payload", "to_jsonable",
 ]

@@ -852,3 +852,50 @@ def test_daemon_full_width_shape_miss_lands(cuda_device):
     assert all(ops.launches[k] > launches0[k] for k in ops.launches)
     _no_failure_events(tuner.daemon.events)
     tuner.close(checkpoint=False)
+
+
+# -- the measured mode (linalg/blas.py) ---------------------------------------
+
+# one signature of each compute kind the four ci studies emit
+MEASURED_SIGS = [("gemm", (256, 256, 256)), ("gemm", (8, 63, 512)),
+                 ("syrk", (256, 256)), ("trmm", (8, 63)),
+                 ("trsm", (256, 256)), ("potrf", (256,)), ("trtri", (16,)),
+                 ("geqrf", (512, 8)), ("tpqrt", (64, 8)),
+                 ("ormqr", (512, 8, 8)), ("tpmqrt", (64, 64, 8)),
+                 ("blk2cyc", (2048,))]
+MEASURED_MATMUL = {"gemm", "syrk", "trmm", "ormqr", "tpmqrt"}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,params", MEASURED_SIGS)
+def test_measured_kind_on_the_card_matches_cpu(cuda_device, name, params):
+    """A MeasuredTimer on the card times the kind (the matmul family
+    through the matmul kernel: warm-up, timed call and the check's call),
+    calls no plain version, and its result on the drawn operands agrees
+    with the port's CPU run on the same operands (tests/test_torch_blas.py
+    tolerances; geqrf/tpqrt as R^T R, R being unique up to row signs)."""
+    from repro_torch.core.signatures import Signature
+    from repro_torch.linalg.blas import MeasuredTimer
+    sig = Signature("comp", name, params)
+    card = MeasuredTimer(seed=0)
+    assert card.device.type == "cuda"
+    n0, plain0 = ops.launches["matmul"], dict(ops.plain_calls)
+    assert card(sig, np.random.default_rng(0)) > 0 and card.calls == 1
+    fn, args = card._operands(sig)
+    got = args[0].clone() if fn == "copy" else fn(*args)
+    torch.cuda.synchronize()
+    launched = ops.launches["matmul"] - n0
+    assert launched == (3 if name in MEASURED_MATMUL else 0)
+    assert ops.plain_calls == plain0
+    _, hargs = MeasuredTimer(seed=0, device="cpu")._operands(sig)
+    for a, h in zip(args, hargs):
+        assert a.dtype == torch.float32 and torch.equal(a.cpu(), h)
+    if fn == "copy":
+        assert torch.equal(got.cpu(), hargs[0])
+        return
+    got, want = _np(got), _np(fn(*hargs))
+    if name in ("geqrf", "tpqrt"):
+        got, want = got.T @ got, want.T @ want
+    rtol, arel = (1e-4, 1e-4) if name in MEASURED_MATMUL else (1e-3, 1e-5)
+    np.testing.assert_allclose(got, want, rtol=rtol,
+                               atol=arel * float(np.abs(want).max()))
