@@ -98,7 +98,32 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               its second task arrives and restarted: both tasks finish,
               every point measured, every kernel launched in the worker,
               no plain call.  The workers import their specs
-              (`golden_space`, `lm_space`) from this file.
+              (`golden_space`, `lm_space`) from this file;
+11. moe    -- the MoE family, phi3.5-moe at its published widths (d_model
+              4096, 32/8 heads of 128, 16 experts of 6400 with top-2
+              routing, vocab 32064) with the depth cut to 4 of 32 layers
+              (21.9 GB of f32 weights, drawn on the CPU from a seed; a
+              copy on the card): (e) first, every kernel at the MoE
+              shapes against its plain version and timed as [kernels]
+              rows (router N 16, experts at M = cap 1/5/10, the untied
+              head N 32064, flash at d 128 over 32/8 heads, RMSNorm 4096
+              wide); (a) serve 8 requests (launch/serve.py's draw, batch
+              4, s_max 256, 16 new tokens) three times, the launch
+              counters zeroed just before the first run and read just
+              after (matmul, RMSNorm and flash launched, the expected
+              count, no plain call, the same tokens every run; host ms
+              least of 3), then prefill and 4 teacher-forced decode steps
+              of 2 prompts against the port's CPU run, every layer's
+              routing first, then the logits; (b) the decode step under
+              torch.profiler, the expert products and the dispatch's
+              plain ops split out; (c) one full-width layer's moe_fb
+              gradients, sort and dense, remat none and full, at mb 2 x S
+              32 against the CPU run, then each timed warm on the card
+              beside its bound (the moe_dispatch knob's reading); (d) the
+              reduced study's 24-point conditional session on the card, a
+              protocol check with the counters zeroed around it: every
+              kernel launched, no plain call, the sort and dense points
+              sharing every attn_fb signature and no moe_fb.
 
 It prints the kernels as one JSON line, then the last line
 ``{"ok": true, "device": {...}}``.  ``--out PATH`` also writes the full
@@ -110,6 +135,7 @@ the repository around it.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import itertools
 import json
@@ -512,7 +538,17 @@ def phase_kernels(cfg):
              + [(n, lab, sp, (f32, torch.bfloat16))
                 for n, lab, sp in LONG_CASES]
              + [(n, f"awkward {sp}", sp, ()) for n, sp in AWKWARD])
-    for dtype in (f32, torch.bfloat16):
+    check_cases(cases, gen, rows, worst)
+    print(f"[kernels] {len(rows)} cases agree; max abs err per kernel: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    return rows, floor
+
+
+def check_cases(cases, gen, rows, worst):
+    """Each (kernel, label, shape spec, timed dtypes) case in f32 and bf16
+    against the plain version, timed (``time_row``) in the dtypes named;
+    appends the rows and keeps each kernel's worst error."""
+    for dtype in (torch.float32, torch.bfloat16):
         dn = str(dtype).split(".")[1]
         for name, label, spec, timed in cases:
             args = make_args(name, spec, dtype, gen)
@@ -531,9 +567,6 @@ def phase_kernels(cfg):
                 time_row(row, name, args, dn)
             rows.append(row)
             del args, got, want
-    print(f"[kernels] {len(rows)} cases agree; max abs err per kernel: "
-          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
-    return rows, floor
 
 
 # every RMSNorm variant forced at each shape it can take, with w in either
@@ -707,7 +740,6 @@ def per_step_launches(cfg):
 
 def phase_serve(cfg):
     from repro_torch.launch import serve
-    from repro_torch.models.model import Model
 
     for k in ops.launches:
         ops.launches[k] = 0
@@ -753,28 +785,68 @@ def phase_serve(cfg):
 
     # the same weights through the port on the CPU: prefill logits of two
     # prompts, then 8 teacher-forced decode steps
-    gpu = Model(cfg, device="cuda")
-    cpu = Model(cfg, device="cpu")
     p_gpu = eng.params
     p_cpu = {g: {k: v.cpu() for k, v in sub.items()}
              for g, sub in p_gpu.items()}
-    rng = np.random.default_rng(1)
-    worst = 0.0
+    worst, _, _ = logits_vs_cpu(cfg, p_gpu, p_cpu, 8)
     rtol, atol = SERVE_TOL
-    for n in (13, 29):
-        toks = rng.integers(0, cfg.vocab, size=(1, n + 8))
-        outs = []
-        for model, params in ((gpu, p_gpu), (cpu, p_cpu)):
+    print(f"[serve] CUDA vs CPU logits (prefill + 8 decode steps, 2 "
+          f"prompts): max abs err {worst:.3e} (rtol {rtol}, atol {atol})")
+    serve_stats["cpu_max_abs_err"] = worst
+    return serve_stats, p_gpu
+
+
+@contextlib.contextmanager
+def _recording_routing(routes):
+    """While open, every ``moe.moe_ffn`` call appends its routing (experts
+    and kept pairs per token) to ``routes`` (measurement only; restored on
+    exit)."""
+    from repro_torch.models import moe
+    fn = moe.moe_ffn
+    moe.moe_ffn = lambda *a, **kw: fn(*a, routing=routes, **kw)
+    try:
+        yield routes
+    finally:
+        moe.moe_ffn = fn
+
+
+def logits_vs_cpu(cfg, p_gpu, p_cpu, steps, prompts=(13, 29)):
+    """Prefill logits of each prompt and ``steps`` teacher-forced decode
+    steps through the port on the card against its CPU run on the same
+    weights (``SERVE_TOL``), each MoE layer's routing compared first.
+    Returns (max abs err, token-expert pairs, pairs dropped)."""
+    from repro_torch.models.model import Model
+    rng = np.random.default_rng(1)
+    worst, pairs, dropped = 0.0, 0, 0
+    rtol, atol = SERVE_TOL
+    models = ((Model(cfg, device="cuda"), p_gpu),
+              (Model(cfg, device="cpu"), p_cpu))
+    for n in prompts:
+        toks = rng.integers(0, cfg.vocab, size=(1, n + steps))
+        outs, routes = [], []
+        for model, params in models:
             dev = model.device
             tt = torch.from_numpy(toks).to(dev)
-            lg, cache, _ = model.prefill(params, {"tokens": tt[:, :n]}, 64)
-            seq = [lg.float().cpu()]
-            for i in range(8):
-                lg, cache = model.decode_step(
-                    params, cache, torch.tensor([n + i], device=dev),
-                    {"tokens": tt[:, n + i:n + i + 1]})
-                seq.append(lg.float().cpu())
+            with _recording_routing([]) as r:
+                lg, cache, _ = model.prefill(params, {"tokens": tt[:, :n]},
+                                             64)
+                seq = [lg.float().cpu()]
+                for i in range(steps):
+                    lg, cache = model.decode_step(
+                        params, cache, torch.tensor([n + i], device=dev),
+                        {"tokens": tt[:, n + i:n + i + 1]})
+                    seq.append(lg.float().cpu())
             outs.append(torch.stack(seq))
+            routes.append([(i.cpu(), k.cpu()) for i, k in r])
+        for j, ((gi, gk), (ci, ck)) in enumerate(zip(*routes)):
+            if not (torch.equal(gi, ci) and torch.equal(gk, ck)):
+                raise AssertionError(
+                    f"routing differs from the CPU run for a {n}-token "
+                    f"prompt at call {j // cfg.n_layers} layer "
+                    f"{j % cfg.n_layers}: experts {gi.tolist()} vs "
+                    f"{ci.tolist()}, kept {gk.tolist()} vs {ck.tolist()}")
+            dropped += int((~ck).sum())
+            pairs += ck.numel()
         g, c = outs
         err = (g - c).abs()
         if not torch.isfinite(g).all() or \
@@ -783,10 +855,7 @@ def phase_serve(cfg):
                                  f"{n}-token prompt: max abs err "
                                  f"{float(err.max()):.3e}")
         worst = max(worst, float(err.max()))
-    print(f"[serve] CUDA vs CPU logits (prefill + 8 decode steps, 2 "
-          f"prompts): max abs err {worst:.3e} (rtol {rtol}, atol {atol})")
-    serve_stats["cpu_max_abs_err"] = worst
-    return serve_stats, p_gpu
+    return worst, pairs, dropped
 
 
 def phase_profile(cfg, params, steps: int = 5):
@@ -1952,6 +2021,461 @@ def phase_workers(device="cuda", reduced=False):
                                            reduced=reduced)}
 
 
+# -- phase 11: the MoE family (phi3.5-moe at full width) ---------------------
+
+# phi3.5-moe at its published widths with the depth cut to 4 of 32 layers:
+# 21.9 GB of f32 weights (the 32 layers' 168 GB fit no card)
+MOE_LAYERS = 4
+MOE_SERVE = dict(batch_size=4, s_max=256, max_new_tokens=16, seed=0)
+MOE_REQUESTS = 8                # launch/serve.py's draw: 4-31 tokens each
+MOE_COMPARE = ((13, 29), 4)     # CPU comparison: prompt lengths, steps
+MOE_GRAD = dict(batch=2, seq=32)     # the study's traffic
+MOE_LABELS = ("moe_ffn", "_expert_ffn")  # the profiler's ranges
+
+
+def moe_kernel_cases(cfg):
+    """(kernel, label, shape spec) at phi3.5-moe's shapes: the router (N
+    16), the experts at M = cap (1 at a 4-slot decode step, 5 at a
+    31-token prompt, 10 at the study's mb 2 x S 32), the untied head (N
+    32064, not a multiple of 128), flash at d 128 over 32/8 heads at the
+    prompts' shortest and longest, and RMSNorm at d_model 4096."""
+    D, V, E = cfg.d_model, cfg.vocab, cfg.moe.n_experts
+    Fe, H, KVH, d = cfg.moe.d_ff_expert, cfg.n_heads, cfg.n_kv_heads, \
+        cfg.head_dim
+    cases = [("matmul", f"{ph} router {M}x{D}x{E}", (M, D, E, False))
+             for ph, M in (("decode", 4), ("prefill", PROMPT_MAX))]
+    for ph, cap in (("decode", 1), ("prefill", 5), ("study", 10)):
+        cases += [("matmul", f"{ph} expert gate/up {cap}x{D}x{Fe}",
+                   (cap, D, Fe, False)),
+                  ("matmul", f"{ph} expert down {cap}x{Fe}x{D}",
+                   (cap, Fe, D, False))]
+    cases += [("matmul", f"{ph} head {M}x{D}x{V}", (M, D, V, False))
+              for ph, M in (("decode", 4), ("prefill", 1))]
+    cases += [("flash_attention", f"prefill B1 S{S} H{H}/{KVH} d{d}",
+               (1, S, S, H, KVH, d)) for S in (4, PROMPT_MAX)]
+    cases += [("rmsnorm", f"{ph} {M}x{D}", (M, D))
+              for ph, M in (("decode", 4), ("prefill", PROMPT_MAX))]
+    return cases
+
+
+def moe_per_step_launches(cfg):
+    """Kernel launches per prefill and per decode step: each layer's
+    attention norm (the MoE FFN reads none), q/k/v/o, the router and three
+    products per expert; the final norm and the head."""
+    L, E = cfg.n_layers, cfg.moe.n_experts
+    mm = (4 + 1 + 3 * E) * L + 1
+    return ({"rmsnorm": L + 1, "matmul": mm, "flash_attention": L},
+            {"rmsnorm": L + 1, "matmul": mm, "flash_attention": 0})
+
+
+def phase_moe_kernels(cfg):
+    """Phase (e), first: every kernel at the MoE shapes against its plain
+    version (f32 and bf16), f32 timed beside bound, plain and library."""
+    gen = torch.Generator().manual_seed(6)
+    rows, worst = [], {}
+    check_cases([(n, lab, sp, (torch.float32,))
+                 for n, lab, sp in moe_kernel_cases(cfg)], gen, rows, worst)
+    print(f"[moe] {len(rows)} kernel cases at the MoE shapes agree; max "
+          f"abs err per kernel: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    return rows
+
+
+def _moe_engine(model, params):
+    from repro_torch.launch.serve import synthetic_requests
+    from repro_torch.serve.engine import Engine, ServeConfig
+    eng = Engine(model, params, ServeConfig(**MOE_SERVE))
+    for req in synthetic_requests(MOE_REQUESTS, model.cfg.vocab, 0):
+        eng.submit(req)
+    return eng
+
+
+def phase_moe_serve(cfg, p_cpu, p_gpu):
+    """(a) Serve 8 requests on the card three times with the launch
+    counters zeroed just before the first and read just after it: the
+    forward kernels only, the expected count, no plain call, the same
+    tokens every run; host-clock ms (least of the 3 runs).  Then the
+    card's prefill and teacher-forced decode logits against the port's
+    CPU run on the same weights, routing compared first."""
+    from repro_torch.models.model import Model
+    model = Model(cfg, device="cuda")
+    runs = []
+    for i in range(3):
+        eng = _moe_engine(model, p_gpu)
+        if i == 0:
+            _zero_counts()
+        eng.run()
+        torch.cuda.synchronize()
+        if i == 0:
+            launches, plain = dict(ops.launches), dict(ops.plain_calls)
+        runs.append(eng)
+    print(f"[moe] serve launches: {launches}; plain calls: {plain}")
+    if any(plain.values()):
+        raise AssertionError(f"the MoE serve called plain versions: {plain}")
+    if any(launches[k] for k in launches if k not in FORWARD):
+        raise AssertionError(f"serving launched a backward kernel: "
+                             f"{launches}")
+    launches = {k: launches[k] for k in FORWARD}
+    eng = runs[0]
+    pre, dec = eng.timings["prefill_s"], eng.timings["decode_s"]
+    per_pre, per_dec = moe_per_step_launches(cfg)
+    expect = {k: len(pre) * per_pre[k] + len(dec) * per_dec[k]
+              for k in launches}
+    if launches != expect or not all(launches.values()):
+        raise AssertionError(f"launches {launches} != {len(pre)} prefills "
+                             f"and {len(dec)} decode steps: {expect}")
+    toks = {u: r.tokens for u, r in eng.results.items()}
+    if len(toks) != MOE_REQUESTS or any(
+            len(t) != MOE_SERVE["max_new_tokens"] or not all(
+                0 <= x < cfg.vocab for x in t) for t in toks.values()):
+        raise AssertionError("MoE serve results have the wrong count or "
+                             "range")
+    if any({u: r.tokens for u, r in e.results.items()} != toks
+           for e in runs[1:]):
+        raise AssertionError("the MoE serve gave other tokens on a rerun")
+    means = [(float(np.mean(e.timings["prefill_s"])),
+              float(np.mean(e.timings["decode_s"]))) for e in runs]
+    n_tok = sum(len(t) for t in toks.values())
+    stats = {
+        "layers": cfg.n_layers, "requests": len(toks), "tokens": n_tok,
+        "prefill_ms": 1e3 * min(m[0] for m in means),
+        "decode_ms": 1e3 * min(m[1] for m in means),
+        "prefill_ms_runs": [1e3 * m[0] for m in means],
+        "decode_ms_runs": [1e3 * m[1] for m in means],
+        "decode_ms_median_first_run": 1e3 * float(np.median(dec)),
+        "tokens_per_s": max(n_tok / (sum(e.timings["prefill_s"])
+                                     + sum(e.timings["decode_s"]))
+                            for e in runs),
+        "decode_steps": len(dec), "launches": launches,
+        "launches_per_prefill": per_pre, "launches_per_decode_step": per_dec}
+    print(f"[moe] serve full-width phi3.5-moe ({cfg.n_layers} of 32 layers, "
+          f"f32): {len(toks)} requests, {n_tok} tokens, same tokens in 3 "
+          f"runs; prefill {stats['prefill_ms']:.2f} ms a request, decode "
+          f"{stats['decode_ms']:.2f} ms a step (host clock, least of 3 "
+          f"runs: {[round(m, 2) for m in stats['decode_ms_runs']]}); "
+          f"launches a decode step {per_dec}")
+
+    # the same weights on the CPU: routing first, then the logits
+    prompts, steps = MOE_COMPARE
+    t0 = time.perf_counter()
+    worst, pairs, dropped = logits_vs_cpu(cfg, p_gpu, p_cpu, steps, prompts)
+    rtol, atol = SERVE_TOL
+    stats.update({"cpu_max_abs_err": worst, "cpu_pairs": pairs,
+                  "cpu_pairs_dropped": dropped,
+                  "cpu_compare_s": time.perf_counter() - t0})
+    print(f"[moe] CUDA vs CPU (prefill + {steps} teacher-forced decode "
+          f"steps, prompts {prompts}): routing equal in every layer and "
+          f"call, {dropped} of {pairs} token-expert pairs dropped by the "
+          f"capacity; logits max abs err {worst:.3e} (rtol {rtol}, atol "
+          f"{atol}); {stats['cpu_compare_s']:.1f} s")
+    return stats
+
+
+def _labelled(module, names):
+    """A context that wraps ``module``'s functions ``names`` in profiler
+    ranges named after them (measurement only; restored on exit)."""
+    from torch.profiler import record_function
+
+    def wrap(name, fn):
+        def inner(*a, **kw):
+            with record_function(name):
+                return fn(*a, **kw)
+        return inner
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = {n: getattr(module, n) for n in names}
+        for n, fn in saved.items():
+            setattr(module, n, wrap(n, fn))
+        try:
+            yield
+        finally:
+            for n, fn in saved.items():
+                setattr(module, n, fn)
+    return ctx()
+
+
+def phase_moe_profile(cfg, params, steps: int = 3):
+    """(b) torch.profiler over ``steps`` decode steps of a full batch:
+    device busy ms, idle share, time by kernel, with the expert products
+    split from the other matmuls and the dispatch's plain tensor ops from
+    the rest: ``moe_ffn`` and ``_expert_ffn`` run inside profiler ranges,
+    which the profiler also lays on the device's timeline, and a kernel
+    belongs to the innermost range whose device span holds it (one
+    stream, so no other kernel falls inside a span)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+
+    eng = Engine(Model(cfg, device="cuda"), params,
+                 ServeConfig(batch_size=4, s_max=256, max_new_tokens=64))
+    rng = np.random.default_rng(2)
+    for uid in range(4):
+        eng.submit(Request(uid, rng.integers(0, cfg.vocab, size=(16,))))
+    eng.step()
+    eng.step()
+    torch.cuda.synchronize()
+    n_dec = len(eng.timings["decode_s"])
+    with _labelled(moe, MOE_LABELS), profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            eng.step()
+        torch.cuda.synchronize()
+    dec_ms = 1e3 * float(np.mean(eng.timings["decode_s"][n_dec:]))
+    on_dev = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    spans = {n: [(e.time_range.start, e.time_range.end) for e in on_dev
+                 if e.name == n] for n in MOE_LABELS}
+    dev = [e for e in on_dev if e.name not in MOE_LABELS]
+    if not dev:
+        print("[moe] the profiler recorded no device events; device busy "
+              "share not measured")
+        return {"decode_ms_profiled": dec_ms, "device_events": 0}
+
+    def scope(e):
+        for n in ("_expert_ffn", "moe_ffn"):          # innermost first
+            if any(a <= e.time_range.start and e.time_range.end <= b
+                   for a, b in spans[n]):
+                return n
+        return None
+
+    def ours(name):
+        return next((k for k, frags in KERNEL_NAMES.items()
+                     if any(f in name for f in frags)), None)
+
+    def part_of(e):
+        k, sc = ours(e.name), scope(e)
+        if k == "matmul":
+            return {"_expert_ffn": "expert products",
+                    "moe_ffn": "router products"}.get(sc, "other products")
+        return k or {"_expert_ffn": "experts' plain ops (silu, mul, stack)",
+                     "moe_ffn": "dispatch's plain ops"}.get(
+                         sc, "other plain ops")
+
+    parts = {}
+    for e in dev:
+        part = part_of(e)
+        c, t = parts.get(part, (0, 0.0))
+        parts[part] = (c + 1, t + e.time_range.elapsed_us())
+    busy = sum(e.time_range.elapsed_us() for e in dev)
+    span = (max(e.time_range.end for e in dev)
+            - min(e.time_range.start for e in dev))
+    by_name = {}
+    for e in dev:
+        c, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    want = 3 * cfg.moe.n_experts * cfg.n_layers
+    linked = parts.get("expert products", (0, 0.0))[0] / steps == want
+    out = {
+        "decode_ms_profiled": dec_ms,
+        "device_busy_ms_per_step": busy / steps / 1e3,
+        "device_span_ms_per_step": span / steps / 1e3,
+        "device_idle_share": 1.0 - busy / span,
+        "device_events_per_step": len(dev) / steps,
+        "split_linked": linked,
+        "parts_per_step": {k: {"count": c / steps, "ms": t / steps / 1e3}
+                           for k, (c, t) in sorted(
+                               parts.items(), key=lambda kv: -kv[1][1])},
+        "top_device_time_per_step": [
+            {"name": n[:80], "count": c / steps, "us": t / steps}
+            for n, (c, t) in top]}
+    print(f"[moe] decode step under the profiler {dec_ms:.2f} ms; device "
+          f"busy {out['device_busy_ms_per_step']:.3f} ms of a "
+          f"{out['device_span_ms_per_step']:.3f} ms span (idle share "
+          f"{out['device_idle_share']:.3f}); "
+          f"{out['device_events_per_step']:.0f} device events a step")
+    if not linked:
+        print(f"[moe] the profiler's device spans held "
+              f"{parts.get('expert products', (0, 0.0))[0] / steps:.0f} of "
+              f"{want} expert products a step: the split below is not "
+              f"measured")
+    for k, v in out["parts_per_step"].items():
+        print(f"[moe]   {v['ms']:8.3f} ms  x{v['count']:6.1f}  {k}")
+    for row in out["top_device_time_per_step"]:
+        print(f"[moe]   {row['us']:9.1f} us  x{row['count']:5.1f}  "
+              f"{row['name']}")
+    return out
+
+
+def moe_fb_bound(cfg, dispatch, remat, T, cap):
+    """(bound ms, by) of one layer's ``moe_fb`` at f32: the weights read
+    and their gradients written once; the products' operations (the
+    router and 3 a expert, on E x cap rows under sort and E x T under
+    dense; the backward twice the forward, and remat full one forward
+    more)."""
+    D, E, Fe = cfg.d_model, cfg.moe.n_experts, cfg.moe.d_ff_expert
+    weights = D * E + 3 * E * D * Fe
+    rows = E * (cap if dispatch == "sort" else T)
+    fwd = 2 * T * D * E + 2 * rows * D * Fe * 3
+    passes = 4 if remat == "full" else 3
+    return bound(4 * (2 * weights + 2 * T * D), passes * fwd, "float32")
+
+
+def phase_moe_grads(cfg, p_cpu, p_gpu, reps: int = 5):
+    """(c) One full-width layer's ``moe_fb`` gradients (the study's
+    closure on layer 0's weights), sort and dense, remat none and full,
+    at mb 2 x S 32: the card against the port's CPU run, routing
+    compared first; then the card's closure timed warm, the least of
+    ``reps`` calls on the host clock (each call ends in a device sync, as
+    the study times it), beside its bound: the ``moe_dispatch`` knob's
+    reading at full width."""
+    from repro_torch.models import moe
+    from repro_torch.tune.lm_study import (MOE_UNREAD, _flatten,
+                                           grad_closure, moe_loss)
+    rtol, atol = STUDY_TOL
+    layer = [{k[4:]: v[0] for k, v in p["pos0"].items()
+              if k.startswith("ffn_")} for p in (p_gpu, p_cpu)]
+    gen = torch.Generator().manual_seed(12)
+    x = torch.randn((MOE_GRAD["batch"], MOE_GRAD["seq"], cfg.d_model),
+                    generator=gen)
+    xs = (x.to("cuda"), x)
+    routes = []
+    with torch.no_grad():
+        for p, xx in zip(layer, xs):
+            r = []
+            moe.moe_ffn(p, xx, cfg, dispatch="sort", routing=r)
+            routes.append([t.cpu() for t in r[0]])
+    (gi, gk), (ci, ck) = routes
+    if not (torch.equal(gi, ci) and torch.equal(gk, ck)):
+        raise AssertionError("[moe] full-width gradient inputs route "
+                             "differently on the card and the CPU")
+    T = x.shape[0] * x.shape[1]
+    cap = moe.sort_capacity(T * cfg.moe.top_k, cfg.moe.n_experts,
+                            cfg.moe.capacity_factor)
+    rows = []
+    for dispatch in ("sort", "dense"):
+        for remat in ("none", "full"):
+            fns = [grad_closure(moe_loss(cfg, dispatch), remat, xx.device,
+                                unread=MOE_UNREAD) for xx in xs]
+            out = [fn(p, xx) for fn, p, xx in zip(fns, layer, xs)]
+            worst = 0.0
+            for (path, g), (_, c) in zip(_flatten(out[0]),
+                                         _flatten(out[1])):
+                g = g.cpu()
+                err = (g - c).abs()
+                scale = max(1.0, float(c.abs().max()))
+                if not torch.isfinite(g).all() or \
+                        bool((err > atol * scale + rtol * c.abs()).any()):
+                    raise AssertionError(
+                        f"[moe] moe_fb {dispatch} remat {remat} "
+                        f"{'/'.join(path)}: card vs CPU max abs err "
+                        f"{float(err.max()):.3e}")
+                worst = max(worst, float(err.max()) / scale)
+            del out
+            runs = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fns[0](layer[0], xs[0])
+                runs.append(1e3 * (time.perf_counter() - t0))
+            b_ms, b_by = moe_fb_bound(cfg, dispatch, remat, T, cap)
+            rows.append({"dispatch": dispatch, "remat": remat,
+                         "max_err_over_scale": worst, "ms": min(runs),
+                         "ms_runs": runs, "bound_ms": b_ms,
+                         "bound_by": b_by})
+            print(f"[moe] full-width moe_fb {dispatch} remat {remat} at mb "
+                  f"{MOE_GRAD['batch']} x S {MOE_GRAD['seq']} (cap {cap}): "
+                  f"card vs CPU within rtol {rtol}, atol {atol} x scale "
+                  f"(max err / scale {worst:.2e}); card {min(runs):.3f} ms "
+                  f"a call (host clock with its sync, warm, least of "
+                  f"{reps}: {[round(m, 3) for m in runs]}); bound "
+                  f"{b_ms:.3f} ms ({b_by})")
+    ms = {(r["dispatch"], r["remat"]): r["ms"] for r in rows}
+    ratio = {rm: ms[("dense", rm)] / ms[("sort", rm)]
+             for rm in ("none", "full")}
+    print(f"[moe] moe_dispatch at full width: dense / sort "
+          + ", ".join(f"{v:.3f}x at remat {k}" for k, v in ratio.items()))
+    return {"cap": cap, "routed_pairs_dropped": int((~ck).sum()),
+            "rows": rows, "dense_over_sort": ratio}
+
+
+def phase_moe_study():
+    """(d) The reduced phi3.5-moe study on the card, a protocol check: a
+    24-point conditional session with the launch counters zeroed just
+    before and read just after (every kernel launched, no plain call);
+    the sort and dense points share every ``attn_fb`` kernel and no
+    ``moe_fb``.  At the reduced width (d_model 64, 4 experts of 64) the
+    two dispatches differ by less than the run-to-run noise, so its
+    chosen point and speedup say nothing of the knob: phase (c) times
+    the knob at full width."""
+    from repro_torch.tune.lm_study import LMStudy, lm_config_space
+    study = LMStudy("phi3.5-moe", **STUDY)
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = study.session(policy="conditional", tolerance=0.25,
+                        trials=3).run()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(ops.launches), dict(ops.plain_calls)
+    print(f"[moe] study launches: {launches}; plain calls: {plain}")
+    if any(plain.values()):
+        raise AssertionError(f"the MoE study called plain versions: {plain}")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"kernels never launched by the MoE study: "
+                             f"{missing}")
+    if len(res.records) != 24:
+        raise AssertionError(f"{len(res.records)} configurations, not 24")
+    for r in res.records:
+        if not (math.isfinite(r.predicted) and r.predicted > 0
+                and r.full_time > 0):
+            raise AssertionError(f"[moe] {r.name}: bad times {r.to_json()}")
+    sigs = {"sort": set(), "dense": set()}
+    for kn in lm_config_space(study.cfg):
+        sigs[kn.moe_dispatch] |= {str(s) for s, _, _ in
+                                  study.kernel_sequence(kn)}
+    shared = sigs["sort"] & sigs["dense"]
+    moe_shared = sorted(s for s in shared if "moe_fb" in s)
+    attn = {d: {s for s in v if "attn_fb" in s} for d, v in sigs.items()}
+    if moe_shared or attn["sort"] != attn["dense"]:
+        raise AssertionError(f"[moe] sort and dense share moe_fb "
+                             f"{moe_shared} or not every attn_fb")
+    print(f"[moe] study (reduced phi3.5-moe, {len(res.records)} points, "
+          f"conditional 0.25, trials 3; a protocol check, not a reading of "
+          f"the knob): chosen {res.chosen.name} true best "
+          f"{res.true_best.name} (optimum quality "
+          f"{res.optimum_quality:.4f}); speedup {res.speedup:.3f}x; wall "
+          f"{wall:.1f} s; sort and dense share {len(shared)} signatures: "
+          f"every attn_fb ({len(attn['sort'])}), no moe_fb")
+    return {"records": [r.to_json() for r in res.records],
+            "chosen": res.chosen.name, "true_best": res.true_best.name,
+            "speedup": res.speedup, "optimum_quality": res.optimum_quality,
+            "full_tuning_time_s": res.full_tuning_time,
+            "selective_tuning_time_s": res.selective_tuning_time,
+            "wall_s": wall, "launches": launches,
+            "shared_signatures": sorted(shared)}
+
+
+def phase_moe():
+    """(e) the kernels at the MoE shapes, then the full-width weights
+    (drawn on the CPU once; a copy moved to the card): (a) serve, (b)
+    profile, (c) gradients; then (d) the reduced study."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    cfg = replace(get_config("phi3.5-moe"), n_layers=MOE_LAYERS)
+    kernel_rows = phase_moe_kernels(cfg)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    draw_s = time.perf_counter() - t0
+    p_gpu = {g: {k: v.to("cuda") for k, v in sub.items()}
+             for g, sub in p_cpu.items()}
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for sub in p_cpu.values() for v in sub.values())
+    print(f"[moe] phi3.5-moe at full width, {cfg.n_layers} of 32 layers: "
+          f"{n_params} f32 parameters ({4 * n_params / 1e9:.1f} GB), drawn "
+          f"in {draw_s:.1f} s and copied to the card in "
+          f"{time.perf_counter() - t0 - draw_s:.1f} s")
+    serve_stats = phase_moe_serve(cfg, p_cpu, p_gpu)
+    serve_stats["profile"] = phase_moe_profile(cfg, p_gpu)
+    grads = phase_moe_grads(cfg, p_cpu, p_gpu)
+    del p_cpu, p_gpu
+    torch.cuda.empty_cache()
+    study = phase_moe_study()
+    return {"kernels": kernel_rows, "serve": serve_stats, "grads": grads,
+            "study": study, "params": n_params}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -1984,6 +2508,8 @@ def main(argv=None) -> int:
     measured = phase_measured()
     torch.cuda.empty_cache()
     workers = phase_workers()
+    torch.cuda.empty_cache()
+    moe = phase_moe()
 
     # one entry per kernel: its largest main-path shape at f32 (forward:
     # the serving path's, launches counted there; backward: the tuning
@@ -2009,6 +2535,9 @@ def main(argv=None) -> int:
                 f"{r['study']} {r['policy']}": r["launches"][name]
                 for r in measured["studies"]},
             "launches_workers": workers["card"]["launches"][name],
+            "launches_moe": {
+                "serve": moe["serve"]["launches"].get(name, 0),
+                "study": moe["study"]["launches"][name]},
             "max_abs_err": max(r["max_abs_err"] for r in table
                                if r["kernel"] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -2029,7 +2558,7 @@ def main(argv=None) -> int:
                                         "grad_checks": grad_checks,
                                         "tune": tune, "daemon": daemon,
                                         "sim": sim, "measured": measured,
-                                        "workers": workers},
+                                        "workers": workers, "moe": moe},
                                        indent=1))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

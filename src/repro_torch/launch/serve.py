@@ -65,11 +65,8 @@ def main(argv=None):
         batch_size=args.batch, s_max=args.s_max,
         max_new_tokens=args.max_new, temperature=args.temperature,
         seed=args.seed))
-    rng = np.random.default_rng(args.seed)
-    for uid in range(args.requests):
-        n = int(rng.integers(4, 32))
-        eng.submit(Request(uid, rng.integers(0, cfg.vocab, size=(n,))
-                           .astype(np.int32)))
+    for req in synthetic_requests(args.requests, cfg.vocab, args.seed):
+        eng.submit(req)
     t0 = time.perf_counter()
     steps = 0
     while eng.queue or eng.active.any():
@@ -85,6 +82,18 @@ def main(argv=None):
     for uid in sorted(eng.results)[:4]:
         print(f"  req {uid}: {eng.results[uid].tokens[:12]} ...")
     return eng
+
+
+def synthetic_requests(n: int, vocab: int, seed: int):
+    """The CLI's prompts: ``n`` requests of 4-31 tokens drawn from
+    ``seed``, as the JAX package's ``launch/serve.py`` draws them."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for uid in range(n):
+        k = int(rng.integers(4, 32))
+        out.append(Request(uid, rng.integers(0, vocab, size=(k,))
+                           .astype(np.int32)))
+    return out
 
 
 def _daemon_demo(args) -> dict:

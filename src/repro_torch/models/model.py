@@ -1,6 +1,6 @@
-"""Model assembly for the dense family: parameters, forward, prefill, decode
-(port of ``repro.models.model`` for ``pattern=("attn",)``,
-``ffn_pattern=("dense",)``).
+"""Model assembly for the attention families: parameters, forward, prefill,
+decode (port of ``repro.models.model`` for ``pattern=("attn",)`` with
+``ffn_pattern`` ``("dense",)`` or ``("moe",)``).
 
 Parameters are a plain dict of tensors, as in JAX, with every block weight
 stacked over layers (leading ``n_layers`` dim; projections 2-D, see
@@ -20,17 +20,19 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import DeviceLike, resolve_device
 from . import layers as L
+from . import moe as M
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
 
 @dataclass(frozen=True)
 class ModelKnobs:
-    """Step-function choices of the dense path (the JAX ``ModelKnobs``
-    fields that the port's paths read, with JAX's defaults; ``remat`` is
-    read by the tuning loop, ``tune/lm_study.py``)."""
+    """Step-function choices of the attention families (the JAX
+    ``ModelKnobs`` fields that the port's paths read, with JAX's defaults;
+    ``remat`` is read by the tuning loop, ``tune/lm_study.py``)."""
 
     kv_chunk: int = 1024          # flash-attention KV chunk
+    moe_dispatch: str = "a2a"     # 'a2a' (one device: 'sort'), 'sort', 'dense'
     remat: str = "full"           # 'none' | 'full'
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
@@ -38,18 +40,43 @@ class ModelKnobs:
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    if (cfg.pattern != ("attn",) or cfg.ffn_pattern != ("dense",)
+    if (cfg.pattern != ("attn",)
+            or cfg.ffn_pattern not in (("dense",), ("moe",))
             or cfg.n_codebooks or cfg.n_patches):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the dense family only (pattern "
-            f"('attn',), ffn_pattern ('dense',), no frontend stubs); got "
-            f"{cfg.pattern}/{cfg.ffn_pattern}")
+            f"{cfg.name}: the port serves the attention families only "
+            f"(pattern ('attn',), ffn_pattern ('dense',) or ('moe',), no "
+            f"frontend stubs); got {cfg.pattern}/{cfg.ffn_pattern}")
+
+
+def _ffn_spec(cfg: ArchConfig) -> Dict[str, Tuple[tuple, float]]:
+    """The FFN's (shape, fan_in) per parameter, stacked over layers (JAX
+    ``_ffn_params``)."""
+    D, P = cfg.d_model, cfg.n_layers
+    out = {"ffn_ln": ((P, D), 0.0)}
+    if cfg.ffn_pattern == ("dense",):
+        F = cfg.d_ff
+        out.update({"ffn_w_gate": ((P, D, F), D), "ffn_w_up": ((P, D, F), D),
+                    "ffn_w_down": ((P, F, D), F)})
+        return out
+    e = cfg.moe
+    E, Fe = e.n_experts, e.d_ff_expert
+    out.update({"ffn_router": ((P, D, E), D),
+                "ffn_w_gate": ((P, E, D, Fe), D),
+                "ffn_w_up": ((P, E, D, Fe), D),
+                "ffn_w_down": ((P, E, Fe, D), Fe)})
+    if e.n_shared:
+        Fs = e.n_shared * Fe
+        out.update({"ffn_sh_gate": ((P, D, Fs), D),
+                    "ffn_sh_up": ((P, D, Fs), D),
+                    "ffn_sh_down": ((P, Fs, D), Fs)})
+    return out
 
 
 def spec_tree(cfg: ArchConfig) -> Dict[str, Dict[str, Tuple[tuple, float]]]:
     """(shape, fan_in) per parameter; fan 0 = zeros, -1 = embedding init."""
     check_supported(cfg)
-    D, F, V, P = cfg.d_model, cfg.d_ff, cfg.vocab, cfg.n_layers
+    D, V, P = cfg.d_model, cfg.vocab, cfg.n_layers
     HD, KD = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
     tree = {
         "embed": {"tok": ((V, D), -1)},
@@ -57,9 +84,7 @@ def spec_tree(cfg: ArchConfig) -> Dict[str, Dict[str, Tuple[tuple, float]]]:
             "mix_ln": ((P, D), 0.0),
             "mix_wq": ((P, D, HD), D), "mix_wk": ((P, D, KD), D),
             "mix_wv": ((P, D, KD), D), "mix_wo": ((P, HD, D), HD),
-            "ffn_ln": ((P, D), 0.0),
-            "ffn_w_gate": ((P, D, F), D), "ffn_w_up": ((P, D, F), D),
-            "ffn_w_down": ((P, F, D), F),
+            **_ffn_spec(cfg),
         },
         "final": {"ln": ((D,), 0.0)},
     }
@@ -117,6 +142,12 @@ class Model:
 
     # -- layers ---------------------------------------------------------------
 
+    def _ffn(self, pf, x):
+        if self.cfg.ffn_pattern == ("moe",):
+            return M.moe_ffn(pf, x, self.cfg,
+                             dispatch=self.knobs.moe_dispatch)
+        return L.ffn_block(pf, x, self.cfg)
+
     def _layers(self, params) -> Iterator[Tuple[dict, dict]]:
         """Per layer: (mixer params, ffn params), views of the stacks."""
         stack = params["pos0"]
@@ -135,7 +166,7 @@ class Model:
             h, c = L.attn_block(p, x, cfg, positions=positions,
                                 kv_chunk=self.knobs.kv_chunk)
             x = x + h
-            x = x + L.ffn_block(pf, x, cfg)
+            x = x + self._ffn(pf, x)
             if with_cache:
                 caches.append(c)
         x = L.rms_norm(x, params["final"]["ln"], cfg.norm_eps)
@@ -189,6 +220,6 @@ class Model:
             h, _ = L.attn_decode(p, x, (k_all[i], v_all[i]), cfg, t=t,
                                  kv_positions=kv_positions)
             x = x + h
-            x = x + L.ffn_block(pf, x, cfg)
+            x = x + self._ffn(pf, x)
         x = L.rms_norm(x, params["final"]["ln"], cfg.norm_eps)
         return self._head(params, x)[:, 0], cache

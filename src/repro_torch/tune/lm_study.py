@@ -3,19 +3,20 @@
 real wall clock).
 
 A *configuration* is a ``StepKnobs`` point (grad accumulation x remat x
-attention chunking; the MoE and SSM knobs stay at their one value for the
-dense family, the only one the port runs).  A configuration's step is
+attention chunking x MoE dispatch; the SSM knob stays at its one value,
+the port running the attention families only).  A configuration's step is
 decomposed into recurring kernels:
 
     embed+loss closure        once per microbatch
     attn fwd+bwd              n_periods x microbatches
-    dense fwd+bwd             likewise
+    dense or moe fwd+bwd      likewise
     optimizer update          once per step
 
 Each kernel is a closure keyed by a ``Signature`` carrying the knob subset
 that affects it, the same signatures and occurrence counts as the JAX
 study's for every point, so configurations share kernels exactly when the
-paper's theory says they should.  A closure runs a forward+backward
+paper's theory says they should (changing the MoE dispatch leaves every
+attention kernel's signature intact).  A closure runs a forward+backward
 (``torch.autograd.grad`` with respect to the arguments ``jax.grad`` takes)
 through the port's kernels, CUDA on the card, and ends in
 ``torch.cuda.synchronize()`` where JAX calls ``block_until_ready``.
@@ -31,7 +32,7 @@ from __future__ import annotations
 import itertools
 import threading
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -41,6 +42,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.signatures import Signature, comp_sig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as M
 from repro_torch.models.model import (Model, ModelKnobs, check_supported,
                                       init_params)
 from .selective import SelectiveTimer
@@ -100,11 +102,15 @@ def _unflatten(paths, leaves):
     return out
 
 
-def grad_closure(loss: Callable, remat: str, device: torch.device):
+def grad_closure(loss: Callable, remat: str, device: torch.device,
+                 unread: Tuple[str, ...] = ()):
     """``fn(params, *inputs) -> grads`` of ``loss(params, *inputs)`` with
     respect to ``params`` (a dict of tensors, or of dicts), as ``jax.grad``
     takes the first argument; ``remat="full"`` recomputes the forward in
-    the backward (``jax.checkpoint``).  Ends in a device synchronize."""
+    the backward (``jax.checkpoint``).  ``unread`` names the parameters
+    (``/``-joined paths) the loss does not read: they get zeros, as from
+    ``jax.grad``; any other parameter outside the graph, or a named one in
+    it, raises.  Ends in a device synchronize."""
 
     def fn(params, *inputs):
         paths, leaves = zip(*_flatten(params))
@@ -118,7 +124,14 @@ def grad_closure(loss: Callable, remat: str, device: torch.device):
                 value = checkpoint(rebuilt, *leaves, use_reentrant=False)
             else:
                 value = rebuilt(*leaves)
-            grads = torch.autograd.grad(value, leaves)
+            grads = torch.autograd.grad(value, leaves, allow_unused=True)
+        for path, g in zip(paths, grads):
+            if (g is None) != ("/".join(path) in unread):
+                raise RuntimeError(
+                    f"parameter {'/'.join(path)} is {'not ' * (g is None)}"
+                    f"read by the loss (unread: {unread})")
+        grads = [torch.zeros_like(t) if g is None else g
+                 for t, g in zip(leaves, grads)]
         _sync(device)
         return _unflatten(paths, grads)
     return fn
@@ -126,7 +139,7 @@ def grad_closure(loss: Callable, remat: str, device: torch.device):
 
 def attn_loss(cfg: ArchConfig, knobs: StepKnobs, positions):
     """sum(h^2) of the attention block at these knobs, as the JAX study's
-    (the dense family's only mixer: ``check_supported``)."""
+    (the only mixer the port runs: ``check_supported``)."""
 
     def loss(mix, x):
         h, _ = L.attn_block(mix, x, cfg, positions=positions,
@@ -140,6 +153,21 @@ def dense_loss(cfg: ArchConfig):
 
     def loss(ffn, x):
         h = L.ffn_block(ffn, x, cfg)
+        return torch.sum(h * h)
+    return loss
+
+
+# the MoE FFN's parameters its loss does not read: the reference's MoE
+# block makes a norm and routes the un-normalized residual
+MOE_UNREAD = ("ln",)
+
+
+def moe_loss(cfg: ArchConfig, dispatch: str):
+    """sum(h^2) of the MoE FFN with this dispatch, as the JAX study's
+    (``MOE_UNREAD`` names the parameter it leaves out of the graph)."""
+
+    def loss(ffn, x):
+        h = M.moe_ffn(ffn, x, cfg, dispatch=dispatch)
         return torch.sum(h * h)
     return loss
 
@@ -225,7 +253,12 @@ class LMStudy:
             ffn = {k[len("ffn_"):]: v for k, v in p.items()
                    if k.startswith("ffn_")}
             x = self._randn(100 + pos, (mb, S, cfg.d_model))
-            fn = grad_closure(dense_loss(cfg), knobs.remat, self.device)
+            if fk == "moe":
+                fn = grad_closure(moe_loss(cfg, knobs.moe_dispatch),
+                                  knobs.remat, self.device,
+                                  unread=MOE_UNREAD)
+            else:
+                fn = grad_closure(dense_loss(cfg), knobs.remat, self.device)
             return fn, (ffn, x)
         return sig, build
 

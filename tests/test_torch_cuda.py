@@ -7,7 +7,9 @@ no CPU mode).  No JAX here, so they run on a machine without it:
 
 Shapes: the JAX test sweep's (tests/test_kernels.py), plus the serving
 path's full-width ones (smollm-135m: d_model 576, 9/3 heads of 64, the
-49152-wide tied head read through a transposed view), at its tolerances.
+49152-wide tied head read through a transposed view; phi3.5-moe: d_model
+4096, 32/8 heads of 128, the router's 16 columns, the experts' 1-10 rows
+of 6400, the untied 32064-wide head), at its tolerances.
 """
 
 import ctypes
@@ -899,3 +901,154 @@ def test_measured_kind_on_the_card_matches_cpu(cuda_device, name, params):
     rtol, arel = (1e-4, 1e-4) if name in MEASURED_MATMUL else (1e-3, 1e-5)
     np.testing.assert_allclose(got, want, rtol=rtol,
                                atol=arel * float(np.abs(want).max()))
+
+
+# -- the MoE family (models/moe.py; phi3.5-moe) -------------------------------
+
+# the shapes phi3.5-moe's serve and study give the kernels: the router's
+# N = 16, the experts' M = cap (1 at a 4-slot decode step, 5 at a 31-token
+# prompt, 10 in the study's mb 2 x S 32), and the untied head's N = 32064
+MOE_MATMUL = [(4, 4096, 16), (31, 4096, 16), (64, 4096, 16),
+              (1, 4096, 6400), (5, 4096, 6400), (10, 4096, 6400),
+              (1, 6400, 4096), (5, 6400, 4096), (10, 6400, 4096),
+              (4, 4096, 32064), (1, 4096, 32064)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", MOE_MATMUL)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_moe_shapes_match_plain(cuda_device, mkn, dtype):
+    M, K, N = mkn
+    tdt = DTYPES[dtype]
+    rng = np.random.default_rng(31)
+    a = _dev(rng.standard_normal((M, K), np.float32), tdt, cuda_device)
+    b = _dev(rng.standard_normal((K, N), np.float32) / np.sqrt(K), tdt,
+             cuda_device)
+    n0 = ops.launches["matmul"]
+    got, again = ops.matmul(a, b), ops.matmul(a, b)
+    torch.cuda.synchronize()
+    assert ops.launches["matmul"] == n0 + 2
+    assert torch.equal(got, again)
+    tol = 3e-2 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(_np(got), _np(ref.matmul_ref(a, b)),
+                               rtol=tol, atol=tol * 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", [(10, 4096, 6400), (10, 6400, 4096),
+                                 (1, 4096, 6400), (64, 4096, 16)])
+def test_matmul_backward_moe_shapes(cuda_device, mkn):
+    """The expert and router products' backward: dW = A^T dC with K = cap
+    (or the study's 64 tokens for the router) and dA = dC W^T, on
+    transposed views."""
+    M, K, N = mkn
+    rng = np.random.default_rng(32)
+    a = _dev(rng.standard_normal((M, K), np.float32), torch.float32,
+             cuda_device).requires_grad_()
+    b = _dev((rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32),
+             torch.float32, cuda_device).requires_grad_()
+    dc = _dev(rng.standard_normal((M, N), np.float32), torch.float32,
+              cuda_device)
+    da, db = torch.autograd.grad(ops.matmul(a, b), (a, b), dc)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(da, ref.matmul_ref(dc, b.detach().T),
+                               rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(db, ref.matmul_ref(a.detach().T, dc),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [1, 4, 31])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_moe_heads(cuda_device, S, dtype):
+    """phi3.5-moe's prefill: d 128, 32 query heads over 8 KV heads."""
+    tdt = DTYPES[dtype]
+    rng = np.random.default_rng(33)
+    q = _dev(rng.standard_normal((1, S, 32, 128), np.float32), tdt,
+             cuda_device)
+    k, v = (_dev(rng.standard_normal((1, S, 8, 128), np.float32), tdt,
+                 cuda_device) for _ in range(2))
+    got, again = (ops.flash_attention(q, k, v, causal=True),
+                  ops.flash_attention(q, k, v, causal=True))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    tol = 4e-2 if dtype == "bfloat16" else 3e-4
+    np.testing.assert_allclose(
+        _np(got), _np(ref.flash_attention_ref(q, k, v, causal=True)),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 4, 31])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_moe_width(cuda_device, rows, dtype):
+    tdt = DTYPES[dtype]
+    rng = np.random.default_rng(34)
+    x = _dev(rng.standard_normal((rows, 4096), np.float32), tdt, cuda_device)
+    w = _dev((rng.standard_normal(4096) * 0.1).astype(np.float32), tdt,
+             cuda_device)
+    got = ops.rmsnorm(x, w)
+    torch.cuda.synchronize()
+    tol = 3e-2 if dtype == "bfloat16" else 2e-5
+    np.testing.assert_allclose(_np(got), _np(ref.rmsnorm_ref(x, w)),
+                               rtol=tol, atol=tol)
+
+
+def _moe_layer(n_shared, device):
+    """Reduced phi3.5-moe's layer-0 FFN weights (seeded) on ``device``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import init_params
+    cfg = get_config("phi3.5-moe", reduced=True)
+    cfg = replace(cfg, moe=replace(cfg.moe, n_shared=n_shared))
+    p = init_params(cfg, torch.Generator().manual_seed(35), "cpu")
+    return cfg, {k[4:]: v[0].to(device) for k, v in p["pos0"].items()
+                 if k.startswith("ffn_")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_shared", [0, 1])
+@pytest.mark.parametrize("dispatch", ["sort", "dense"])
+def test_moe_ffn_on_the_card_matches_cpu(cuda_device, dispatch, n_shared):
+    """The MoE FFN on the card: the CPU run's routing (experts and kept
+    pairs), its output within the model tolerance, the same bits on a
+    repeat, 1 + 3E (+ 3 shared) matmul launches and no plain call."""
+    from repro_torch.models import moe
+    cfg, pc = _moe_layer(n_shared, "cpu")
+    pg = {k: v.to(cuda_device) for k, v in pc.items()}
+    x = torch.from_numpy(np.random.default_rng(36).standard_normal(
+        (2, 13, 64)).astype(np.float32))
+    rc, rg = [], []
+    want = moe.moe_ffn(pc, x, cfg, dispatch=dispatch, routing=rc)
+    n0, plain0 = ops.launches["matmul"], dict(ops.plain_calls)
+    got = moe.moe_ffn(pg, x.to(cuda_device), cfg, dispatch=dispatch,
+                      routing=rg)
+    again = moe.moe_ffn(pg, x.to(cuda_device), cfg, dispatch=dispatch)
+    torch.cuda.synchronize()
+    per_call = 1 + 3 * cfg.moe.n_experts + 3 * n_shared
+    assert ops.launches["matmul"] == n0 + 2 * per_call
+    assert ops.plain_calls == plain0
+    assert torch.equal(got, again)
+    for (gi, gk), (ci, ck) in zip(rg, rc):
+        assert torch.equal(gi.cpu(), ci) and torch.equal(gk.cpu(), ck)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch", ["sort", "dense"])
+def test_moe_fb_grads_match_cpu_port(cuda_device, dispatch):
+    """The study's ``moe_fb`` gradients on the card against the port's CPU
+    run on the same weights and inputs (reduced phi3.5-moe)."""
+    from repro_torch.tune.lm_study import LMStudy, StepKnobs, _flatten
+    studies = [LMStudy("phi3.5-moe", device=d) for d in ("cuda", "cpu")]
+    studies[0].params = {g: {k: t.to("cuda") for k, t in sub.items()}
+                         for g, sub in studies[1].params.items()}
+    out = []
+    for st in studies:
+        _, build = st._ffn_kernel(
+            "moe", 0, StepKnobs("k", moe_dispatch=dispatch), 2)
+        fn, args = build()
+        out.append(fn(*args))
+    for (path, g), (_, c) in zip(_flatten(out[0]), _flatten(out[1])):
+        scale = max(1.0, float(c.abs().max()))
+        torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-5 * scale,
+                                   msg=lambda m: f"{path}: {m}")
