@@ -123,7 +123,25 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               reduced study's 24-point conditional session on the card, a
               protocol check with the counters zeroed around it: every
               kernel launched, no plain call, the sort and dense points
-              sharing every attn_fb signature and no moe_fb.
+              sharing every attn_fb signature and no moe_fb;
+12. mla    -- MLA, deepseek-v2 at its published widths (d_model 5120, 128
+              heads, kv_lora 512, q_lora 1536, d_rope 64, d_nope 128, d_v
+              128; 160 experts of 1536 with top-6 and 2 shared; vocab
+              102400, untied head) with the depth cut to 2 of 60 layers
+              (35.97 GB of f32 weights, drawn on the CPU from a seed after
+              phi3.5-moe's are freed; a copy on the card): (e) first, every
+              kernel at its shapes against its plain version and timed as
+              [kernels] rows (flash at (dk, dv) = (192, 128) over 128
+              heads, f32 and bf16, and the reduced (24, 16); the absorbed
+              per-head products on their strided views, wq_b, wo, the
+              router N 160, the experts at M 1, the untied head N 102400;
+              RMSNorm at q_ln's and kv_ln's widths); (a) serve as (a) of
+              phase 11, the launches per prefill and decode step counted
+              (2H absorbed products a layer at decode) and every flash
+              launch's (dk, dv) recorded, then the CPU comparison, routing
+              first; (b) three decode steps under torch.profiler (after
+              one traced step left out of the reading), the absorbed
+              per-head products and the expert products split out.
 
 It prints the kernels as one JSON line, then the last line
 ``{"ok": true, "device": {...}}``.  ``--out PATH`` also writes the full
@@ -146,6 +164,7 @@ import time
 from dataclasses import replace
 from pathlib import Path
 
+T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
@@ -330,13 +349,30 @@ def matmul_case(M, K, N, dtype, gen, strided_b=False):
     return (a, b)
 
 
+def absorbed_case(M, K, N, view, H, dtype, gen):
+    """(a, b) for one of MLA's absorbed per-head products over H heads,
+    head 0's views as ``layers.per_head_matmul`` takes them.  "q_lat":
+    A is q_nope of q (rows H blocks of 3 K / 2 apart), B head 0's block of
+    the 2-D wk_b transposed (K-contiguous, columns H K apart).  "o_lat":
+    A is o_lat (rows H K apart), B head 0's block of wv_b (rows H N
+    apart)."""
+    if view == "q_lat":
+        a = randn((M, H * (K + K // 2)), dtype, 1.0, gen)[:, :K]
+        b = randn((N, H * K), dtype, 1.0 / math.sqrt(N), gen)[:, :K].T
+    else:
+        a = randn((M, H * K), dtype, 1.0, gen)[:, :K]
+        b = randn((K, H * N), dtype, 1.0 / math.sqrt(K), gen)[:, :N]
+    return (a, b)
+
+
 def rms_case(rows, D, dtype, gen):
     return (randn((rows, D), dtype, 1.0, gen), randn((D,), dtype, 0.1, gen))
 
 
-def flash_case(B, Sq, Skv, H, KVH, d, dtype, gen):
+def flash_case(B, Sq, Skv, H, KVH, d, dtype, gen, dv=None):
+    """q, k, v at head widths (d, d), or (d, dv) (MLA: dk = d)."""
     return tuple(randn(s, dtype, 1.0, gen) for s in
-                 ((B, Sq, H, d), (B, Skv, KVH, d), (B, Skv, KVH, d)))
+                 ((B, Sq, H, d), (B, Skv, KVH, d), (B, Skv, KVH, dv or d)))
 
 
 def causal_pairs(Sq, Skv) -> int:
@@ -354,9 +390,10 @@ def cost(name, args):
         return 2 * x.numel() * es + w.numel() * w.element_size(), \
             4 * x.numel()
     q, k, v = args
-    B, Sq, H, d = q.shape
-    return ((2 * q.numel() + k.numel() + v.numel()) * es,
-            4 * d * B * H * causal_pairs(Sq, k.shape[1]))
+    B, Sq, H, dk = q.shape
+    dv = v.shape[-1]
+    return ((q.numel() + k.numel() + v.numel() + B * Sq * H * dv) * es,
+            2 * (dk + dv) * B * H * causal_pairs(Sq, k.shape[1]))
 
 
 def library_call(name, args):
@@ -374,7 +411,9 @@ def library_call(name, args):
     kt = k.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
     vt = v.repeat_interleave(G, dim=2).transpose(1, 2).contiguous()
     assert q.shape[1] == k.shape[1]     # is_causal aligns top-left
-    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    return lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  scale=scale)
 
 
 # the CUDA entry functions of each kernel, as the profiler names them
@@ -432,11 +471,13 @@ AWKWARD = [("matmul", (8, 8, 8, False)), ("matmul", (64, 96, 32, False)),
 
 
 def make_args(name, spec, dtype, gen):
+    if name == "matmul" and isinstance(spec[3], str):
+        return absorbed_case(*spec, dtype, gen)
     if name == "matmul":
         return matmul_case(*spec[:3], dtype, gen, strided_b=spec[3])
     if name == "rmsnorm":
         return rms_case(*spec, dtype, gen)
-    return flash_case(*spec, dtype, gen)
+    return flash_case(*spec[:6], dtype, gen, *spec[6:])
 
 
 # timing rows beyond the serving path's shapes (not served): the tiled
@@ -453,12 +494,19 @@ LONG_CASES = [("matmul", "long prompt 2048x576x1536", (2048, 576, 1536, False)),
                (1, 2048, 2048, 9, 3, 64))]
 
 
+# cold_weights' copies stop at this many bytes (a B larger than the L2 is
+# cold after one other copy: deepseek-v2's 2.1 GB head takes 2, not 30)
+COLD_BYTES = 4e9
+
+
 def cold_weights(b, n_min: int = 30):
     """Distinct copies of B (same shape, strides and scale) totalling at
     least twice the L2, so that each call of a rotation finds its weights
-    in HBM, as the decode step does (30 layers of distinct weights)."""
+    in HBM, as the decode step does (30 layers of distinct weights); at
+    most ``COLD_BYTES`` beyond that."""
     nbytes = b.numel() * b.element_size()
-    n = max(n_min, math.ceil(2 * L2_BYTES / nbytes))
+    n = max(min(n_min, math.ceil(COLD_BYTES / nbytes)),
+            math.ceil(2 * L2_BYTES / nbytes))
     std = float(b.float().std())
     if b.stride(0) == 1 and b.stride(1) != 1:   # embed.T
         return [(torch.randn(b.shape[::-1], device=b.device) * std)
@@ -2030,7 +2078,6 @@ MOE_SERVE = dict(batch_size=4, s_max=256, max_new_tokens=16, seed=0)
 MOE_REQUESTS = 8                # launch/serve.py's draw: 4-31 tokens each
 MOE_COMPARE = ((13, 29), 4)     # CPU comparison: prompt lengths, steps
 MOE_GRAD = dict(batch=2, seq=32)     # the study's traffic
-MOE_LABELS = ("moe_ffn", "_expert_ffn")  # the profiler's ranges
 
 
 def moe_kernel_cases(cfg):
@@ -2081,7 +2128,7 @@ def phase_moe_kernels(cfg):
     return rows
 
 
-def _moe_engine(model, params):
+def _serve_engine(model, params):
     from repro_torch.launch.serve import synthetic_requests
     from repro_torch.serve.engine import Engine, ServeConfig
     eng = Engine(model, params, ServeConfig(**MOE_SERVE))
@@ -2090,35 +2137,40 @@ def _moe_engine(model, params):
     return eng
 
 
-def phase_moe_serve(cfg, p_cpu, p_gpu):
-    """(a) Serve 8 requests on the card three times with the launch
-    counters zeroed just before the first and read just after it: the
-    forward kernels only, the expected count, no plain call, the same
-    tokens every run; host-clock ms (least of the 3 runs).  Then the
-    card's prefill and teacher-forced decode logits against the port's
-    CPU run on the same weights, routing compared first."""
+def serve_family(tag, arch, depth, cfg, p_cpu, p_gpu, per_step,
+                 flash_pairs=None):
+    """Serve 8 requests on the card three times with the launch counters
+    zeroed just before the first and read just after it: the forward
+    kernels only, the expected count per prefill and decode step
+    (``per_step``), no plain call, the same tokens every run; host-clock
+    ms (least of the 3 runs).  Then the card's prefill and teacher-forced
+    decode logits against the port's CPU run on the same weights, routing
+    compared first.  ``flash_pairs``: a list that records the (dk, dv) of
+    every flash launch of the first run."""
     from repro_torch.models.model import Model
     model = Model(cfg, device="cuda")
     runs = []
     for i in range(3):
-        eng = _moe_engine(model, p_gpu)
+        eng = _serve_engine(model, p_gpu)
         if i == 0:
             _zero_counts()
-        eng.run()
+        with _recording_flash_pairs(flash_pairs if i == 0 else None):
+            eng.run()
         torch.cuda.synchronize()
         if i == 0:
             launches, plain = dict(ops.launches), dict(ops.plain_calls)
         runs.append(eng)
-    print(f"[moe] serve launches: {launches}; plain calls: {plain}")
+    print(f"[{tag}] serve launches: {launches}; plain calls: {plain}")
     if any(plain.values()):
-        raise AssertionError(f"the MoE serve called plain versions: {plain}")
+        raise AssertionError(f"the {arch} serve called plain versions: "
+                             f"{plain}")
     if any(launches[k] for k in launches if k not in FORWARD):
         raise AssertionError(f"serving launched a backward kernel: "
                              f"{launches}")
     launches = {k: launches[k] for k in FORWARD}
     eng = runs[0]
     pre, dec = eng.timings["prefill_s"], eng.timings["decode_s"]
-    per_pre, per_dec = moe_per_step_launches(cfg)
+    per_pre, per_dec = per_step
     expect = {k: len(pre) * per_pre[k] + len(dec) * per_dec[k]
               for k in launches}
     if launches != expect or not all(launches.values()):
@@ -2128,11 +2180,12 @@ def phase_moe_serve(cfg, p_cpu, p_gpu):
     if len(toks) != MOE_REQUESTS or any(
             len(t) != MOE_SERVE["max_new_tokens"] or not all(
                 0 <= x < cfg.vocab for x in t) for t in toks.values()):
-        raise AssertionError("MoE serve results have the wrong count or "
-                             "range")
+        raise AssertionError(f"the {arch} serve results have the wrong "
+                             f"count or range")
     if any({u: r.tokens for u, r in e.results.items()} != toks
            for e in runs[1:]):
-        raise AssertionError("the MoE serve gave other tokens on a rerun")
+        raise AssertionError(f"the {arch} serve gave other tokens on a "
+                             f"rerun")
     means = [(float(np.mean(e.timings["prefill_s"])),
               float(np.mean(e.timings["decode_s"]))) for e in runs]
     n_tok = sum(len(t) for t in toks.values())
@@ -2146,14 +2199,14 @@ def phase_moe_serve(cfg, p_cpu, p_gpu):
         "tokens_per_s": max(n_tok / (sum(e.timings["prefill_s"])
                                      + sum(e.timings["decode_s"]))
                             for e in runs),
-        "decode_steps": len(dec), "launches": launches,
+        "decode_steps": len(dec), "prefills": len(pre), "launches": launches,
         "launches_per_prefill": per_pre, "launches_per_decode_step": per_dec}
-    print(f"[moe] serve full-width phi3.5-moe ({cfg.n_layers} of 32 layers, "
-          f"f32): {len(toks)} requests, {n_tok} tokens, same tokens in 3 "
-          f"runs; prefill {stats['prefill_ms']:.2f} ms a request, decode "
-          f"{stats['decode_ms']:.2f} ms a step (host clock, least of 3 "
-          f"runs: {[round(m, 2) for m in stats['decode_ms_runs']]}); "
-          f"launches a decode step {per_dec}")
+    print(f"[{tag}] serve full-width {arch} ({cfg.n_layers} of {depth} "
+          f"layers, f32): {len(toks)} requests, {n_tok} tokens, same tokens "
+          f"in 3 runs; prefill {stats['prefill_ms']:.2f} ms a request, "
+          f"decode {stats['decode_ms']:.2f} ms a step (host clock, least of "
+          f"3 runs: {[round(m, 2) for m in stats['decode_ms_runs']]}); "
+          f"launches a prefill {per_pre}, a decode step {per_dec}")
 
     # the same weights on the CPU: routing first, then the logits
     prompts, steps = MOE_COMPARE
@@ -2163,12 +2216,31 @@ def phase_moe_serve(cfg, p_cpu, p_gpu):
     stats.update({"cpu_max_abs_err": worst, "cpu_pairs": pairs,
                   "cpu_pairs_dropped": dropped,
                   "cpu_compare_s": time.perf_counter() - t0})
-    print(f"[moe] CUDA vs CPU (prefill + {steps} teacher-forced decode "
+    print(f"[{tag}] CUDA vs CPU (prefill + {steps} teacher-forced decode "
           f"steps, prompts {prompts}): routing equal in every layer and "
           f"call, {dropped} of {pairs} token-expert pairs dropped by the "
           f"capacity; logits max abs err {worst:.3e} (rtol {rtol}, atol "
           f"{atol}); {stats['cpu_compare_s']:.1f} s")
     return stats
+
+
+@contextlib.contextmanager
+def _recording_flash_pairs(pairs):
+    """While open, every flash forward launch on the card appends its (dk,
+    dv) to ``pairs`` (measurement only; None: nothing wrapped)."""
+    if pairs is None:
+        yield
+        return
+    fn = ops.flash_attention_cuda
+
+    def rec(q, k, v, **kw):
+        pairs.append((q.shape[-1], v.shape[-1]))
+        return fn(q, k, v, **kw)
+    ops.flash_attention_cuda = rec
+    try:
+        yield
+    finally:
+        ops.flash_attention_cuda = fn
 
 
 def _labelled(module, names):
@@ -2195,16 +2267,19 @@ def _labelled(module, names):
     return ctx()
 
 
-def phase_moe_profile(cfg, params, steps: int = 3):
-    """(b) torch.profiler over ``steps`` decode steps of a full batch:
-    device busy ms, idle share, time by kernel, with the expert products
-    split from the other matmuls and the dispatch's plain tensor ops from
-    the rest: ``moe_ffn`` and ``_expert_ffn`` run inside profiler ranges,
-    which the profiler also lays on the device's timeline, and a kernel
-    belongs to the innermost range whose device span holds it (one
-    stream, so no other kernel falls inside a span)."""
-    from torch.profiler import ProfilerActivity, profile
-    from repro_torch.models import moe
+def profile_decode(tag, cfg, params, steps, ranges):
+    """torch.profiler over ``steps`` decode steps of a full batch (4 slots,
+    16-token prompts): device busy ms, idle share, time by kernel, split
+    by ``ranges``, innermost first: (module, function, name of its matmul
+    launches, name of its other device work, matmul launches expected a
+    step or None).  Each function runs inside a profiler range named
+    after it, which the profiler also lays on the device's timeline, and
+    a kernel belongs to the innermost range whose device span holds it
+    (one stream, so no other kernel falls inside a span).  The tracer
+    sees one step first that the reading leaves out (the profiler's first
+    events can go missing); the kept steps run inside a range of their
+    own, and only device events within its span count."""
+    from torch.profiler import ProfilerActivity, profile, record_function
     from repro_torch.models.model import Model
     from repro_torch.serve.engine import Engine, Request, ServeConfig
 
@@ -2216,42 +2291,53 @@ def phase_moe_profile(cfg, params, steps: int = 3):
     eng.step()
     eng.step()
     torch.cuda.synchronize()
-    n_dec = len(eng.timings["decode_s"])
-    with _labelled(moe, MOE_LABELS), profile(
-            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            eng.step()
+    labels = [r[1] for r in ranges]
+    window = "profiled steps"
+    with contextlib.ExitStack() as stack:
+        for module, name, *_ in ranges:
+            stack.enter_context(_labelled(module, (name,)))
+        prof = stack.enter_context(profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+        eng.step()                  # traced, left out of the reading
         torch.cuda.synchronize()
+        n_dec = len(eng.timings["decode_s"])
+        with record_function(window):
+            for _ in range(steps):
+                eng.step()
+            torch.cuda.synchronize()
     dec_ms = 1e3 * float(np.mean(eng.timings["decode_s"][n_dec:]))
     on_dev = [e for e in prof.events()
               if e.device_type == torch.autograd.DeviceType.CUDA]
+    kept = [(e.time_range.start, e.time_range.end) for e in on_dev
+            if e.name == window]
+    if len(kept) != 1:
+        print(f"[{tag}] the profiler laid {len(kept)} device spans for the "
+              f"kept steps, not 1; device busy share not measured")
+        return {"decode_ms_profiled": dec_ms, "device_events": len(on_dev)}
+    on_dev = [e for e in on_dev if kept[0][0] <= e.time_range.start
+              and e.time_range.end <= kept[0][1] and e.name != window]
     spans = {n: [(e.time_range.start, e.time_range.end) for e in on_dev
-                 if e.name == n] for n in MOE_LABELS}
-    dev = [e for e in on_dev if e.name not in MOE_LABELS]
+                 if e.name == n] for n in labels}
+    dev = [e for e in on_dev if e.name not in labels]
     if not dev:
-        print("[moe] the profiler recorded no device events; device busy "
-              "share not measured")
+        print(f"[{tag}] the profiler recorded no device events; device "
+              f"busy share not measured")
         return {"decode_ms_profiled": dec_ms, "device_events": 0}
 
     def scope(e):
-        for n in ("_expert_ffn", "moe_ffn"):          # innermost first
-            if any(a <= e.time_range.start and e.time_range.end <= b
-                   for a, b in spans[n]):
-                return n
-        return None
+        return next((r for r in ranges if any(
+            a <= e.time_range.start and e.time_range.end <= b
+            for a, b in spans[r[1]])), None)
 
     def ours(name):
         return next((k for k, frags in KERNEL_NAMES.items()
                      if any(f in name for f in frags)), None)
 
     def part_of(e):
-        k, sc = ours(e.name), scope(e)
+        k, r = ours(e.name), scope(e)
         if k == "matmul":
-            return {"_expert_ffn": "expert products",
-                    "moe_ffn": "router products"}.get(sc, "other products")
-        return k or {"_expert_ffn": "experts' plain ops (silu, mul, stack)",
-                     "moe_ffn": "dispatch's plain ops"}.get(
-                         sc, "other plain ops")
+            return r[2] if r else "other products"
+        return k or (r[3] if r else "other plain ops")
 
     parts = {}
     for e in dev:
@@ -2266,35 +2352,37 @@ def phase_moe_profile(cfg, params, steps: int = 3):
         c, t = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (c + 1, t + e.time_range.elapsed_us())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    want = 3 * cfg.moe.n_experts * cfg.n_layers
-    linked = parts.get("expert products", (0, 0.0))[0] / steps == want
+    unlinked = {r[2]: (parts.get(r[2], (0, 0.0))[0] / steps, r[4])
+                for r in ranges
+                if r[4] is not None
+                and parts.get(r[2], (0, 0.0))[0] / steps != r[4]}
     out = {
         "decode_ms_profiled": dec_ms,
         "device_busy_ms_per_step": busy / steps / 1e3,
         "device_span_ms_per_step": span / steps / 1e3,
         "device_idle_share": 1.0 - busy / span,
         "device_events_per_step": len(dev) / steps,
-        "split_linked": linked,
-        "parts_per_step": {k: {"count": c / steps, "ms": t / steps / 1e3}
+        "split_linked": not unlinked,
+        "parts_per_step": {k: {"count": c / steps, "ms": t / steps / 1e3,
+                               "share_of_busy": t / busy}
                            for k, (c, t) in sorted(
                                parts.items(), key=lambda kv: -kv[1][1])},
         "top_device_time_per_step": [
             {"name": n[:80], "count": c / steps, "us": t / steps}
             for n, (c, t) in top]}
-    print(f"[moe] decode step under the profiler {dec_ms:.2f} ms; device "
+    print(f"[{tag}] decode step under the profiler {dec_ms:.2f} ms; device "
           f"busy {out['device_busy_ms_per_step']:.3f} ms of a "
           f"{out['device_span_ms_per_step']:.3f} ms span (idle share "
           f"{out['device_idle_share']:.3f}); "
           f"{out['device_events_per_step']:.0f} device events a step")
-    if not linked:
-        print(f"[moe] the profiler's device spans held "
-              f"{parts.get('expert products', (0, 0.0))[0] / steps:.0f} of "
-              f"{want} expert products a step: the split below is not "
-              f"measured")
+    for part, (got, want) in unlinked.items():
+        print(f"[{tag}] the profiler's device spans held {got:.0f} of "
+              f"{want} {part} a step: the split below is not measured")
     for k, v in out["parts_per_step"].items():
-        print(f"[moe]   {v['ms']:8.3f} ms  x{v['count']:6.1f}  {k}")
+        print(f"[{tag}]   {v['ms']:8.3f} ms  ({100 * v['share_of_busy']:5.1f}%"
+              f" of busy)  x{v['count']:6.1f}  {k}")
     for row in out["top_device_time_per_step"]:
-        print(f"[moe]   {row['us']:9.1f} us  x{row['count']:5.1f}  "
+        print(f"[{tag}]   {row['us']:9.1f} us  x{row['count']:5.1f}  "
               f"{row['name']}")
     return out
 
@@ -2451,6 +2539,7 @@ def phase_moe():
     (drawn on the CPU once; a copy moved to the card): (a) serve, (b)
     profile, (c) gradients; then (d) the reduced study."""
     from repro_torch.configs import get_config
+    from repro_torch.models import moe
     from repro_torch.models.model import init_params
     cfg = replace(get_config("phi3.5-moe"), n_layers=MOE_LAYERS)
     kernel_rows = phase_moe_kernels(cfg)
@@ -2466,14 +2555,137 @@ def phase_moe():
           f"{n_params} f32 parameters ({4 * n_params / 1e9:.1f} GB), drawn "
           f"in {draw_s:.1f} s and copied to the card in "
           f"{time.perf_counter() - t0 - draw_s:.1f} s")
-    serve_stats = phase_moe_serve(cfg, p_cpu, p_gpu)
-    serve_stats["profile"] = phase_moe_profile(cfg, p_gpu)
+    serve_stats = serve_family("moe", "phi3.5-moe", 32, cfg, p_cpu, p_gpu,
+                               moe_per_step_launches(cfg))
+    # the expert products and the dispatch's plain ops split out
+    serve_stats["profile"] = profile_decode("moe", cfg, p_gpu, 3, [
+        (moe, "_expert_ffn", "expert products",
+         "experts' plain ops (silu, mul, stack)",
+         3 * cfg.moe.n_experts * cfg.n_layers),
+        (moe, "moe_ffn", "router products", "dispatch's plain ops", None)])
     grads = phase_moe_grads(cfg, p_cpu, p_gpu)
     del p_cpu, p_gpu
     torch.cuda.empty_cache()
     study = phase_moe_study()
     return {"kernels": kernel_rows, "serve": serve_stats, "grads": grads,
             "study": study, "params": n_params}
+
+
+# -- phase 12: MLA (deepseek-v2 at full width) -------------------------------
+
+# deepseek-v2 at its published widths with the depth cut to 2 of 60 layers:
+# 35.97 GB of f32 weights (a layer is 15.89 GB: MLA 0.60, MoE 15.29; the
+# embedding and the untied head 4.19; 3 layers would be 51.86 GB)
+MLA_LAYERS = 2
+
+
+def mla_kernel_cases(cfg):
+    """(kernel, label, shape spec, timed dtypes) at deepseek-v2's shapes:
+    flash at (dk, dv) = (192, 128) over 128/128 heads at the prompts'
+    shortest and longest (f32 and bf16 timed) and the reduced
+    configuration's (24, 16); the absorbed decode's per-head products on
+    their strided views (q_lat 4 x 128 x 512, o 4 x 512 x 128), wq_b and
+    wo at a 4-slot decode step, the router (N 160), the experts at M = 1
+    (cap 1), the untied head (N 102400); RMSNorm at q_ln's 1536 and
+    kv_ln's 512."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    m, H, D, V = cfg.mla, cfg.n_heads, cfg.d_model, cfg.vocab
+    E, Fe = cfg.moe.n_experts, cfg.moe.d_ff_expert
+    dk, dv, r = m.d_nope + m.d_rope, m.d_v, m.kv_lora
+    cases = [("flash_attention", f"prefill B1 S{S} H{H}/{H} dk{dk} dv{dv}",
+              (1, S, S, H, H, dk, dv), (f32, bf16))
+             for S in (4, PROMPT_MAX)]
+    cases.append(("flash_attention", "reduced B1 S31 H4/4 dk24 dv16",
+                  (1, PROMPT_MAX, PROMPT_MAX, 4, 4, 24, 16), (f32, bf16)))
+    mm = [(f"decode absorbed q_lat 4x{m.d_nope}x{r} (head block, strided)",
+           (4, m.d_nope, r, "q_lat", H)),
+          (f"decode absorbed o 4x{r}x{dv} (head block, strided)",
+           (4, r, dv, "o_lat", H)),
+          (f"decode wq_b 4x{m.q_lora}x{H * dk}", (4, m.q_lora, H * dk, False)),
+          (f"decode wo 4x{H * dv}x{D}", (4, H * dv, D, False)),
+          (f"decode router 4x{D}x{E}", (4, D, E, False)),
+          (f"decode expert gate/up 1x{D}x{Fe}", (1, D, Fe, False)),
+          (f"decode expert down 1x{Fe}x{D}", (1, Fe, D, False)),
+          (f"decode head 4x{D}x{V}", (4, D, V, False))]
+    cases += [("matmul", lab, sp, (f32,)) for lab, sp in mm]
+    cases += [("rmsnorm", f"decode {lab} 4x{w}", (4, w), (f32,))
+              for lab, w in (("q_ln", m.q_lora), ("kv_ln", r))]
+    return cases
+
+
+def mla_per_step_launches(cfg):
+    """Kernel launches per prefill and per decode step: each layer's norms
+    (ln, q_ln, kv_ln; the MoE FFN reads none), the MLA products (wq_a,
+    wq_b, wkv_a and wo; in prefill the K/V expansions c_kv wk_b and c_kv
+    wv_b, in decode 2H absorbed per-head products), the router, three
+    products per expert and three for the shared experts; the final norm
+    and the head."""
+    L, H, E = cfg.n_layers, cfg.n_heads, cfg.moe.n_experts
+    ffn = 1 + 3 * E + 3 * bool(cfg.moe.n_shared)
+    norms = {"rmsnorm": 3 * L + 1}
+    return ({**norms, "matmul": (6 + ffn) * L + 1, "flash_attention": L},
+            {**norms, "matmul": (4 + 2 * H + ffn) * L + 1,
+             "flash_attention": 0})
+
+
+def phase_mla():
+    """(e) the kernels at deepseek-v2's shapes, then the full-width weights
+    (drawn on the CPU once; a copy moved to the card): (a) serve, with
+    every flash launch's (dk, dv) recorded, and the CPU comparison; (b)
+    three decode steps under the profiler, the absorbed per-head products
+    and the expert products split out."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers, moe
+    from repro_torch.models.model import init_params
+    cfg = replace(get_config("deepseek-v2"), n_layers=MLA_LAYERS)
+    gen = torch.Generator().manual_seed(7)
+    rows, worst = [], {}
+    check_cases(mla_kernel_cases(cfg), gen, rows, worst)
+    print(f"[mla] {len(rows)} kernel cases at deepseek-v2's shapes agree; "
+          f"max abs err per kernel: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    p_cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    draw_s = time.perf_counter() - t0
+    p_gpu = {g: {k: v.to("cuda") for k, v in sub.items()}
+             for g, sub in p_cpu.items()}
+    torch.cuda.synchronize()
+    n_params = sum(v.numel() for sub in p_cpu.values() for v in sub.values())
+    # a decode step reads every block weight (each expert runs on its cap
+    # rows, at least one), the final norm and the head; the embedding only
+    # at its rows
+    step_bytes = 4 * sum(v.numel() for g, sub in p_cpu.items() if g != "embed"
+                         for v in sub.values())
+    step_bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[mla] deepseek-v2 at full width, {cfg.n_layers} of 60 layers: "
+          f"{n_params} f32 parameters ({4 * n_params / 1e9:.2f} GB), drawn "
+          f"in {draw_s:.1f} s and copied to the card in "
+          f"{time.perf_counter() - t0 - draw_s:.1f} s; a decode step reads "
+          f"{step_bytes / 1e9:.2f} GB of weights (bound {step_bound_ms:.2f} "
+          f"ms at 3.35 TB/s)")
+    pairs = []
+    stats = serve_family("mla", "deepseek-v2", 60, cfg, p_cpu, p_gpu,
+                         mla_per_step_launches(cfg), flash_pairs=pairs)
+    if not pairs or set(pairs) != {(192, 128)}:
+        raise AssertionError(f"[mla] flash launched at {sorted(set(pairs))}"
+                             f", not only at (dk 192, dv 128)")
+    print(f"[mla] the serve's {len(pairs)} flash launches were all at (dk "
+          f"192, dv 128)")
+    H, E, L = cfg.n_heads, cfg.moe.n_experts, cfg.n_layers
+    stats["flash_pairs"] = sorted(set(pairs))
+    stats["decode_step_weight_bytes"] = step_bytes
+    stats["decode_step_bound_ms"] = step_bound_ms
+    stats["profile"] = profile_decode("mla", cfg, p_gpu, 3, [
+        (layers, "per_head_matmul", "absorbed per-head products",
+         "absorbed plain ops (stack)", 2 * H * L),
+        (moe, "_expert_ffn", "expert products",
+         "experts' plain ops (silu, mul, stack)", 3 * E * L),
+        (moe, "moe_ffn", "router and shared products",
+         "dispatch's plain ops", None)])
+    del p_cpu, p_gpu
+    torch.cuda.empty_cache()
+    return {"kernels": rows, "serve": stats, "params": n_params}
 
 
 def main(argv=None) -> int:
@@ -2510,6 +2722,8 @@ def main(argv=None) -> int:
     workers = phase_workers()
     torch.cuda.empty_cache()
     moe = phase_moe()
+    torch.cuda.empty_cache()
+    mla = phase_mla()
 
     # one entry per kernel: its largest main-path shape at f32 (forward:
     # the serving path's, launches counted there; backward: the tuning
@@ -2538,6 +2752,8 @@ def main(argv=None) -> int:
             "launches_moe": {
                 "serve": moe["serve"]["launches"].get(name, 0),
                 "study": moe["study"]["launches"][name]},
+            "launches_mla": {
+                "serve": mla["serve"]["launches"].get(name, 0)},
             "max_abs_err": max(r["max_abs_err"] for r in table
                                if r["kernel"] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -2558,8 +2774,11 @@ def main(argv=None) -> int:
                                         "grad_checks": grad_checks,
                                         "tune": tune, "daemon": daemon,
                                         "sim": sim, "measured": measured,
-                                        "workers": workers, "moe": moe},
+                                        "workers": workers, "moe": moe,
+                                        "mla": mla},
                                        indent=1))
+    print(f"[time] chip_smoke.py took {time.perf_counter() - T_START:.1f} s "
+          f"from its start, the kernels' build included")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -16,6 +16,15 @@ Pallas kernel clamps its ``bk``, then the smallest of ``BK_TILES`` that
 holds it; the serving default where the caller names none); and the
 cp.async variant where every q/k/v row is 16-byte aligned.
 
+The forward takes two head widths, dk for q and k and dv for v and the
+output, at the pairs of ``HEAD_DIM_PAIRS``: dk = dv at every width of
+``HEAD_DIMS``, and MLA's (d_nope + d_rope, d_v), deepseek-v2's (192, 128)
+and its reduced configuration's (24, 16).  Both are instantiated in the
+kernel, so nothing is padded here.  The scale is the caller's (``scale``;
+1/sqrt(dk) where it names none).  A KV tile whose staged tiles would not
+fit a block's shared memory (``FWD_TILES_OUT``: f32 at (192, 128) with a
+64-key tile) is never planned: ``fwd_tiles`` leaves it out.
+
 The backward pass (``flash_attention_bwd_cuda``, ``csrc/
 flash_attention_bwd.cu``, f32 and bf16) recomputes the probabilities from
 the per-row log-sum-exp that the forward writes when asked (``with_lse``).
@@ -41,17 +50,29 @@ import torch
 from . import _build
 
 HEAD_DIMS = (8, 16, 32, 64, 128)
+# the forward's instantiated (dk, dv) pairs (csrc dispatch_d)
+HEAD_DIM_PAIRS = tuple((d, d) for d in HEAD_DIMS) + ((192, 128), (24, 16))
 ROWS = 64                    # csrc kRows: query rows (positions x heads)
 BK_TILES = (16, 32, 64)      # csrc: the instantiated KV tiles
+# (dtype, dk, dv, KV tile) the forward is not instantiated at: its staged
+# tiles (csrc Layout::kBytes) exceed a block's opt-in shared memory (csrc
+# kMaxSmem); f32 at (192, 128) with 64 keys would need 234,496 of 232,448
+FWD_TILES_OUT = ((torch.float32, 192, 128, 64),)
 # the KV tile where the caller names no chunk (the serving path's)
 DEFAULT_BK = {torch.float32: 32, torch.bfloat16: 64}
 
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 6
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 7
              + [ctypes.c_int64] * 12
              + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int64] * 6
                  + [ctypes.c_int64] * 15
                  + [ctypes.c_float] + [ctypes.c_int] * 9 + [ctypes.c_void_p])
+# the backward kernel takes one head width: MLA's (dk != dv) gradients wait
+# for the study's mla_fb thunk
+DK_NE_DV_BACKWARD = (
+    "flash_attention backward at dk != dv is not ported yet: MLA's "
+    "gradients come with the study's mla_fb thunk (ROADMAP.md queue 1, "
+    "item 1, slice b)")
 # backward: a dK/dV block's rows are cut into splits only where each keeps
 # at least this many chunks of rows
 SPLIT_MIN_CHUNKS = 4
@@ -67,27 +88,36 @@ class FlashPlan:
     bk: int = 32               # keys per KV tile
 
 
-def kv_tile(bk, Skv: int, dtype) -> int:
+@functools.lru_cache(maxsize=64)
+def fwd_tiles(dtype, dk: int, dv: int) -> Tuple[int, ...]:
+    """The KV tiles the forward is instantiated at for (dk, dv)."""
+    return tuple(t for t in BK_TILES
+                 if (dtype, dk, dv, t) not in FWD_TILES_OUT)
+
+
+def kv_tile(bk, Skv: int, dtype, tiles: Tuple[int, ...] = BK_TILES) -> int:
     """The KV tile for a caller's KV chunk ``bk`` (None: the serving
     default): clamped to Skv as the Pallas kernel clamps its ``bk``, then
-    the smallest instantiated tile that holds it (the largest beyond)."""
+    the smallest of ``tiles`` that holds it (the largest beyond)."""
     if bk is None:
-        return DEFAULT_BK[dtype]
+        return min(DEFAULT_BK[dtype], tiles[-1])
     want = max(1, min(int(bk), Skv))
-    return next((t for t in BK_TILES if t >= want), BK_TILES[-1])
+    return next((t for t in tiles if t >= want), tiles[-1])
 
 
 def plan_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                bk=None) -> FlashPlan:
-    """Block geometry for q (B, Sq, H, d), k/v (B, Skv, KVH, d) with unit
-    stride along d, for a KV chunk ``bk`` (None: the serving default)."""
+    """Block geometry for q (B, Sq, H, dk), k (B, Skv, KVH, dk), v (B, Skv,
+    KVH, dv) with unit stride along the head width, for a KV chunk ``bk``
+    (None: the serving default)."""
     width = 16 // q.element_size()
     vec = all(t.data_ptr() % 16 == 0 and all(
         t.stride(i) % width == 0 for i in range(3) if t.shape[i] > 1)
         for t in (q, k, v))
-    B, Sq, H, _ = q.shape
+    B, Sq, H, dk = q.shape
+    tiles = fwd_tiles(q.dtype, dk, v.shape[-1])
     return _plan_flash(B, Sq, H, k.shape[2], vec,
-                       kv_tile(bk, k.shape[1], q.dtype))
+                       kv_tile(bk, k.shape[1], q.dtype, tiles))
 
 
 @functools.lru_cache(maxsize=1024)
@@ -186,13 +216,16 @@ def _unit_last(t: torch.Tensor) -> torch.Tensor:
 
 
 def _check_shapes(q, k, v, causal: bool) -> None:
-    B, Sq, H, d = q.shape
-    Skv, KVH = k.shape[1], k.shape[2]
-    if tuple(k.shape) != (B, Skv, KVH, d) or k.shape != v.shape:
+    B, Sq, H, dk = q.shape
+    Skv, KVH, dv = k.shape[1], k.shape[2], v.shape[-1]
+    if tuple(k.shape) != (B, Skv, KVH, dk) \
+            or tuple(v.shape) != (B, Skv, KVH, dv):
         raise ValueError(f"flash_attention: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d} not in {HEAD_DIMS}")
+    if (dk, dv) not in HEAD_DIM_PAIRS:
+        raise ValueError(f"flash_attention: head_dim pair (dk {dk}, dv "
+                         f"{dv}) is not instantiated; the (dk, dv) pairs "
+                         f"are {HEAD_DIM_PAIRS}")
     if H % KVH:
         raise ValueError(f"flash_attention: {H} heads over {KVH} KV heads")
     if causal and Sq > Skv:
@@ -202,18 +235,20 @@ def _check_shapes(q, k, v, causal: bool) -> None:
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, bk=None,
-                         with_lse: bool = False):
-    """q: (B, Sq, H, d); k/v: (B, Skv, KVH, d) CUDA tensors of one dtype ->
-    (B, Sq, H, d).  With ``causal`` the queries are the last Sq positions
-    of the KV sequence, so Sq <= Skv.  ``bk``: the KV chunk (``kv_tile``).
-    ``with_lse``: also return the rows' log-sum-exp, f32 (B, H, Sq), for
+                         with_lse: bool = False, scale=None):
+    """q: (B, Sq, H, dk); k: (B, Skv, KVH, dk); v: (B, Skv, KVH, dv) CUDA
+    tensors of one dtype, (dk, dv) in ``HEAD_DIM_PAIRS`` -> (B, Sq, H, dv).
+    With ``causal`` the queries are the last Sq positions of the KV
+    sequence, so Sq <= Skv.  ``bk``: the KV chunk (``kv_tile``).
+    ``scale``: the scores' scale (None: 1/sqrt(dk)).  ``with_lse``: also
+    return the rows' log-sum-exp of the scaled scores, f32 (B, H, Sq), for
     the backward pass."""
     _check_shapes(q, k, v, causal)
-    B, Sq, H, d = q.shape
-    Skv, KVH = k.shape[1], k.shape[2]
+    B, Sq, H, dk = q.shape
+    Skv, KVH, dv = k.shape[1], k.shape[2], v.shape[-1]
     code = _build.check_inputs("flash_attention", q, k, v)
     q, k, v = _unit_last(q), _unit_last(k), _unit_last(v)
-    o = torch.empty((B, Sq, H, d), dtype=q.dtype, device=q.device)
+    o = torch.empty((B, Sq, H, dv), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
            if with_lse else None)
     if o.numel() == 0:
@@ -223,7 +258,8 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, bk=None,
     launch = _build.entry("flash_attention", _ARGTYPES)
     err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  None if lse is None else lse.data_ptr(),
-                 B, H, KVH, Sq, Skv, d, *strides, 1.0 / math.sqrt(d),
+                 B, H, KVH, Sq, Skv, dk, dv, *strides,
+                 1.0 / math.sqrt(dk) if scale is None else scale,
                  int(causal), plan.gh, plan.bq, plan.bk, int(plan.vec), code,
                  _build.stream())
     _build.check(err, "flash_attention")
@@ -232,16 +268,21 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, bk=None,
 
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
-                             bk=None, plan: FlashBwdPlan | None = None):
+                             bk=None, plan: FlashBwdPlan | None = None,
+                             scale=None):
     """Gradients (dq, dk, dv) of ``flash_attention_cuda`` for output
     gradient ``do`` (q's shape), from the forward's output ``o`` and its
     ``lse`` (B, H, Sq, f32); q, k, v, o and do CUDA tensors of one dtype,
-    f32 or bf16 (anything else raises ``TypeError``); the gradients come
-    out in it.  ``bk``: the forward's KV chunk; ``plan`` overrides
-    ``plan_flash_bwd``'s (tests: the C entry refuses a plan that is not its
-    own).  One launch of csrc/flash_attention_bwd.cu: its dK/dV blocks and
-    dQ blocks share the grid."""
+    f32 or bf16 (anything else raises ``TypeError``), one head width d in
+    ``HEAD_DIMS`` (dk != dv raises ``NotImplementedError``); the gradients
+    come out in it.  ``bk`` and ``scale``: the forward's KV chunk and
+    scale; ``plan`` overrides ``plan_flash_bwd``'s (tests: the C entry
+    refuses a plan that is not its own).  One launch of
+    csrc/flash_attention_bwd.cu: its dK/dV blocks and dQ blocks share the
+    grid."""
     _check_shapes(q, k, v, causal)
+    if v.shape[-1] != q.shape[-1]:
+        raise NotImplementedError(DK_NE_DV_BACKWARD)
     B, Sq, H, d = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     code = _build.check_inputs("flash_attention_bwd", q, k, v, o, do)
@@ -274,7 +315,8 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
                  dk.data_ptr(), dv.data_ptr(),
                  None if ws is None else ws.data_ptr(),
                  None if cnt is None else cnt.data_ptr(),
-                 B, H, KVH, Sq, Skv, d, *strides, 1.0 / math.sqrt(d),
+                 B, H, KVH, Sq, Skv, d, *strides,
+                 1.0 / math.sqrt(d) if scale is None else scale,
                  int(causal), plan.tile, code, plan.warps, plan.rows,
                  plan.splits, int(plan.vec), plan.kv_blocks, plan.q_blocks,
                  stream)

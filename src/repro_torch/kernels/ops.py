@@ -15,7 +15,9 @@ transposed views (dA = dC B^T, dB = A^T dC), RMSNorm's and flash
 attention's are ``rmsnorm_bwd_cuda`` and ``flash_attention_bwd_cuda``
 (plain: ``ref.rmsnorm_bwd_ref``, ``ref.flash_attention_bwd_ref``).  The
 serving path, under ``torch.no_grad()`` or with no input that requires
-grad, calls the forward directly, as before.
+grad, calls the forward directly, as before.  Flash attention's backward
+takes one head width: recording a graph through it at dk != dv (MLA)
+raises ``NotImplementedError`` on either device, before anything runs.
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ import torch
 
 from . import ref
 from ._build import launches
-from .flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
+from .flash_attention import (DK_NE_DV_BACKWARD, flash_attention_bwd_cuda,
+                              flash_attention_cuda)
 from .matmul import matmul_cuda
 from .rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
 
@@ -63,13 +66,13 @@ def _rmsnorm_fwd(x, w, eps):
     return rmsnorm_cuda(x, w, eps)
 
 
-def _flash_fwd(q, k, v, causal, bk, with_lse=False):
+def _flash_fwd(q, k, v, causal, bk, scale, with_lse=False):
     if _on_cpu(q, k, v):
         _plain("flash_attention")
         return ref.flash_attention_ref(q, k, v, causal=causal,
-                                       return_lse=with_lse)
+                                       return_lse=with_lse, scale=scale)
     return flash_attention_cuda(q, k, v, causal=causal, bk=bk,
-                                with_lse=with_lse)
+                                with_lse=with_lse, scale=scale)
 
 
 class _Matmul(torch.autograd.Function):
@@ -106,10 +109,10 @@ class _RMSNorm(torch.autograd.Function):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, bk):
-        o, lse = _flash_fwd(q, k, v, causal, bk, with_lse=True)
+    def forward(ctx, q, k, v, causal, bk, scale):
+        o, lse = _flash_fwd(q, k, v, causal, bk, scale, with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.bk = causal, bk
+        ctx.causal, ctx.bk, ctx.scale = causal, bk, scale
         return o
 
     @staticmethod
@@ -118,11 +121,13 @@ class _FlashAttention(torch.autograd.Function):
         if _on_cpu(q, k, v, do):
             _plain("flash_attention_bwd")
             grads = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
-                                                causal=ctx.causal)
+                                                causal=ctx.causal,
+                                                scale=ctx.scale)
         else:
             grads = flash_attention_bwd_cuda(q, k, v, o, lse, do,
-                                             causal=ctx.causal, bk=ctx.bk)
-        return (*grads, None, None)
+                                             causal=ctx.causal, bk=ctx.bk,
+                                             scale=ctx.scale)
+        return (*grads, None, None, None)
 
 
 def matmul(a, b):
@@ -139,10 +144,14 @@ def rmsnorm(x, w, *, eps: float = 1e-5):
     return _rmsnorm_fwd(x, w, eps)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, bk=None):
-    """q: (B, Sq, H, d); k/v: (B, Skv, KVH, d) -> (B, Sq, H, d).  ``bk``:
-    the KV chunk (the Pallas kernel's ``bk``; None: the serving default
-    tile).  The plain version's result does not depend on it."""
+def flash_attention(q, k, v, *, causal: bool = True, bk=None, scale=None):
+    """q: (B, Sq, H, dk); k: (B, Skv, KVH, dk); v: (B, Skv, KVH, dv) ->
+    (B, Sq, H, dv).  ``bk``: the KV chunk (the Pallas kernel's ``bk``;
+    None: the serving default tile).  The plain version's result does not
+    depend on it.  ``scale``: the scores' scale (None: 1/sqrt(dk), as the
+    reference's ``softmax_scale``)."""
     if _records_grad(q, k, v):
-        return _FlashAttention.apply(q, k, v, causal, bk)
-    return _flash_fwd(q, k, v, causal, bk)
+        if v.shape[-1] != q.shape[-1]:
+            raise NotImplementedError(DK_NE_DV_BACKWARD)
+        return _FlashAttention.apply(q, k, v, causal, bk, scale)
+    return _flash_fwd(q, k, v, causal, bk, scale)

@@ -40,12 +40,19 @@ def rmsnorm_bwd_ref(x, w, dy, eps: float = 1e-5):
     return dx.to(x.dtype), dw.to(w.dtype)
 
 
-def _gqa_scores(q, k, causal: bool):
-    """Scaled, masked scores (B, KVH, G, Sq, Skv) in f32."""
+def _scaled(x, d: int, scale):
+    """x times the scale: ``scale``, or divided by sqrt(d) where it is
+    None."""
+    return x / math.sqrt(d) if scale is None else x * scale
+
+
+def _gqa_scores(q, k, causal: bool, scale=None):
+    """Scaled (``scale``; None: 1/sqrt(dk)), masked scores (B, KVH, G, Sq,
+    Skv) in f32."""
     B, Sq, H, d = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     qg = q.reshape(B, Sq, KVH, H // KVH, d).float()
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()) / math.sqrt(d)
+    s = _scaled(torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()), d, scale)
     if causal:
         mask = torch.ones(Sq, Skv, dtype=torch.bool,
                           device=q.device).tril(Skv - Sq)
@@ -54,37 +61,41 @@ def _gqa_scores(q, k, causal: bool):
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        return_lse: bool = False):
-    """q: (B, Sq, H, d); k/v: (B, Skv, KVH, d) -- GQA naive attention with
-    the queries aligned to the end of the KV sequence.  ``return_lse``:
-    also the rows' log-sum-exp of the scaled scores, f32 (B, H, Sq), which
-    the backward pass recomputes the probabilities from."""
-    B, Sq, H, d = q.shape
-    s = _gqa_scores(q, k, causal)
+                        return_lse: bool = False, scale=None):
+    """q: (B, Sq, H, dk); k: (B, Skv, KVH, dk); v: (B, Skv, KVH, dv) --
+    GQA naive attention with the queries aligned to the end of the KV
+    sequence, scores scaled by ``scale`` (None: 1/sqrt(dk)) -> (B, Sq, H,
+    dv).  ``return_lse``: also the rows' log-sum-exp of the scaled scores,
+    f32 (B, H, Sq), which the backward pass recomputes the probabilities
+    from."""
+    B, Sq, H, _ = q.shape
+    s = _gqa_scores(q, k, causal, scale)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    o = o.reshape(B, Sq, H, d).to(q.dtype)
+    o = o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
     if not return_lse:
         return o
     return o, torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
 
 
-def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True):
-    """Gradients (dq, dk, dv) of ``flash_attention_ref`` for output gradient
-    do, recomputed from the saved lse as the backward kernel does
-    (FlashAttention-2): P = exp(S - lse), Dl = rowsum(do o), dV = P^T do
-    and dK = dS^T q / sqrt(d) summed over the G query heads of a KV head,
-    dS = P (do V^T - Dl), dq = dS K / sqrt(d)."""
+def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
+                            scale=None):
+    """Gradients (dq, dk, dv) of ``flash_attention_ref`` (one head width d)
+    for output gradient do, recomputed from the saved lse as the backward
+    kernel does (FlashAttention-2), with c the forward's scale (None:
+    1/sqrt(d)): P = exp(S - lse), Dl = rowsum(do o), dV = P^T do and dK =
+    c dS^T q summed over the G query heads of a KV head, dS = P (do V^T -
+    Dl), dq = c dS K."""
     B, Sq, H, d = q.shape
     KVH = k.shape[2]
     G = H // KVH
-    s = _gqa_scores(q, k, causal)
+    s = _gqa_scores(q, k, causal, scale)
     p = torch.exp(s - lse.reshape(B, KVH, G, Sq, 1))
     dog = do.reshape(B, Sq, KVH, G, d).float()
     dl = (dog * o.reshape(B, Sq, KVH, G, d).float()).sum(-1)
     dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
-    ds = p * (dp - dl.permute(0, 2, 3, 1)[..., None]) / math.sqrt(d)
+    ds = _scaled(p * (dp - dl.permute(0, 2, 3, 1)[..., None]), d, scale)
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float())
     dk = torch.einsum("bhgqk,bqhgd->bkhd", ds,
                       q.reshape(B, Sq, KVH, G, d).float())

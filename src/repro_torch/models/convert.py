@@ -20,13 +20,24 @@ from .model import Params, spec_tree
 
 def _jax_shape(cfg: ArchConfig, name: str, shape: tuple) -> tuple:
     """The JAX shape of port parameter ``name`` (port shape ``shape``)."""
-    P, D, dh = cfg.n_layers, cfg.d_model, cfg.head_dim
+    P, D, dh, H = cfg.n_layers, cfg.d_model, cfg.head_dim, cfg.n_heads
+    if cfg.pattern == ("mla",):
+        # MLA's (r, H, d) up-projections and (H, d_v, D) output; the port
+        # keeps them 2-D, (r, H*d) and (H*d_v, D): the prefill expands K/V
+        # with one product on the whole stack, and the absorbed decode
+        # takes each head's (r, d) block as a strided view
+        m = cfg.mla
+        mla = {"mix_wq_b": (P, m.q_lora, H, m.d_nope + m.d_rope),
+               "mix_wk_b": (P, m.kv_lora, H, m.d_nope),
+               "mix_wv_b": (P, m.kv_lora, H, m.d_v),
+               "mix_wo": (P, H, m.d_v, D)}
+        return mla.get(name, shape)
     if name == "mix_wq":
-        return (P, D, cfg.n_heads, dh)
+        return (P, D, H, dh)
     if name in ("mix_wk", "mix_wv"):
         return (P, D, cfg.n_kv_heads, dh)
     if name == "mix_wo":
-        return (P, cfg.n_heads, dh, D)
+        return (P, H, dh, D)
     return shape
 
 

@@ -1,14 +1,16 @@
-"""Layer primitives of the dense llama block: norm, rope, GQA attention,
-gated FFN (port of the dense subset of ``repro.models.layers``).
+"""Layer primitives: norm, rope, GQA and MLA attention, gated FFN (port of
+``repro.models.layers``).
 
 The kernels are the layers' compute: every norm goes through
 ``ops.rmsnorm``, prefill attention through ``ops.flash_attention`` and
 every projection through ``ops.matmul`` (CUDA kernels on the card, plain
-PyTorch on the CPU).  ``decode_attention`` is plain tensor code, as it is
-in JAX.  Projection weights are 2-D, ``(D, H*dh)`` for q/k/v and
-``(H*dh, D)`` for o (``models/convert.py`` reshapes the JAX
-``(D, H, dh)``/``(H, dh, D)`` tensors).  The sharding annotations of the
-JAX layers are no-ops without rules and are dropped.
+PyTorch on the CPU).  ``decode_attention`` and MLA's latent scores at
+decode are plain tensor code, as they are in JAX.  Projection weights are
+2-D, ``(D, H*dh)`` for q/k/v and ``(H*dh, D)`` for o; MLA's ``wq_b``,
+``wk_b`` and ``wv_b`` are ``(r, H*d)`` (``models/convert.py`` reshapes
+the JAX ``(D, H, dh)``/``(H, dh, D)``/``(r, H, d)`` tensors).  The
+sharding annotations of the JAX layers are no-ops without rules and are
+dropped.
 """
 
 from __future__ import annotations
@@ -138,6 +140,109 @@ def cache_update(cache, new, t):
     rows = torch.arange(B, device=cache.device)
     cache[rows, t.expand(B)] = new[:, 0].to(cache.dtype)
     return cache
+
+
+def mla_project_q(p, h, cfg):
+    """h (B, S, D) -> q (B, S, H, d_nope + d_rope): the low-rank query
+    (``wq_a``, its norm ``q_ln``, ``wq_b``), rope not yet applied."""
+    m = cfg.mla
+    B, S, _ = h.shape
+    ql = rms_norm(linear(h, p["wq_a"]), p["q_ln"], cfg.norm_eps)
+    return linear(ql, p["wq_b"]).view(B, S, cfg.n_heads, m.d_nope + m.d_rope)
+
+
+def _mla_latent(p, h, cfg, cos, sin):
+    """h (B, S, D) -> (c_kv (B, S, kv_lora) normed, k_rope (B, S, d_rope)
+    with rope): the latent that MLA caches."""
+    m = cfg.mla
+    kv = linear(h, p["wkv_a"])
+    ckv = rms_norm(kv[..., :m.kv_lora], p["kv_ln"], cfg.norm_eps)
+    k_rope = apply_rope(kv[..., None, m.kv_lora:], cos, sin)[:, :, 0, :]
+    return ckv, k_rope
+
+
+def mla_block(p, x, cfg, *, positions, kv_chunk=DEFAULT_KV_CHUNK):
+    """MLA train/prefill; returns (out, (c_kv, k_rope)), the latent cache.
+
+    K and V are expanded from the latent once for the whole sequence
+    (``c_kv @ wk_b`` and ``c_kv @ wv_b``, one matmul launch each) and the
+    heads go through the flash kernel at (dk, dv) = (d_nope + d_rope, d_v)
+    with the scale 1/sqrt(d_nope + d_rope).  The reference expands them a
+    KV chunk at a time inside its online-softmax scan (``_MLAExpand``), so
+    that they never exist at full length; the result is the same, and at
+    serving lengths (prompts of at most a few dozen tokens) the full
+    expansion is small.  ``kv_chunk`` reaches the kernel as its KV tile,
+    as in ``attn_block``."""
+    m = cfg.mla
+    B, S, _ = x.shape
+    H = cfg.n_heads
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q = mla_project_q(p, h, cfg)
+    cos, sin = rope_tables(positions, m.d_rope, cfg.rope_theta)
+    q = torch.cat([q[..., :m.d_nope],
+                   apply_rope(q[..., m.d_nope:], cos, sin)], dim=-1)
+    ckv, k_rope = _mla_latent(p, h, cfg, cos, sin)
+    k_nope = linear(ckv, p["wk_b"]).view(B, S, H, m.d_nope)
+    v = linear(ckv, p["wv_b"]).view(B, S, H, m.d_v)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, m.d_rope)
+                   .to(k_nope.dtype)], dim=-1)
+    bk = None if kv_chunk == DEFAULT_KV_CHUNK else kv_chunk
+    o = ops.flash_attention(q, k, v, causal=True, bk=bk,
+                            scale=1.0 / math.sqrt(m.d_nope + m.d_rope))
+    out = linear(o.reshape(B, S, H * m.d_v), p["wo"])
+    return out, (ckv, k_rope)
+
+
+def per_head_matmul(x, w, width: int, *, transposed: bool):
+    """x (B, H, K) -> (B, H, N): head i's rows times head i's block of
+    ``width`` columns of the 2-D weight ``w`` (r, H*width), the block
+    itself (K = r, N = width) or its transpose (K = width, N = r).  One
+    matmul launch a head, on strided views: nothing is copied."""
+    out = []
+    for i in range(x.shape[1]):
+        b = w[:, i * width:(i + 1) * width]
+        out.append(ops.matmul(x[:, i], b.T if transposed else b))
+    return torch.stack(out, dim=1)
+
+
+def mla_decode(p, x, cache, cfg, *, t, kv_positions):
+    """Absorbed-matmul MLA decode: attention runs in the latent space and
+    the per-head K/V are never expanded.  x: (B, 1, D); cache = (c_kv (B,
+    S, kv_lora), k_rope (B, S, d_rope)), written in place at position t;
+    returns (out, cache).
+
+    Per head h, ``q_lat = q_nope . wk_b[h]^T`` and ``o = o_lat . wv_b[h]``
+    are projections, so each is a matmul launch on strided views of the
+    2-D weights (``per_head_matmul``: 2 H launches a layer); the latent
+    scores, the softmax and ``o_lat`` are plain tensor code."""
+    m = cfg.mla
+    B = x.shape[0]
+    H, dn, dv = cfg.n_heads, m.d_nope, m.d_v
+    h = rms_norm(x, p["ln"], cfg.norm_eps)
+    q = mla_project_q(p, h, cfg)                       # (B, 1, H, dn + dr)
+    cos, sin = rope_tables(_t_col(t), m.d_rope, cfg.rope_theta)
+    q_rope = apply_rope(q[..., dn:], cos, sin)
+    ckv1, kr1 = _mla_latent(p, h, cfg, cos, sin)
+    ckv, k_rope = cache
+    cache_update(ckv, ckv1, t)
+    cache_update(k_rope, kr1, t)
+
+    # absorb W_uk into q: q_lat (B, H, r) = q_nope . W_uk, head by head
+    q_lat = per_head_matmul(q[:, 0, :, :dn], p["wk_b"], dn, transposed=True)
+    scale = 1.0 / math.sqrt(dn + m.d_rope)
+    s = (torch.einsum("bhr,bsr->bhs", q_lat.float(), ckv.float())
+         + torch.einsum("bhk,bsk->bhs", q_rope[:, 0].float(),
+                        k_rope.float())) * scale
+    valid = (kv_positions[None, :] <= _t_col(t))[:, None, :]
+    s = torch.where(valid, s, torch.full_like(s, _NEG_INF))
+    pr = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    pr = pr / pr.sum(dim=-1, keepdim=True)
+    o_lat = torch.einsum("bhs,bsr->bhr", pr.to(ckv.dtype).float(),
+                         ckv.float()).to(x.dtype)
+    # absorb W_uv: o (B, H, dv) = o_lat . W_uv, head by head
+    o = per_head_matmul(o_lat, p["wv_b"], dv, transposed=False)
+    out = linear(o.reshape(B, 1, H * dv), p["wo"])
+    return out, (ckv, k_rope)
 
 
 def ffn_block(p, x, cfg):

@@ -1,12 +1,15 @@
 """Model assembly for the attention families: parameters, forward, prefill,
 decode (port of ``repro.models.model`` for ``pattern=("attn",)`` with
-``ffn_pattern`` ``("dense",)`` or ``("moe",)``).
+``ffn_pattern`` ``("dense",)`` or ``("moe",)``, and ``pattern=("mla",)``
+with ``("moe",)``, deepseek-v2).
 
 Parameters are a plain dict of tensors, as in JAX, with every block weight
 stacked over layers (leading ``n_layers`` dim; projections 2-D, see
 ``layers.py``).  The ``lax.scan`` over periods is a loop over layers.  The
-cache keeps the JAX structure ``((k, v),)`` with ``k``/``v`` of shape
-``(n_layers, B, s_max, KVH, dh)`` and is updated in place.
+cache keeps the JAX structure ``((k, v),)``, updated in place: ``k``/``v``
+of shape ``(n_layers, B, s_max, KVH, dh)`` under attention, and MLA's
+latent ``c_kv (n_layers, B, s_max, kv_lora)`` and ``k_rope (n_layers, B,
+s_max, d_rope)``.
 """
 
 from __future__ import annotations
@@ -39,14 +42,43 @@ class ModelKnobs:
     logits_f32: bool = True
 
 
+# the (pattern, ffn_pattern) pairs the port runs
+SUPPORTED = ((("attn",), ("dense",)), (("attn",), ("moe",)),
+             (("mla",), ("moe",)))
+
+
 def check_supported(cfg: ArchConfig) -> None:
-    if (cfg.pattern != ("attn",)
-            or cfg.ffn_pattern not in (("dense",), ("moe",))
+    if ((cfg.pattern, cfg.ffn_pattern) not in SUPPORTED
             or cfg.n_codebooks or cfg.n_patches):
         raise NotImplementedError(
             f"{cfg.name}: the port serves the attention families only "
-            f"(pattern ('attn',), ffn_pattern ('dense',) or ('moe',), no "
-            f"frontend stubs); got {cfg.pattern}/{cfg.ffn_pattern}")
+            f"((pattern, ffn_pattern) in {SUPPORTED}, no frontend stubs); "
+            f"got {cfg.pattern}/{cfg.ffn_pattern}")
+
+
+def _mix_spec(cfg: ArchConfig) -> Dict[str, Tuple[tuple, float]]:
+    """The mixer's (shape, fan_in) per parameter, stacked over layers (JAX
+    ``_kind_params`` with the fan-ins there).  The JAX init zeroes every
+    name ending in ``_b`` (meant for biases), which takes in MLA's
+    ``wq_b``, ``wk_b`` and ``wv_b`` and makes its block's output zero; the
+    port draws them from their fan-ins, so the path computes something."""
+    D, P, H = cfg.d_model, cfg.n_layers, cfg.n_heads
+    if cfg.pattern == ("mla",):
+        m = cfg.mla
+        return {"mix_ln": ((P, D), 0.0),
+                "mix_wq_a": ((P, D, m.q_lora), D),
+                "mix_q_ln": ((P, m.q_lora), 0.0),
+                "mix_wq_b": ((P, m.q_lora, H * (m.d_nope + m.d_rope)),
+                             m.q_lora),
+                "mix_wkv_a": ((P, D, m.kv_lora + m.d_rope), D),
+                "mix_kv_ln": ((P, m.kv_lora), 0.0),
+                "mix_wk_b": ((P, m.kv_lora, H * m.d_nope), m.kv_lora),
+                "mix_wv_b": ((P, m.kv_lora, H * m.d_v), m.kv_lora),
+                "mix_wo": ((P, H * m.d_v, D), H * m.d_v)}
+    HD, KD = H * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    return {"mix_ln": ((P, D), 0.0),
+            "mix_wq": ((P, D, HD), D), "mix_wk": ((P, D, KD), D),
+            "mix_wv": ((P, D, KD), D), "mix_wo": ((P, HD, D), HD)}
 
 
 def _ffn_spec(cfg: ArchConfig) -> Dict[str, Tuple[tuple, float]]:
@@ -76,16 +108,10 @@ def _ffn_spec(cfg: ArchConfig) -> Dict[str, Tuple[tuple, float]]:
 def spec_tree(cfg: ArchConfig) -> Dict[str, Dict[str, Tuple[tuple, float]]]:
     """(shape, fan_in) per parameter; fan 0 = zeros, -1 = embedding init."""
     check_supported(cfg)
-    D, V, P = cfg.d_model, cfg.vocab, cfg.n_layers
-    HD, KD = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    D, V = cfg.d_model, cfg.vocab
     tree = {
         "embed": {"tok": ((V, D), -1)},
-        "pos0": {
-            "mix_ln": ((P, D), 0.0),
-            "mix_wq": ((P, D, HD), D), "mix_wk": ((P, D, KD), D),
-            "mix_wv": ((P, D, KD), D), "mix_wo": ((P, HD, D), HD),
-            **_ffn_spec(cfg),
-        },
+        "pos0": {**_mix_spec(cfg), **_ffn_spec(cfg)},
         "final": {"ln": ((D,), 0.0)},
     }
     if not cfg.tie_embeddings:
@@ -148,6 +174,10 @@ class Model:
                              dispatch=self.knobs.moe_dispatch)
         return L.ffn_block(pf, x, self.cfg)
 
+    @property
+    def _mla(self) -> bool:
+        return self.cfg.pattern == ("mla",)
+
     def _layers(self, params) -> Iterator[Tuple[dict, dict]]:
         """Per layer: (mixer params, ffn params), views of the stacks."""
         stack = params["pos0"]
@@ -162,9 +192,10 @@ class Model:
         x = self._embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
         caches = []
+        block = L.mla_block if self._mla else L.attn_block
         for p, pf in self._layers(params):
-            h, c = L.attn_block(p, x, cfg, positions=positions,
-                                kv_chunk=self.knobs.kv_chunk)
+            h, c = block(p, x, cfg, positions=positions,
+                         kv_chunk=self.knobs.kv_chunk)
             x = x + h
             x = x + self._ffn(pf, x)
             if with_cache:
@@ -181,10 +212,13 @@ class Model:
 
     def init_cache(self, batch_size: int, s_max: int):
         cfg = self.cfg
-        shape = (cfg.n_layers, batch_size, s_max, cfg.n_kv_heads,
-                 cfg.head_dim)
+        lead = (cfg.n_layers, batch_size, s_max)
+        if self._mla:
+            shapes = (lead + (cfg.mla.kv_lora,), lead + (cfg.mla.d_rope,))
+        else:
+            shapes = (lead + (cfg.n_kv_heads, cfg.head_dim),) * 2
         kw = dict(dtype=self.knobs.compute_dtype, device=self.device)
-        return ((torch.zeros(shape, **kw), torch.zeros(shape, **kw)),)
+        return (tuple(torch.zeros(s, **kw) for s in shapes),)
 
     def prefill(self, params, batch, s_max: int, logits_at=None):
         """Run the full prompt, build an s_max-capacity cache.
@@ -192,7 +226,8 @@ class Model:
         ``logits_at``: optional (B,) positions of each row's true prompt end
         (right-padded batches); default = last position.  Returns
         (logits (B, V) at those positions, cache, t=prompt_len).  The pad
-        positions' K/V stay in the cache; decode masks them."""
+        positions' K/V (MLA: latents) stay in the cache; decode masks
+        them."""
         x, caches = self._backbone(params, batch, with_cache=True)
         B, S = x.shape[0], x.shape[1]
         if logits_at is None:
@@ -216,9 +251,10 @@ class Model:
         k_all, v_all = cache[0]
         t = torch.as_tensor(t, device=x.device).long()
         kv_positions = torch.arange(k_all.shape[2], device=x.device)
+        decode = L.mla_decode if self._mla else L.attn_decode
         for i, (p, pf) in enumerate(self._layers(params)):
-            h, _ = L.attn_decode(p, x, (k_all[i], v_all[i]), cfg, t=t,
-                                 kv_positions=kv_positions)
+            h, _ = decode(p, x, (k_all[i], v_all[i]), cfg, t=t,
+                          kv_positions=kv_positions)
             x = x + h
             x = x + self._ffn(pf, x)
         x = L.rms_norm(x, params["final"]["ln"], cfg.norm_eps)

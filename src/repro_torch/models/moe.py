@@ -44,11 +44,13 @@ DISPATCHES = ("a2a", "sort", "dense")
 
 def router_topk(logits, k: int, *, renormalize: bool = True):
     """logits (T, E) -> (gates (T, k) f32, idx (T, k)): softmax in f32,
-    top k, renormalized.  Where two probabilities tie, ``torch.topk`` may
-    pick another index than ``lax.top_k`` (which keeps the lower); drawn
-    router weights give no ties."""
+    top k, renormalized.  Ties keep the lower index first, as ``lax.top_k``
+    does: a stable descending sort (``torch.topk`` breaks them in no fixed
+    order).  Ties are exact wherever logits are: a zero router column or a
+    zero token row, and more often in bf16."""
     probs = torch.softmax(logits.float(), dim=-1)
-    gates, idx = torch.topk(probs, k, dim=-1, sorted=True)
+    gates, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gates, idx = gates[:, :k], idx[:, :k]
     if renormalize:
         gates = gates / gates.sum(dim=-1, keepdim=True)
     return gates, idx

@@ -192,6 +192,11 @@ class LMStudy:
                  reduced: bool = True):
         self.cfg = get_config(arch, reduced=reduced)
         check_supported(self.cfg)
+        if "mla" in self.cfg.pattern:
+            raise NotImplementedError(
+                f"{self.cfg.name}: the study's mla_fb thunk needs the flash "
+                f"backward at dk != dv, which is not ported yet (ROADMAP.md "
+                f"queue 1, item 1, slice b); the port serves MLA")
         self.device = resolve_device(device)
         self.batch, self.seq = batch, seq
         gen = torch.Generator().manual_seed(seed)

@@ -9,7 +9,10 @@ Shapes: the JAX test sweep's (tests/test_kernels.py), plus the serving
 path's full-width ones (smollm-135m: d_model 576, 9/3 heads of 64, the
 49152-wide tied head read through a transposed view; phi3.5-moe: d_model
 4096, 32/8 heads of 128, the router's 16 columns, the experts' 1-10 rows
-of 6400, the untied 32064-wide head), at its tolerances.
+of 6400, the untied 32064-wide head; deepseek-v2: flash at (dk, dv) =
+(192, 128) over 128 heads and the reduced (24, 16), with MLA's scale, the
+absorbed decode's per-head products on strided views, tied router
+logits), at its tolerances.
 """
 
 import ctypes
@@ -1052,3 +1055,190 @@ def test_moe_fb_grads_match_cpu_port(cuda_device, dispatch):
         scale = max(1.0, float(c.abs().max()))
         torch.testing.assert_close(g.cpu(), c, rtol=1e-4, atol=1e-5 * scale,
                                    msg=lambda m: f"{path}: {m}")
+
+
+# -- MLA (deepseek-v2): flash at (dk, dv), the absorbed products, ties --------
+
+MLA_FLASH = [(1, 4, 4, 128, 128, 192, 128),      # full width, S 4 and 31
+             (1, 31, 31, 128, 128, 192, 128),
+             (2, 33, 70, 8, 2, 192, 128),        # GQA, suffix, ragged tiles
+             (1, 16, 16, 4, 4, 24, 16),          # reduced, served with --reduced
+             (2, 37, 37, 4, 2, 24, 16)]
+
+
+def _mla_flash_inputs(dims, tdt, device, seed):
+    B, Sq, Skv, H, KVH, dk, dv = dims
+    rng = np.random.default_rng(seed)
+    return (_dev(rng.standard_normal(shape, np.float32), tdt, device)
+            for shape in ((B, Sq, H, dk), (B, Skv, KVH, dk),
+                          (B, Skv, KVH, dv)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", MLA_FLASH)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bk", [None, 16, 64])
+def test_flash_attention_mla_pairs_match_plain(cuda_device, dims, dtype, bk):
+    """The forward at MLA's (dk, dv) pairs with a scale other than
+    1/sqrt(dk) (the padding of dk 24 to 32 in bf16 must not move it), at
+    every KV tile the plan gives the pair (f32 (192, 128) takes 32 for a
+    64-key chunk), the same bits on a repeat."""
+    tdt = DTYPES[dtype]
+    q, k, v = _mla_flash_inputs(dims, tdt, cuda_device, 40)
+    scale = 0.7 / np.sqrt(dims[5])
+    n0 = ops.launches["flash_attention"]
+    got = ops.flash_attention(q, k, v, causal=True, bk=bk, scale=scale)
+    again = ops.flash_attention(q, k, v, causal=True, bk=bk, scale=scale)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention"] == n0 + 2
+    assert got.shape == q.shape[:3] + (dims[6],)
+    assert torch.equal(got, again)
+    tol = 4e-2 if dtype == "bfloat16" else 3e-4
+    want = ref.flash_attention_ref(q, k, v, causal=True, scale=scale)
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_mla_strided_and_misaligned(cuda_device, dtype):
+    """(192, 128) from strided views: q a slice of a wider tensor (heads
+    200 apart), k one element off 16 bytes (no cp.async), v a head slice:
+    the plan turns cp.async off and the result is the plain version's."""
+    from repro_torch.kernels.flash_attention import plan_flash
+    tdt = DTYPES[dtype]
+    rng = np.random.default_rng(41)
+    B, S, H = 1, 31, 16
+    q = _dev(rng.standard_normal((B, S, H, 200), np.float32), tdt,
+             cuda_device)[..., :192]
+    buf = _dev(rng.standard_normal(1 + B * S * H * 192, np.float32), tdt,
+               cuda_device)
+    k = buf[1:].view(B, S, H, 192)
+    v = _dev(rng.standard_normal((B, S, 2 * H, 128), np.float32), tdt,
+             cuda_device)[:, :, ::2]
+    assert not plan_flash(q, k, v).vec
+    assert plan_flash(q.contiguous(), k.clone(), v.contiguous()).vec
+    scale = 1.0 / np.sqrt(192)
+    got = ops.flash_attention(q, k, v, scale=scale)
+    torch.cuda.synchronize()
+    tol = 4e-2 if dtype == "bfloat16" else 3e-4
+    np.testing.assert_allclose(
+        _np(got), _np(ref.flash_attention_ref(q, k, v, scale=scale)),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_uninstantiated_pair_raises(cuda_device):
+    """A pair the kernel is not instantiated at raises before a launch,
+    naming the pairs; a tile the plan would never give (f32 (192, 128)
+    at 64 keys) is refused by the C entry."""
+    import math
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (_ARGTYPES, plan_flash)
+    q = torch.zeros(1, 8, 2, 192, device=cuda_device)
+    n0 = ops.launches["flash_attention"]
+    with pytest.raises(ValueError, match=r"\(192, 128\)"):
+        ops.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head_dim"):
+        ops.flash_attention(q[..., :96], q[..., :96], q[..., :64])
+    assert ops.launches["flash_attention"] == n0
+    k, v = q.clone(), torch.zeros(1, 8, 2, 128, device=cuda_device)
+    o = torch.empty(1, 8, 2, 128, device=cuda_device)
+    plan = plan_flash(q, k, v)
+    strides = [t.stride(i) for t in (q, k, v, o) for i in range(3)]
+    launch = _build.entry("flash_attention", _ARGTYPES)
+    err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 None, 1, 2, 2, 8, 8, 192, 128, *strides,
+                 1.0 / math.sqrt(192), 1, plan.gh, plan.bq, 64, 1, 0,
+                 _build.stream())
+    assert err != 0
+    assert ops.launches["flash_attention"] == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", [(4, 128, 512, 128), (4, 512, 128, 128),
+                                  (1, 16, 32, 4), (2, 32, 16, 4)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_matmul_absorbed_per_head_views(cuda_device, dims, dtype):
+    """The absorbed decode's products, head by head on strided views of
+    the 2-D weights: q_nope[:, h] (rows H (dn + dr) apart) times wk_b's
+    head block transposed (K-contiguous, columns H dn apart), and o_lat[:,
+    h] times wv_b's head block (rows H dv apart); full width (4 x 128 x
+    512, 4 x 512 x 128 over 128 heads) and reduced."""
+    B, K, N, H = dims
+    tdt = DTYPES[dtype]
+    rng = np.random.default_rng(42)
+    tol = 3e-2 if dtype == "bfloat16" else 1e-5
+    if K < N:       # q_lat = q_nope . wk_b[h]^T: K = d_nope, N = kv_lora
+        a_all = _dev(rng.standard_normal((B, H, K + K // 2), np.float32),
+                     tdt, cuda_device)
+        w = _dev((rng.standard_normal((N, H * K)) / np.sqrt(N))
+                 .astype(np.float32), tdt, cuda_device)
+        pairs = [(a_all[:, h, :K], w[:, h * K:(h + 1) * K].T)
+                 for h in range(H)]
+    else:           # o = o_lat . wv_b[h]: K = kv_lora, N = d_v
+        a_all = _dev(rng.standard_normal((B, H, K), np.float32), tdt,
+                     cuda_device)
+        w = _dev((rng.standard_normal((K, H * N)) / np.sqrt(K))
+                 .astype(np.float32), tdt, cuda_device)
+        pairs = [(a_all[:, h], w[:, h * N:(h + 1) * N]) for h in range(H)]
+    n0 = ops.launches["matmul"]
+    got = [ops.matmul(a, b) for a, b in pairs]
+    torch.cuda.synchronize()
+    assert ops.launches["matmul"] == n0 + H
+    for g, (a, b) in zip(got, pairs):
+        np.testing.assert_allclose(_np(g), _np(ref.matmul_ref(a, b)),
+                                   rtol=tol, atol=tol * 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_experts,k", [(4, 2), (16, 2), (160, 6)])
+def test_router_topk_ties_on_the_card_equal_cpu(cuda_device, n_experts, k):
+    """Tied router logits (all zero, and half the experts tied on top) pick
+    the same experts and gates on the card as on the CPU: the lower index
+    first, as lax.top_k."""
+    from repro_torch.models import moe
+    logits = torch.zeros(6, n_experts)
+    logits[3, n_experts // 2:] = 1.0
+    logits[4, ::3] = -1.0
+    logits[5] = torch.randn(n_experts, generator=torch.Generator()
+                            .manual_seed(0))
+    cg, ci = moe.router_topk(logits, k)
+    gg, gi = moe.router_topk(logits.to(cuda_device), k)
+    assert torch.equal(ci[0], torch.arange(k))
+    assert torch.equal(gi.cpu(), ci)
+    torch.testing.assert_close(gg.cpu(), cg, rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.cuda
+def test_mla_model_on_the_card_matches_cpu(cuda_device):
+    """Reduced deepseek-v2 on the card against the port's CPU run: prefill
+    and 3 teacher-forced absorbed decode steps, logits within the serving
+    tolerance, and every launch a kernel's (no plain call)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, init_params
+    cfg = get_config("deepseek-v2", reduced=True)
+    pc = init_params(cfg, torch.Generator().manual_seed(43), "cpu")
+    gen = torch.Generator().manual_seed(44)
+    for nm in ("mix_ln", "mix_q_ln", "mix_kv_ln"):
+        pc["pos0"][nm] = torch.randn(pc["pos0"][nm].shape, generator=gen) \
+            * 0.1
+    pg = {g: {k: v.to(cuda_device) for k, v in sub.items()}
+          for g, sub in pc.items()}
+    toks = torch.from_numpy(np.random.default_rng(45).integers(
+        0, cfg.vocab, (2, 14)))
+    outs = []
+    for dev, params in (("cuda", pg), ("cpu", pc)):
+        model = Model(cfg, device=dev)
+        tt = toks.to(dev)
+        plain0 = dict(ops.plain_calls)
+        lg, cache, _ = model.prefill(params, {"tokens": tt[:, :11]}, 32)
+        seq = [lg.cpu()]
+        for t in range(11, 14):
+            lg, cache = model.decode_step(params, cache, t,
+                                          {"tokens": tt[:, t:t + 1]})
+            seq.append(lg.cpu())
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert ops.plain_calls == plain0
+        outs.append(torch.stack(seq))
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-3, atol=1e-4)

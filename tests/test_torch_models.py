@@ -231,8 +231,7 @@ def test_params_from_jax_checks_shapes(setup):
         params_from_jax(tree, cfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch", ["xlstm-125m", "jamba",
-                                  "deepseek-v2", "musicgen-large"])
+@pytest.mark.parametrize("arch", ["xlstm-125m", "jamba", "musicgen-large"])
 def test_non_dense_archs_not_implemented(arch):
     with pytest.raises(NotImplementedError):
         Model(get_config(arch, reduced=True), device="cpu")

@@ -18,7 +18,11 @@ with numpy from a seed and given to both sides.
   closure; its configuration space, signatures and counts against the JAX
   study's; the sort and dense points share every attention kernel and no
   MoE kernel;
-- ``check_supported`` still rejects the families the port does not run.
+- ties: all-zero router logits pick ``lax.top_k``'s experts (the lower
+  index first) and gates, and a zero router routes ``moe_ffn`` as JAX
+  does under sort and dense;
+- ``check_supported`` still rejects the families the port does not run,
+  and the study still rejects deepseek-v2 (its ``mla_fb`` is not ported).
 
 The JAX side runs under ``jax.jit`` (one program a shape, where eager mode
 compiles every primitive on its first call), and the JAX weights are drawn
@@ -141,6 +145,42 @@ def test_router_topk_matches_jax():
     assert tg.dtype == torch.float32
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     _close(tg, jg)
+
+
+@pytest.mark.parametrize("n_experts,k", [(4, 2), (16, 2), (160, 6)])
+def test_router_topk_ties_match_jax(n_experts, k):
+    """All-zero logits tie every expert: ``lax.top_k`` keeps the lower
+    index first, and so must the port (phi3.5-moe's 16/top-2, deepseek-v2's
+    160/top-6, the reduced 4/top-2); some rows tie only partly."""
+    logits = np.zeros((5, n_experts), np.float32)
+    logits[3, n_experts // 2:] = 1.0        # the upper half tied on top
+    logits[4, ::3] = -1.0
+    jg, ji = JM.router_topk(jnp.asarray(logits), k)
+    tg, ti = moe.router_topk(torch.from_numpy(logits), k)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(ti[0].numpy(), np.arange(k))
+    _close(tg, jg)
+
+
+@pytest.mark.parametrize("dispatch", ["sort", "dense"])
+def test_moe_ffn_zero_router_matches_jax(weights, dispatch):
+    """A zero router ties every probability for every token: the port
+    routes to JAX's experts (0 and 1) and the outputs agree."""
+    jcfg, cfg = _configs()
+    jp, tp = weights[0]
+    jl, tl = _ffn0(jp), _ffn0(tp)
+    jl["router"] = jnp.zeros_like(jl["router"])
+    tl["router"] = torch.zeros_like(tl["router"])
+    x = np.random.default_rng(8).standard_normal((1, 4, 64)) \
+        .astype(np.float32)
+    routing = []
+    got = moe.moe_ffn(tl, torch.from_numpy(x), cfg, dispatch=dispatch,
+                      routing=routing)
+    want = jax.jit(JM.moe_ffn, static_argnames=("cfg", "dispatch"))(
+        jl, jnp.asarray(x), cfg=jcfg, dispatch=dispatch)
+    np.testing.assert_array_equal(routing[0][0].numpy(),
+                                  np.tile([0, 1], (4, 1)))
+    _close(got, want)
 
 
 @pytest.mark.parametrize("tk,n_experts,cf,cap", [
@@ -365,10 +405,18 @@ def test_grad_closure_names_the_unread_norm(weights, remat):
             grad_closure(loss, remat, cpu, unread=unread)(ffn, x)
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2", "jamba", "xlstm-125m",
-                                  "musicgen-large", "internvl2-2b"])
+@pytest.mark.parametrize("arch", ["jamba", "xlstm-125m", "musicgen-large",
+                                  "internvl2-2b"])
 def test_other_families_still_rejected(arch):
     with pytest.raises(NotImplementedError):
         Model(get_config(arch, reduced=True), device="cpu")
     with pytest.raises(NotImplementedError):
         LMStudy(arch, device="cpu")
+
+
+def test_deepseek_v2_study_still_rejected():
+    """deepseek-v2 is served (``tests/test_torch_mla.py``); its study needs
+    ``mla_fb``, the flash backward at dk != dv, which is not ported."""
+    Model(get_config("deepseek-v2", reduced=True), device="cpu")
+    with pytest.raises(NotImplementedError, match="mla_fb"):
+        LMStudy("deepseek-v2", device="cpu")
