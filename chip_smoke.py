@@ -141,7 +141,19 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               launch's (dk, dv) recorded, then the CPU comparison, routing
               first; (b) three decode steps under torch.profiler (after
               one traced step left out of the reading), the absorbed
-              per-head products and the expert products split out.
+              per-head products and the expert products split out.  The
+              study: in (e), the flash backward at MLA's pairs (the
+              study's mb 2 x S 32 over 128/128 heads at (192, 128), a
+              GQA suffix (2, 33, 70, 8/2) at the same pair, the reduced
+              (24, 16) over 4/4 heads; MLA's scale; f32 and bf16, KV chunk
+              16 and 64) against its plain version, two runs bit for bit,
+              timed beside bound, plain and SDPA's backward; (c) layer 0's
+              full-width mla_fb gradients at KV chunk 16 and 64, remat
+              none and full, card against the CPU run, each timed warm
+              beside its bound, one call under torch.profiler; (d) the
+              reduced deepseek-v2 study's
+              24-point conditional session as phase 11's (d), every
+              flash backward launch at (24, 16).
 
 It prints the kernels as one JSON line, then the last line
 ``{"ok": true, "device": {...}}``.  ``--out PATH`` also writes the full
@@ -983,15 +995,17 @@ GRAD_TOL = (1e-4, 1e-4)             # f32 backward kernel vs plain version
 STUDY_TOL = (1e-4, 1e-5)
 
 
-def flash_bwd_cost(q, k):
+def flash_bwd_cost(q, k, v):
     """(bytes, flops) of the attention backward on these inputs: q, k, v,
     o, dO and lse read once, dq, dk, dv written once; per visible (query,
-    key) pair of each query head 5 products of 2 d flops (S recomputed, dP,
-    dV, dK, dQ)."""
-    B, Sq, H, d = q.shape
+    key) pair of each query head 6 dk + 4 dv flops (S recomputed, dK and dQ
+    over dk; dP and dV over dv)."""
+    B, Sq, H, dk = q.shape
+    dv = v.shape[-1]
     es = elem(q.dtype)
-    nbytes = (4 * q.numel() + 4 * k.numel()) * es + B * H * Sq * 4
-    return nbytes, 10 * d * B * H * causal_pairs(Sq, k.shape[1])
+    nbytes = (2 * (q.numel() + k.numel() + v.numel() + B * Sq * H * dv)
+              * es + B * H * Sq * 4)
+    return nbytes, (6 * dk + 4 * dv) * B * H * causal_pairs(Sq, k.shape[1])
 
 
 def rms_bwd_cost(x, w):
@@ -1009,18 +1023,25 @@ def rms_bwd_cost(x, w):
 GRAD_TOL_BF16 = (2e-2, 1e-2)
 
 
-def grad_case_flash(label, dims, bk, gen, timed=True, dtype=torch.float32):
+def grad_case_flash(label, dims, bk, gen, timed=True, dtype=torch.float32,
+                    scale=None, tag="grads"):
+    """The flash backward at dims (B, Sq, Skv, H, KVH, dk[, dv]) and KV
+    chunk bk, with the forward's ``scale`` (None: 1/sqrt(dk)), against its
+    plain version, two runs bit for bit; ``timed``: beside its bound, plain
+    version and SDPA's backward (with ``scale=``; a lower-right causal mask
+    where Sq < Skv)."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_bwd_cuda, flash_attention_cuda, plan_flash_bwd)
-    B, Sq, Skv, H, KVH, d = dims
+    B, Sq, Skv, H, KVH, d = dims[:6]
+    dv = dims[6] if len(dims) > 6 else d
     dn = str(dtype).split(".")[1]
-    q, k, v = flash_case(B, Sq, Skv, H, KVH, d, dtype, gen)
-    do = randn((B, Sq, H, d), dtype, 1.0, gen)
-    o, lse = flash_attention_cuda(q, k, v, bk=bk, with_lse=True)
+    q, k, v = flash_case(B, Sq, Skv, H, KVH, d, dtype, gen, dv)
+    do = randn((B, Sq, H, dv), dtype, 1.0, gen)
+    o, lse = flash_attention_cuda(q, k, v, bk=bk, with_lse=True, scale=scale)
     run = lambda: flash_attention_bwd_cuda(q, k, v, o, lse, do,  # noqa: E731
-                                           bk=bk)
+                                           bk=bk, scale=scale)
     got, again = run(), run()
-    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, scale=scale)
     torch.cuda.synchronize()
     plan = plan_flash_bwd(q, k, v, o, do, bk)
 
@@ -1030,7 +1051,8 @@ def grad_case_flash(label, dims, bk, gen, timed=True, dtype=torch.float32):
         rtol, arel = GRAD_TOL_BF16
         return rtol, arel * float(w.float().abs().max())
     row = {"kernel": "flash_attention_bwd", "shape": label, "dtype": dn,
-           "tile": plan.tile, "bk": bk, "splits": plan.splits,
+           "pair": [d, dv], "tile": plan.tile, "bk": bk,
+           "splits": plan.splits,
            "grid": plan.grid,
            "bit_identical": all(torch.equal(a, b) for a, b in zip(got, again)),
            "max_abs_err": max(check_close(label, g, w, dn, tol(w))
@@ -1038,23 +1060,27 @@ def grad_case_flash(label, dims, bk, gen, timed=True, dtype=torch.float32):
     if not row["bit_identical"]:
         raise AssertionError(f"flash_attention_bwd {label}: two runs differ")
     if timed:
-        nbytes, flops = flash_bwd_cost(q, k)
+        nbytes, flops = flash_bwd_cost(q, k, v)
         plain = lambda: ref.flash_attention_bwd_ref(  # noqa: E731
-            q, k, v, o, lse, do)
+            q, k, v, o, lse, do, scale=scale)
         # library: SDPA's backward alone (autograd of one forward), on the
-        # heads expanded to H as SDPA takes them
+        # heads expanded to H as SDPA takes them; is_causal aligns the
+        # queries top-left, so a suffix takes an explicit mask
         G = H // KVH
         lq = q.transpose(1, 2).contiguous().requires_grad_()
         lk = k.repeat_interleave(G, 2).transpose(1, 2).contiguous() \
             .requires_grad_()
         lv = v.repeat_interleave(G, 2).transpose(1, 2).contiguous() \
             .requires_grad_()
-        assert Sq == Skv          # is_causal aligns top-left
-        lo = F.scaled_dot_product_attention(lq, lk, lv, is_causal=True)
+        mask = None if Sq == Skv else torch.ones(
+            Sq, Skv, dtype=torch.bool, device="cuda").tril(Skv - Sq)
+        lo = F.scaled_dot_product_attention(
+            lq, lk, lv, attn_mask=mask, is_causal=mask is None,
+            scale=scale)
         ldo = do.transpose(1, 2).contiguous()
         lib = lambda: torch.autograd.grad(  # noqa: E731
             lo, (lq, lk, lv), ldo, retain_graph=True)
-        grad_timing(row, run, plain, lib, nbytes, flops)
+        grad_timing(row, run, plain, lib, nbytes, flops, tag)
     return row
 
 
@@ -1112,7 +1138,7 @@ def grad_case_matmul(label, a, b, timed=True):
     return row
 
 
-def grad_timing(row, run, plain, lib, nbytes, flops):
+def grad_timing(row, run, plain, lib, nbytes, flops, tag="grads"):
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, row["dtype"])
     row["ms"], row["host_ms"] = time_ms(run)
     row["plain_ms"], _ = time_ms(plain, reps=5)
@@ -1120,7 +1146,7 @@ def grad_timing(row, run, plain, lib, nbytes, flops):
     tile = f" [tile {row['tile']}, splits {row['splits']}]" \
         if "tile" in row else \
         (f" [{row['path']}]" if "path" in row else "")
-    print(f"[grads] {row['kernel']:19s} {row['shape']:44s} {row['dtype']} "
+    print(f"[{tag}] {row['kernel']:19s} {row['shape']:44s} {row['dtype']} "
           f"err {row['max_abs_err']:.2e}{tile} same bits on repeat: "
           f"{row['bit_identical']}  device ms: kernel {row['ms']:.4f} plain "
           f"{row['plain_ms']:.4f} library {row['library_ms']:.4f} bound "
@@ -1344,17 +1370,27 @@ def tune_step_breakdown(study, knobs, reps: int = 3):
         for sig, thunk, freq in seq:
             thunk()
         prof_ms = 1e3 * (time.perf_counter() - t0)
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
     out = {"config": knobs.name, "thunks": by_sig,
            "step_ms_sum_of_thunks": step_ms, "step_ms_profiled": prof_ms}
     for sig, v in by_sig.items():
         print(f"[tune] step {knobs.name}: {sig} {v['ms']:.3f} ms x "
               f"{v['freq']} = {v['ms'] * v['freq']:.2f} ms")
+    out.update(device_summary(
+        "tune", f"step {knobs.name}: sum of thunks {step_ms:.2f} ms; "
+        f"profiled step {prof_ms:.2f} ms", prof))
+    return out
+
+
+def device_summary(tag, what, prof, top: int = 12):
+    """Device busy ms, span, idle share, the port's kernels' ms and the
+    ``top`` kernels by device time of a profiler window (empty where the
+    profiler recorded no device event: not measured)."""
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
     if not dev:
-        print("[tune] the profiler recorded no device events; device busy "
-              "share not measured")
-        return out
+        print(f"[{tag}] {what}: the profiler recorded no device events; "
+              f"device busy share not measured")
+        return {}
     busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
     span = (max(e.time_range.end for e in dev)
             - min(e.time_range.start for e in dev)) / 1e3
@@ -1365,19 +1401,18 @@ def tune_step_breakdown(study, knobs, reps: int = 3):
     ours = {k: sum(t for n, (c, t) in by_name.items()
                    if any(f in n for f in frags))
             for k, frags in KERNEL_NAMES.items()}
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:12]
-    out.update({"device_busy_ms": busy, "device_span_ms": span,
-                "device_idle_share": 1.0 - busy / span,
-                "device_events": len(dev), "port_kernel_ms": ours,
-                "top_device_ms": [{"name": n[:80], "count": c, "ms": t}
-                                  for n, (c, t) in top]})
-    print(f"[tune] step {knobs.name}: sum of thunks {step_ms:.2f} ms; "
-          f"profiled step {prof_ms:.2f} ms, device busy {busy:.3f} ms of a "
-          f"{span:.3f} ms span (idle share {1.0 - busy / span:.3f}), "
-          f"{len(dev)} device events; ours (ms): "
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]
+    out = {"device_busy_ms": busy, "device_span_ms": span,
+           "device_idle_share": 1.0 - busy / span,
+           "device_events": len(dev), "port_kernel_ms": ours,
+           "top_device_ms": [{"name": n[:80], "count": c, "ms": t}
+                             for n, (c, t) in rows]}
+    print(f"[{tag}] {what}, device busy {busy:.3f} ms of a {span:.3f} ms "
+          f"span (idle share {1.0 - busy / span:.3f}), {len(dev)} device "
+          f"events; ours (ms): "
           + ", ".join(f"{k} {v:.3f}" for k, v in ours.items()))
     for row in out["top_device_ms"]:
-        print(f"[tune]   {row['ms']:8.3f} ms  x{row['count']:5d}  "
+        print(f"[{tag}]   {row['ms']:8.3f} ms  x{row['count']:5d}  "
               f"{row['name']}")
     return out
 
@@ -2225,22 +2260,23 @@ def serve_family(tag, arch, depth, cfg, p_cpu, p_gpu, per_step,
 
 
 @contextlib.contextmanager
-def _recording_flash_pairs(pairs):
-    """While open, every flash forward launch on the card appends its (dk,
-    dv) to ``pairs`` (measurement only; None: nothing wrapped)."""
+def _recording_flash_pairs(pairs, entry="flash_attention_cuda"):
+    """While open, every launch of the flash forward on the card (``entry``
+    "flash_attention_bwd_cuda": the backward) appends its (dk, dv) to
+    ``pairs`` (measurement only; None: nothing wrapped)."""
     if pairs is None:
         yield
         return
-    fn = ops.flash_attention_cuda
+    fn = getattr(ops, entry)
 
-    def rec(q, k, v, **kw):
+    def rec(q, k, v, *a, **kw):
         pairs.append((q.shape[-1], v.shape[-1]))
-        return fn(q, k, v, **kw)
-    ops.flash_attention_cuda = rec
+        return fn(q, k, v, *a, **kw)
+    setattr(ops, entry, rec)
     try:
         yield
     finally:
-        ops.flash_attention_cuda = fn
+        setattr(ops, entry, fn)
 
 
 def _labelled(module, names):
@@ -2478,53 +2514,57 @@ def phase_moe_grads(cfg, p_cpu, p_gpu, reps: int = 5):
             "rows": rows, "dense_over_sort": ratio}
 
 
-def phase_moe_study():
-    """(d) The reduced phi3.5-moe study on the card, a protocol check: a
+def phase_family_study(tag, arch, mixer, bwd_pairs=None):
+    """(d) A reduced family's study on the card, a protocol check: a
     24-point conditional session with the launch counters zeroed just
     before and read just after (every kernel launched, no plain call);
-    the sort and dense points share every ``attn_fb`` kernel and no
+    the sort and dense points share every ``mixer`` kernel and no
     ``moe_fb``.  At the reduced width (d_model 64, 4 experts of 64) the
     two dispatches differ by less than the run-to-run noise, so its
     chosen point and speedup say nothing of the knob: phase (c) times
-    the knob at full width."""
+    the knob at full width.  ``bwd_pairs``: a list that records the (dk,
+    dv) of every flash backward launch."""
     from repro_torch.tune.lm_study import LMStudy, lm_config_space
-    study = LMStudy("phi3.5-moe", **STUDY)
+    study = LMStudy(arch, **STUDY)
     _zero_counts()
     t0 = time.perf_counter()
-    res = study.session(policy="conditional", tolerance=0.25,
-                        trials=3).run()
+    with _recording_flash_pairs(bwd_pairs, "flash_attention_bwd_cuda"):
+        res = study.session(policy="conditional", tolerance=0.25,
+                            trials=3).run()
     wall = time.perf_counter() - t0
     launches, plain = dict(ops.launches), dict(ops.plain_calls)
-    print(f"[moe] study launches: {launches}; plain calls: {plain}")
+    print(f"[{tag}] study launches: {launches}; plain calls: {plain}")
     if any(plain.values()):
-        raise AssertionError(f"the MoE study called plain versions: {plain}")
+        raise AssertionError(f"the {arch} study called plain versions: "
+                             f"{plain}")
     missing = [k for k, n in launches.items() if n <= 0]
     if missing:
-        raise AssertionError(f"kernels never launched by the MoE study: "
+        raise AssertionError(f"kernels never launched by the {arch} study: "
                              f"{missing}")
     if len(res.records) != 24:
         raise AssertionError(f"{len(res.records)} configurations, not 24")
     for r in res.records:
         if not (math.isfinite(r.predicted) and r.predicted > 0
                 and r.full_time > 0):
-            raise AssertionError(f"[moe] {r.name}: bad times {r.to_json()}")
+            raise AssertionError(f"[{tag}] {r.name}: bad times "
+                                 f"{r.to_json()}")
     sigs = {"sort": set(), "dense": set()}
     for kn in lm_config_space(study.cfg):
         sigs[kn.moe_dispatch] |= {str(s) for s, _, _ in
                                   study.kernel_sequence(kn)}
     shared = sigs["sort"] & sigs["dense"]
     moe_shared = sorted(s for s in shared if "moe_fb" in s)
-    attn = {d: {s for s in v if "attn_fb" in s} for d, v in sigs.items()}
-    if moe_shared or attn["sort"] != attn["dense"]:
-        raise AssertionError(f"[moe] sort and dense share moe_fb "
-                             f"{moe_shared} or not every attn_fb")
-    print(f"[moe] study (reduced phi3.5-moe, {len(res.records)} points, "
+    mix = {d: {s for s in v if mixer in s} for d, v in sigs.items()}
+    if moe_shared or not mix["sort"] or mix["sort"] != mix["dense"]:
+        raise AssertionError(f"[{tag}] sort and dense share moe_fb "
+                             f"{moe_shared} or not every {mixer}")
+    print(f"[{tag}] study (reduced {arch}, {len(res.records)} points, "
           f"conditional 0.25, trials 3; a protocol check, not a reading of "
           f"the knob): chosen {res.chosen.name} true best "
           f"{res.true_best.name} (optimum quality "
           f"{res.optimum_quality:.4f}); speedup {res.speedup:.3f}x; wall "
           f"{wall:.1f} s; sort and dense share {len(shared)} signatures: "
-          f"every attn_fb ({len(attn['sort'])}), no moe_fb")
+          f"every {mixer} ({len(mix['sort'])}), no moe_fb")
     return {"records": [r.to_json() for r in res.records],
             "chosen": res.chosen.name, "true_best": res.true_best.name,
             "speedup": res.speedup, "optimum_quality": res.optimum_quality,
@@ -2566,7 +2606,7 @@ def phase_moe():
     grads = phase_moe_grads(cfg, p_cpu, p_gpu)
     del p_cpu, p_gpu
     torch.cuda.empty_cache()
-    study = phase_moe_study()
+    study = phase_family_study("moe", "phi3.5-moe", "attn_fb")
     return {"kernels": kernel_rows, "serve": serve_stats, "grads": grads,
             "study": study, "params": n_params}
 
@@ -2628,12 +2668,148 @@ def mla_per_step_launches(cfg):
              "flash_attention": 0})
 
 
+def mla_grad_cases(cfg):
+    """(label, dims) of the flash backward at deepseek-v2's study shapes:
+    mb 2 x S 32 over 128/128 heads at (dk, dv) = (192, 128), a GQA suffix
+    with ragged tiles (Sq 33, Skv 70, 8/2 heads) at the same pair, and the
+    reduced study's (24, 16) over 4/4 heads."""
+    m, H = cfg.mla, cfg.n_heads
+    dk, dv = m.d_nope + m.d_rope, m.d_v
+    S = STUDY["seq"]
+    return [(f"study mb2 S{S} H{H}/{H} dk{dk} dv{dv}",
+             (2, S, S, H, H, dk, dv)),
+            (f"GQA B2 Sq33 Skv70 H8/2 dk{dk} dv{dv}",
+             (2, 33, 70, 8, 2, dk, dv)),
+            (f"reduced study mb2 S{S} H4/4 dk24 dv16",
+             (2, S, S, 4, 4, 24, 16))]
+
+
+def phase_mla_bwd_kernels(cfg):
+    """(e), the backward: the flash backward at MLA's pairs
+    (``mla_grad_cases``) with MLA's scale 1/sqrt(dk), f32 and bf16, KV
+    chunk 16 and 64, each against its plain version with two runs compared
+    bit for bit, timed beside its bound, plain version and SDPA's
+    backward."""
+    gen = torch.Generator().manual_seed(8)
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        for label, dims in mla_grad_cases(cfg):
+            for bk in (16, 64):
+                rows.append(grad_case_flash(
+                    f"{label} kv{bk}", dims, bk, gen, dtype=dt,
+                    scale=1.0 / math.sqrt(dims[5]), tag="mla"))
+    print(f"[mla] {len(rows)} flash backward cases at (dk, dv) "
+          f"{sorted({tuple(r['pair']) for r in rows})} agree with the plain "
+          f"version, each with the same bits on a second run")
+    return rows
+
+
+def mla_fb_bound(cfg, remat, B, S):
+    """(bound ms, by) of one layer's ``mla_fb`` at f32: the mixer's weights
+    read and their gradients written once, x read and its gradient
+    written; the operations of its products (each projection 2 T flops a
+    weight forward, twice that backward; the attention 2 (dk + dv) a
+    visible pair forward, 6 dk + 4 dv backward), remat full one forward
+    more."""
+    m, H, D = cfg.mla, cfg.n_heads, cfg.d_model
+    dk, dv = m.d_nope + m.d_rope, m.d_v
+    mats = (D * m.q_lora + m.q_lora * H * dk + D * (m.kv_lora + m.d_rope)
+            + m.kv_lora * H * m.d_nope + m.kv_lora * H * dv + H * dv * D)
+    norms = D + m.q_lora + m.kv_lora
+    T, pairs = B * S, B * H * causal_pairs(S, S)
+    fwd = 2 * T * mats + 2 * (dk + dv) * pairs
+    flops = fwd + 4 * T * mats + (6 * dk + 4 * dv) * pairs
+    if remat == "full":
+        flops += fwd
+    return bound(4 * (2 * (mats + norms) + 2 * T * D), flops, "float32")
+
+
+def phase_mla_grads(cfg, p_cpu, reps: int = 5):
+    """(c) One full-width layer's ``mla_fb`` gradients (the study's closure
+    on layer 0's MLA weights, its norm weights drawn), KV chunk 16 and 64,
+    remat none and full, at mb 2 x S 32: the card against the port's CPU
+    run (the card's flash backward launched at (dk, dv), no plain call);
+    then the card's closure timed warm, the least of ``reps`` calls
+    on the host clock (each ends in a device sync, as the study times
+    it), beside its bound."""
+    from repro_torch.tune.lm_study import (StepKnobs, _flatten,
+                                           grad_closure, mla_loss)
+    rtol, atol = STUDY_TOL
+    gen = torch.Generator().manual_seed(13)
+    cpu = {k[4:]: (torch.randn(v.shape[1:], generator=gen) * 0.1
+                   if k.endswith("ln") else v[0])
+           for k, v in p_cpu["pos0"].items() if k.startswith("mix_")}
+    layer = ({k: v.to("cuda") for k, v in cpu.items()}, cpu)
+    B, S = STUDY["batch"], STUDY["seq"]
+    x = torch.randn((B, S, cfg.d_model), generator=gen)
+    xs = (x.to("cuda"), x)
+    pair = (cfg.mla.d_nope + cfg.mla.d_rope, cfg.mla.d_v)
+    rows = []
+    for kv in (16, 64):
+        for remat in ("none", "full"):
+            knobs = StepKnobs("k", remat=remat, kv_chunk=kv)
+            fns = [grad_closure(mla_loss(cfg, knobs, torch.arange(
+                S, device=xx.device)), remat, xx.device) for xx in xs]
+            plain0, pairs = dict(ops.plain_calls), []
+            with _recording_flash_pairs(pairs, "flash_attention_bwd_cuda"):
+                out = [fns[0](layer[0], xs[0])]
+            if ops.plain_calls != plain0 or set(pairs) != {pair}:
+                raise AssertionError(
+                    f"[mla] full-width mla_fb on the card: plain calls "
+                    f"{ops.plain_calls} (before {plain0}), flash backward "
+                    f"pairs {pairs}")
+            out.append(fns[1](layer[1], xs[1]))
+            worst = 0.0
+            for (path, g), (_, c) in zip(_flatten(out[0]),
+                                         _flatten(out[1])):
+                g = g.cpu()
+                err = (g - c).abs()
+                scale = max(1.0, float(c.abs().max()))
+                if not torch.isfinite(g).all() or \
+                        bool((err > atol * scale + rtol * c.abs()).any()):
+                    raise AssertionError(
+                        f"[mla] mla_fb kv{kv} remat {remat} "
+                        f"{'/'.join(path)}: card vs CPU max abs err "
+                        f"{float(err.max()):.3e}")
+                worst = max(worst, float(err.max()) / scale)
+            del out
+            runs = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fns[0](layer[0], xs[0])
+                runs.append(1e3 * (time.perf_counter() - t0))
+            b_ms, b_by = mla_fb_bound(cfg, remat, B, S)
+            rows.append({"kv_chunk": kv, "remat": remat,
+                         "max_err_over_scale": worst, "ms": min(runs),
+                         "ms_runs": runs, "bound_ms": b_ms,
+                         "bound_by": b_by})
+            print(f"[mla] full-width mla_fb kv{kv} remat {remat} at mb {B} "
+                  f"x S {S}: card vs CPU within rtol {rtol}, atol {atol} x "
+                  f"scale (max err / scale {worst:.2e}); card "
+                  f"{min(runs):.3f} ms a call (host clock with its sync, "
+                  f"warm, least of {reps}: {[round(m, 3) for m in runs]}); "
+                  f"bound {b_ms:.3f} ms ({b_by})")
+    # where one warm call goes (the last setting's closure)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fns[0](layer[0], xs[0])
+        call_ms = 1e3 * (time.perf_counter() - t0)
+    profiled = device_summary(
+        "mla", f"full-width mla_fb kv{kv} remat {remat} under the profiler "
+        f"{call_ms:.2f} ms", prof, top=8)
+    return {"rows": rows, "profile": profiled}
+
+
 def phase_mla():
-    """(e) the kernels at deepseek-v2's shapes, then the full-width weights
-    (drawn on the CPU once; a copy moved to the card): (a) serve, with
-    every flash launch's (dk, dv) recorded, and the CPU comparison; (b)
-    three decode steps under the profiler, the absorbed per-head products
-    and the expert products split out."""
+    """(e) the kernels at deepseek-v2's shapes, forward and backward, then
+    the full-width weights (drawn on the CPU once; a copy moved to the
+    card): (a) serve, with every flash launch's (dk, dv) recorded, and the
+    CPU comparison; (b) three decode steps under the profiler, the
+    absorbed per-head products and the expert products split out; (c)
+    layer 0's full-width ``mla_fb`` gradients; then (d) the reduced
+    study, every flash backward launch at (24, 16)."""
     from repro_torch.configs import get_config
     from repro_torch.models import layers, moe
     from repro_torch.models.model import init_params
@@ -2644,6 +2820,7 @@ def phase_mla():
     print(f"[mla] {len(rows)} kernel cases at deepseek-v2's shapes agree; "
           f"max abs err per kernel: "
           + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    bwd_rows = phase_mla_bwd_kernels(cfg)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     p_cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -2683,9 +2860,20 @@ def phase_mla():
          "experts' plain ops (silu, mul, stack)", 3 * E * L),
         (moe, "moe_ffn", "router and shared products",
          "dispatch's plain ops", None)])
-    del p_cpu, p_gpu
+    del p_gpu
     torch.cuda.empty_cache()
-    return {"kernels": rows, "serve": stats, "params": n_params}
+    grads = phase_mla_grads(cfg, p_cpu)
+    del p_cpu
+    torch.cuda.empty_cache()
+    bwd_pairs = []
+    study = phase_family_study("mla", "deepseek-v2", "mla_fb", bwd_pairs)
+    if not bwd_pairs or set(bwd_pairs) != {(24, 16)}:
+        raise AssertionError(f"[mla] the study's flash backward launched at "
+                             f"{sorted(set(bwd_pairs))}, not at (24, 16)")
+    print(f"[mla] the study's {len(bwd_pairs)} flash backward launches were "
+          f"all at (dk 24, dv 16)")
+    return {"kernels": rows, "bwd_kernels": bwd_rows, "serve": stats,
+            "grads": grads, "study": study, "params": n_params}
 
 
 def main(argv=None) -> int:
@@ -2753,7 +2941,8 @@ def main(argv=None) -> int:
                 "serve": moe["serve"]["launches"].get(name, 0),
                 "study": moe["study"]["launches"][name]},
             "launches_mla": {
-                "serve": mla["serve"]["launches"].get(name, 0)},
+                "serve": mla["serve"]["launches"].get(name, 0),
+                "study": mla["study"]["launches"][name]},
             "max_abs_err": max(r["max_abs_err"] for r in table
                                if r["kernel"] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -2762,6 +2951,18 @@ def main(argv=None) -> int:
             "status": "ported, agrees with its plain version"
             if name in FORWARD else
             "backward of the TPU kernel, agrees with its plain version"})
+    # the flash backward's (dk, dv) pairs as run, and its row at
+    # deepseek-v2's study shape, (192, 128)
+    mla_bwd = next(r for r in mla["bwd_kernels"]
+                   if r["dtype"] == "float32" and r["bk"] == 16
+                   and r["shape"].startswith("study mb2"))
+    for k in kernels:
+        if k["name"] == "flash_attention_bwd":
+            k["pairs"] = sorted({tuple(r["pair"]) for r in grad_rows
+                                 + mla["bwd_kernels"] if "pair" in r})
+            k["mla"] = {f: mla_bwd[f] for f in (
+                "shape", "pair", "tile", "max_abs_err", "ms", "plain_ms",
+                "bound_ms", "bound_by", "library_ms")}
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": card, "kernels": kernels,

@@ -27,10 +27,14 @@ fit a block's shared memory (``FWD_TILES_OUT``: f32 at (192, 128) with a
 
 The backward pass (``flash_attention_bwd_cuda``, ``csrc/
 flash_attention_bwd.cu``, f32 and bf16) recomputes the probabilities from
-the per-row log-sum-exp that the forward writes when asked (``with_lse``).
-``plan_flash_bwd`` picks its geometry: the KV tile (``kv_tile``, as the
-forward), the block's warps and rows a chunk (per dtype and head width),
-the dK/dV blocks a key tile (``splits``: more than one only where a key
+the per-row log-sum-exp that the forward writes when asked (``with_lse``),
+at the forward's (dk, dv) pairs and scale: dq and dk come out dk wide, dv
+dv wide.  ``plan_flash_bwd`` picks its geometry: the KV tile (``kv_tile``
+over ``bwd_tiles``, as the forward; ``BWD_TILES_OUT`` holds what is not
+instantiated: f32 at (192, 128) with 64 keys would need 244,992 bytes of
+shared memory, so a 64-key chunk takes 32 there, as in the forward), the
+block's warps and rows a chunk (per dtype and the wider head width), the
+dK/dV blocks a key tile (``splits``: more than one only where a key
 tile's rows are many, as in long prompts) and the grid, which interleaves
 the dK/dV blocks (early keys first) with the dQ blocks (late rows first) so
 the heaviest of both start first.  ``bwd_scratch`` sizes the split key
@@ -58,21 +62,18 @@ BK_TILES = (16, 32, 64)      # csrc: the instantiated KV tiles
 # tiles (csrc Layout::kBytes) exceed a block's opt-in shared memory (csrc
 # kMaxSmem); f32 at (192, 128) with 64 keys would need 234,496 of 232,448
 FWD_TILES_OUT = ((torch.float32, 192, 128, 64),)
+# ... and the backward's (csrc flash_attention_bwd.cu Geo::kBytes over
+# kMaxSmem): f32 at (192, 128) with 64 keys would need 244,992
+BWD_TILES_OUT = ((torch.float32, 192, 128, 64),)
 # the KV tile where the caller names no chunk (the serving path's)
 DEFAULT_BK = {torch.float32: 32, torch.bfloat16: 64}
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 7
              + [ctypes.c_int64] * 12
              + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int64] * 6
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int64] * 7
                  + [ctypes.c_int64] * 15
                  + [ctypes.c_float] + [ctypes.c_int] * 9 + [ctypes.c_void_p])
-# the backward kernel takes one head width: MLA's (dk != dv) gradients wait
-# for the study's mla_fb thunk
-DK_NE_DV_BACKWARD = (
-    "flash_attention backward at dk != dv is not ported yet: MLA's "
-    "gradients come with the study's mla_fb thunk (ROADMAP.md queue 1, "
-    "item 1, slice b)")
 # backward: a dK/dV block's rows are cut into splits only where each keeps
 # at least this many chunks of rows
 SPLIT_MIN_CHUNKS = 4
@@ -93,6 +94,13 @@ def fwd_tiles(dtype, dk: int, dv: int) -> Tuple[int, ...]:
     """The KV tiles the forward is instantiated at for (dk, dv)."""
     return tuple(t for t in BK_TILES
                  if (dtype, dk, dv, t) not in FWD_TILES_OUT)
+
+
+@functools.lru_cache(maxsize=64)
+def bwd_tiles(dtype, dk: int, dv: int) -> Tuple[int, ...]:
+    """The KV tiles the backward is instantiated at for (dk, dv)."""
+    return tuple(t for t in BK_TILES
+                 if (dtype, dk, dv, t) not in BWD_TILES_OUT)
 
 
 def kv_tile(bk, Skv: int, dtype, tiles: Tuple[int, ...] = BK_TILES) -> int:
@@ -149,37 +157,39 @@ class FlashBwdPlan:
     causal: bool
 
 
-def _bwd_geometry(dtype, d: int, tile: int) -> Tuple[int, int]:
+def _bwd_geometry(dtype, dk: int, dv: int, tile: int) -> Tuple[int, int]:
     """(warps, rows a chunk) of the backward kernel's instantiation
     (csrc ``Geo``): bf16 4 warps of 16 rows; f32 4 keys x 4 rows register
-    tiles, 64 rows a chunk; at d 128 4 x 2 tiles and 32 rows (shared
-    memory and registers)."""
+    tiles, 64 rows a chunk; where the wider head width exceeds 64, 4 x 2
+    tiles and 32 rows (shared memory and registers)."""
     if dtype == torch.bfloat16:
         return 4, 64
-    rows, tile_rows = (32, 2) if d > 64 else (64, 4)
+    rows, tile_rows = (32, 2) if max(dk, dv) > 64 else (64, 4)
     return tile * rows // (4 * tile_rows) // 32, rows
 
 
 def plan_flash_bwd(q, k, v, o, do, bk=None, *,
                    causal: bool = True) -> FlashBwdPlan:
-    """Backward geometry for q/o/do (B, Sq, H, d), k/v (B, Skv, KVH, d)
-    with unit stride along d, for the forward's KV chunk ``bk``."""
+    """Backward geometry for q (B, Sq, H, dk), k (B, Skv, KVH, dk), v (B,
+    Skv, KVH, dv), o/do (B, Sq, H, dv) with unit stride along the head
+    width, for the forward's KV chunk ``bk``."""
     width = 16 // q.element_size()
     vec = all(t.data_ptr() % 16 == 0 and all(
         t.stride(i) % width == 0 for i in range(3) if t.shape[i] > 1)
         for t in (q, k, v, o, do))
-    B, Sq, H, d = q.shape
-    Skv = k.shape[1]
-    return _plan_flash_bwd(q.dtype, B, Sq, Skv, H, k.shape[2], d, vec,
-                           kv_tile(bk, Skv, q.dtype), causal)
+    B, Sq, H, dk = q.shape
+    Skv, dv = k.shape[1], v.shape[-1]
+    tiles = bwd_tiles(q.dtype, dk, dv)
+    return _plan_flash_bwd(q.dtype, B, Sq, Skv, H, k.shape[2], dk, dv, vec,
+                           kv_tile(bk, Skv, q.dtype, tiles), causal)
 
 
 @functools.lru_cache(maxsize=1024)
 def _plan_flash_bwd(dtype, B: int, Sq: int, Skv: int, H: int, KVH: int,
-                    d: int, vec: bool, tile: int,
+                    dk: int, dv: int, vec: bool, tile: int,
                     causal: bool) -> FlashBwdPlan:
     G = H // KVH
-    warps, rows = _bwd_geometry(dtype, d, tile)
+    warps, rows = _bwd_geometry(dtype, dk, dv, tile)
     nrows = Sq * G
     # the heaviest key tile sees all nrows rows (4 products over `tile`
     # keys); the heaviest dQ block all Skv keys (3 products over `rows`
@@ -200,15 +210,15 @@ def _plan_flash_bwd(dtype, B: int, Sq: int, Skv: int, H: int, KVH: int,
 
 
 def bwd_scratch(B: int, KVH: int, Skv: int, tile: int, splits: int,
-                d: int) -> Tuple[int, int]:
+                dk: int, dv: int) -> Tuple[int, int]:
     """(f32 workspace, int32 counters) the backward kernel uses for these
     C entry arguments: with splits > 1, every key tile of every (batch, KV
-    head) holds ``splits`` partials of dK and dV (2 tile d floats each) and
-    one counter; with one split, none."""
+    head) holds ``splits`` partials of dK and dV (tile (dk + dv) floats
+    each) and one counter; with one split, none."""
     if splits <= 1:
         return 0, 0
     tiles = B * KVH * -(-Skv // tile)
-    return tiles * splits * 2 * tile * d, tiles
+    return tiles * splits * tile * (dk + dv), tiles
 
 
 def _unit_last(t: torch.Tensor) -> torch.Tensor:
@@ -271,34 +281,33 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
                              bk=None, plan: FlashBwdPlan | None = None,
                              scale=None):
     """Gradients (dq, dk, dv) of ``flash_attention_cuda`` for output
-    gradient ``do`` (q's shape), from the forward's output ``o`` and its
-    ``lse`` (B, H, Sq, f32); q, k, v, o and do CUDA tensors of one dtype,
-    f32 or bf16 (anything else raises ``TypeError``), one head width d in
-    ``HEAD_DIMS`` (dk != dv raises ``NotImplementedError``); the gradients
-    come out in it.  ``bk`` and ``scale``: the forward's KV chunk and
-    scale; ``plan`` overrides ``plan_flash_bwd``'s (tests: the C entry
-    refuses a plan that is not its own).  One launch of
-    csrc/flash_attention_bwd.cu: its dK/dV blocks and dQ blocks share the
-    grid."""
+    gradient ``do`` (o's shape), from the forward's output ``o`` (B, Sq, H,
+    dv) and its ``lse`` (B, H, Sq, f32); q (B, Sq, H, dk), k (B, Skv, KVH,
+    dk), v (B, Skv, KVH, dv), o and do CUDA tensors of one dtype, f32 or
+    bf16 (anything else raises ``TypeError``), (dk, dv) in
+    ``HEAD_DIM_PAIRS``; the gradients come out in it, dq and dk dk wide, dv
+    dv wide.  ``bk`` and ``scale``: the forward's KV chunk and scale;
+    ``plan`` overrides ``plan_flash_bwd``'s (tests: the C entry refuses a
+    plan that is not its own, or a tile it is not instantiated at).  One
+    launch of csrc/flash_attention_bwd.cu: its dK/dV blocks and dQ blocks
+    share the grid."""
     _check_shapes(q, k, v, causal)
-    if v.shape[-1] != q.shape[-1]:
-        raise NotImplementedError(DK_NE_DV_BACKWARD)
-    B, Sq, H, d = q.shape
-    Skv, KVH = k.shape[1], k.shape[2]
+    B, Sq, H, dk = q.shape
+    Skv, KVH, dv = k.shape[1], k.shape[2], v.shape[-1]
     code = _build.check_inputs("flash_attention_bwd", q, k, v, o, do)
-    if o.shape != q.shape or do.shape != q.shape:
+    if o.shape != (B, Sq, H, dv) or do.shape != o.shape:
         raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
-                         f"{tuple(do.shape)} != q {tuple(q.shape)}")
+                         f"{tuple(do.shape)} != {(B, Sq, H, dv)}")
     if lse.shape != (B, H, Sq) or lse.dtype != torch.float32 \
             or not lse.is_contiguous() or lse.device != q.device:
         raise ValueError("flash_attention_bwd: lse must be f32 (B, H, Sq) "
                          "contiguous on q's device")
     q, k, v, o, do = (_unit_last(t) for t in (q, k, v, o, do))
-    dq = torch.empty((B, Sq, H, d), dtype=q.dtype, device=q.device)
-    dk = torch.empty((B, Skv, KVH, d), dtype=q.dtype, device=q.device)
-    dv = torch.empty_like(dk)
-    if dq.numel() == 0 or dk.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
+    dq = torch.empty((B, Sq, H, dk), dtype=q.dtype, device=q.device)
+    dkt = torch.empty((B, Skv, KVH, dk), dtype=q.dtype, device=q.device)
+    dvt = torch.empty((B, Skv, KVH, dv), dtype=q.dtype, device=q.device)
+    if dq.numel() == 0 or dkt.numel() == 0:
+        return dq.zero_(), dkt.zero_(), dvt.zero_()
     if plan is None:
         plan = plan_flash_bwd(q, k, v, o, do, bk, causal=causal)
     stream = _build.stream()
@@ -307,19 +316,19 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
         # sized from what the C entry is given, not from the plan's other
         # fields, so no plan can send the kernel past its scratch
         ws, cnt = _build.scratch(q.device, stream, *bwd_scratch(
-            B, KVH, Skv, plan.tile, plan.splits, d))
+            B, KVH, Skv, plan.tile, plan.splits, dk, dv))
     strides = [t.stride(i) for t in (q, k, v, o, do) for i in range(3)]
     launch = _build.entry("flash_attention_bwd", _BWD_ARGTYPES)
     err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  do.data_ptr(), lse.data_ptr(), dq.data_ptr(),
-                 dk.data_ptr(), dv.data_ptr(),
+                 dkt.data_ptr(), dvt.data_ptr(),
                  None if ws is None else ws.data_ptr(),
                  None if cnt is None else cnt.data_ptr(),
-                 B, H, KVH, Sq, Skv, d, *strides,
-                 1.0 / math.sqrt(d) if scale is None else scale,
+                 B, H, KVH, Sq, Skv, dk, dv, *strides,
+                 1.0 / math.sqrt(dk) if scale is None else scale,
                  int(causal), plan.tile, code, plan.warps, plan.rows,
                  plan.splits, int(plan.vec), plan.kv_blocks, plan.q_blocks,
                  stream)
     _build.check(err, "flash_attention_bwd")
     _build.launches["flash_attention_bwd"] += 1
-    return dq, dk, dv
+    return dq, dkt, dvt

@@ -15,9 +15,8 @@ transposed views (dA = dC B^T, dB = A^T dC), RMSNorm's and flash
 attention's are ``rmsnorm_bwd_cuda`` and ``flash_attention_bwd_cuda``
 (plain: ``ref.rmsnorm_bwd_ref``, ``ref.flash_attention_bwd_ref``).  The
 serving path, under ``torch.no_grad()`` or with no input that requires
-grad, calls the forward directly, as before.  Flash attention's backward
-takes one head width: recording a graph through it at dk != dv (MLA)
-raises ``NotImplementedError`` on either device, before anything runs.
+grad, calls the forward directly, as before.  Flash attention records at
+every (dk, dv) pair the forward takes, MLA's too, on either device.
 """
 
 from __future__ import annotations
@@ -28,8 +27,7 @@ import torch
 
 from . import ref
 from ._build import launches
-from .flash_attention import (DK_NE_DV_BACKWARD, flash_attention_bwd_cuda,
-                              flash_attention_cuda)
+from .flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
 from .matmul import matmul_cuda
 from .rmsnorm import rmsnorm_bwd_cuda, rmsnorm_cuda
 
@@ -151,7 +149,5 @@ def flash_attention(q, k, v, *, causal: bool = True, bk=None, scale=None):
     depend on it.  ``scale``: the scores' scale (None: 1/sqrt(dk), as the
     reference's ``softmax_scale``)."""
     if _records_grad(q, k, v):
-        if v.shape[-1] != q.shape[-1]:
-            raise NotImplementedError(DK_NE_DV_BACKWARD)
         return _FlashAttention.apply(q, k, v, causal, bk, scale)
     return _flash_fwd(q, k, v, causal, bk, scale)

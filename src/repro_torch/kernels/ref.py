@@ -80,24 +80,24 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
                             scale=None):
-    """Gradients (dq, dk, dv) of ``flash_attention_ref`` (one head width d)
-    for output gradient do, recomputed from the saved lse as the backward
-    kernel does (FlashAttention-2), with c the forward's scale (None:
-    1/sqrt(d)): P = exp(S - lse), Dl = rowsum(do o), dV = P^T do and dK =
-    c dS^T q summed over the G query heads of a KV head, dS = P (do V^T -
-    Dl), dq = c dS K."""
-    B, Sq, H, d = q.shape
-    KVH = k.shape[2]
+    """Gradients (dq, dk, dv) of ``flash_attention_ref`` for output
+    gradient do (o's shape, (B, Sq, H, dv)), recomputed from the saved lse
+    as the backward kernel does (FlashAttention-2), with c the forward's
+    scale (None: 1/sqrt(dk)): P = exp(S - lse), Dl = rowsum(do o), dV = P^T
+    do and dK = c dS^T q summed over the G query heads of a KV head, dS = P
+    (do V^T - Dl), dq = c dS K.  dq and dk come out dk wide, dv dv wide."""
+    B, Sq, H, dk = q.shape
+    KVH, dv = k.shape[2], v.shape[-1]
     G = H // KVH
     s = _gqa_scores(q, k, causal, scale)
     p = torch.exp(s - lse.reshape(B, KVH, G, Sq, 1))
-    dog = do.reshape(B, Sq, KVH, G, d).float()
-    dl = (dog * o.reshape(B, Sq, KVH, G, d).float()).sum(-1)
-    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    dog = do.reshape(B, Sq, KVH, G, dv).float()
+    dl = (dog * o.reshape(B, Sq, KVH, G, dv).float()).sum(-1)
+    dvg = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
     dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
-    ds = _scaled(p * (dp - dl.permute(0, 2, 3, 1)[..., None]), d, scale)
+    ds = _scaled(p * (dp - dl.permute(0, 2, 3, 1)[..., None]), dk, scale)
     dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float())
-    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds,
-                      q.reshape(B, Sq, KVH, G, d).float())
-    return (dq.reshape(B, Sq, H, d).to(q.dtype), dk.to(k.dtype),
-            dv.to(v.dtype))
+    dkg = torch.einsum("bhgqk,bqhgd->bkhd", ds,
+                       q.reshape(B, Sq, KVH, G, dk).float())
+    return (dq.reshape(B, Sq, H, dk).to(q.dtype), dkg.to(k.dtype),
+            dvg.to(v.dtype))

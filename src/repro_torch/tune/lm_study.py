@@ -4,11 +4,11 @@ real wall clock).
 
 A *configuration* is a ``StepKnobs`` point (grad accumulation x remat x
 attention chunking x MoE dispatch; the SSM knob stays at its one value,
-the port running the attention families only).  A configuration's step is
+the port running no SSM family yet).  A configuration's step is
 decomposed into recurring kernels:
 
     embed+loss closure        once per microbatch
-    attn fwd+bwd              n_periods x microbatches
+    attn or mla fwd+bwd       n_periods x microbatches
     dense or moe fwd+bwd      likewise
     optimizer update          once per step
 
@@ -138,14 +138,28 @@ def grad_closure(loss: Callable, remat: str, device: torch.device,
 
 
 def attn_loss(cfg: ArchConfig, knobs: StepKnobs, positions):
-    """sum(h^2) of the attention block at these knobs, as the JAX study's
-    (the only mixer the port runs: ``check_supported``)."""
+    """sum(h^2) of the attention block at these knobs, as the JAX study's."""
 
     def loss(mix, x):
         h, _ = L.attn_block(mix, x, cfg, positions=positions,
                             kv_chunk=knobs.kv_chunk)
         return torch.sum(h * h)
     return loss
+
+
+def mla_loss(cfg: ArchConfig, knobs: StepKnobs, positions):
+    """sum(h^2) of the MLA block at these knobs, as the JAX study's: its
+    gradients go through the flash backward at (d_nope + d_rope, d_v)."""
+
+    def loss(mix, x):
+        h, _ = L.mla_block(mix, x, cfg, positions=positions,
+                           kv_chunk=knobs.kv_chunk)
+        return torch.sum(h * h)
+    return loss
+
+
+# the mixer kinds the port's study runs (``check_supported``), by loss
+MIXER_LOSSES = {"attn": attn_loss, "mla": mla_loss}
 
 
 def dense_loss(cfg: ArchConfig):
@@ -192,11 +206,6 @@ class LMStudy:
                  reduced: bool = True):
         self.cfg = get_config(arch, reduced=reduced)
         check_supported(self.cfg)
-        if "mla" in self.cfg.pattern:
-            raise NotImplementedError(
-                f"{self.cfg.name}: the study's mla_fb thunk needs the flash "
-                f"backward at dk != dv, which is not ported yet (ROADMAP.md "
-                f"queue 1, item 1, slice b); the port serves MLA")
         self.device = resolve_device(device)
         self.batch, self.seq = batch, seq
         gen = torch.Generator().manual_seed(seed)
@@ -242,7 +251,7 @@ class LMStudy:
                    if k.startswith("mix_")}
             x = self._randn(pos, (mb, S, cfg.d_model))
             positions = torch.arange(S, device=self.device)
-            fn = grad_closure(attn_loss(cfg, knobs, positions),
+            fn = grad_closure(MIXER_LOSSES[kind](cfg, knobs, positions),
                               knobs.remat, self.device)
             return fn, (mix, x)
         return sig, build

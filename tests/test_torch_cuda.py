@@ -9,10 +9,10 @@ Shapes: the JAX test sweep's (tests/test_kernels.py), plus the serving
 path's full-width ones (smollm-135m: d_model 576, 9/3 heads of 64, the
 49152-wide tied head read through a transposed view; phi3.5-moe: d_model
 4096, 32/8 heads of 128, the router's 16 columns, the experts' 1-10 rows
-of 6400, the untied 32064-wide head; deepseek-v2: flash at (dk, dv) =
-(192, 128) over 128 heads and the reduced (24, 16), with MLA's scale, the
-absorbed decode's per-head products on strided views, tied router
-logits), at its tolerances.
+of 6400, the untied 32064-wide head; deepseek-v2: flash forward and
+backward at (dk, dv) = (192, 128) over 128 heads and the reduced (24,
+16), with MLA's scale, the absorbed decode's per-head products on strided
+views, tied router logits, the study's mla_fb), at its tolerances.
 """
 
 import ctypes
@@ -489,7 +489,7 @@ def test_flash_attention_bwd_splits_key_tiles(cuda_device, dtype):
                       kv_blocks=2 * plan.kv_blocks)
     _check_flash_bwd(flash_attention_bwd_cuda(q, k, v, o, lse, do, plan=more),
                      ref.flash_attention_bwd_ref(q, k, v, o, lse, do), dtype)
-    counters = bwd_scratch(1, 2, 512, plan.tile, more.splits, 64)[1]
+    counters = bwd_scratch(1, 2, 512, plan.tile, more.splits, 64, 64)[1]
     _, cnt = _build.scratch(q.device, _build.stream(), 0, counters)
     assert int(cnt[:counters].abs().sum()) == 0
 
@@ -773,12 +773,16 @@ def test_tied_head_backward(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["attn16", "attn64", "dense", "embed"])
+@pytest.mark.parametrize("kind", ["attn16", "attn64", "dense", "embed",
+                                  "mla16", "mla64"])
 def test_study_thunk_grads_match_cpu_port(cuda_device, kind):
     """A CUDA ``LMStudy`` kernel's gradients against the port's CPU run on
-    the same weights (random norm weights) and inputs, reduced smollm."""
+    the same weights (random norm weights) and inputs: reduced smollm's
+    attn_fb, dense_fb and embed_loss_fb, reduced deepseek-v2's mla_fb (the
+    flash backward at (24, 16))."""
     from repro_torch.tune.lm_study import LMStudy, StepKnobs
-    studies = [LMStudy("smollm-135m", device=d) for d in ("cuda", "cpu")]
+    arch = "deepseek-v2" if kind.startswith("mla") else "smollm-135m"
+    studies = [LMStudy(arch, device=d) for d in ("cuda", "cpu")]
     gen = torch.Generator().manual_seed(9)
     for grp, sub in studies[1].params.items():
         for nm, t in sub.items():
@@ -788,9 +792,11 @@ def test_study_thunk_grads_match_cpu_port(cuda_device, kind):
                          for g, sub in studies[1].params.items()}
     out = []
     for st in studies:
-        if kind.startswith("attn"):
-            kn = StepKnobs("k", remat="full", kv_chunk=int(kind[4:]))
-            _, build = st._mixer_kernel("attn", 0, kn, 2)
+        if kind.startswith(("attn", "mla")):
+            mixer = kind.rstrip("0123456789")
+            kn = StepKnobs("k", remat="full",
+                           kv_chunk=int(kind[len(mixer):]))
+            _, build = st._mixer_kernel(mixer, 0, kn, 2)
         elif kind == "dense":
             _, build = st._ffn_kernel("dense", 0, StepKnobs("k"), 2)
         else:
@@ -1152,6 +1158,159 @@ def test_flash_attention_uninstantiated_pair_raises(cuda_device):
                  _build.stream())
     assert err != 0
     assert ops.launches["flash_attention"] == n0
+
+
+# the backward at MLA's pairs: (B, Sq, Skv, H, KVH, dk, dv) -- the study's
+# full width (mb 2 x S 32, 128/128 heads), GQA with a suffix and ragged
+# tiles, and the reduced pair at the reduced study's shape and a ragged one
+MLA_BWD = [(2, 32, 32, 128, 128, 192, 128), (2, 33, 70, 8, 2, 192, 128),
+           (2, 32, 32, 4, 4, 24, 16), (2, 37, 37, 4, 2, 24, 16)]
+
+
+def _mla_bwd_inputs(dims, tdt, device, seed):
+    B, Sq, _, H, _, _, dv = dims
+    q, k, v = _mla_flash_inputs(dims, tdt, device, seed)
+    do = _dev(np.random.default_rng(seed + 1).standard_normal(
+        (B, Sq, H, dv), np.float32), tdt, device)
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", MLA_BWD)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bk", [16, 32, 64])
+def test_flash_attention_bwd_mla_pairs_match_plain(cuda_device, dims, dtype,
+                                                   bk):
+    """The backward at MLA's (dk, dv) pairs with MLA's scale, at every tile
+    the plan gives the pair (f32 (192, 128): a 64-key chunk takes 32),
+    against the plain backward: dq and dk dk wide, dv dv wide, the same
+    bits on a repeat; the autograd path launches both kernels and calls no
+    plain version."""
+    from repro_torch.kernels.flash_attention import (
+        bwd_tiles, flash_attention_bwd_cuda, flash_attention_cuda,
+        kv_tile, plan_flash_bwd)
+    tdt = DTYPES[dtype]
+    dk, dv = dims[5:]
+    q, k, v, do = _mla_bwd_inputs(dims, tdt, cuda_device, 50)
+    scale = 1.0 / np.sqrt(dk)
+    o, lse = flash_attention_cuda(q, k, v, bk=bk, with_lse=True, scale=scale)
+    plan = plan_flash_bwd(q, k, v, o, do, bk)
+    assert plan.tile == kv_tile(bk, dims[2], tdt, bwd_tiles(tdt, dk, dv))
+    n0 = ops.launches["flash_attention_bwd"]
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, bk=bk, scale=scale)
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, do, bk=bk, scale=scale)
+    torch.cuda.synchronize()
+    assert ops.launches["flash_attention_bwd"] == n0 + 2
+    assert [tuple(g.shape) for g in got] == [tuple(t.shape)
+                                             for t in (q, k, v)]
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, scale=scale)
+    _check_flash_bwd(got, want, dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    n1, p1 = dict(ops.launches), dict(ops.plain_calls)
+    out = ops.flash_attention(*leaves, bk=bk, scale=scale)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert ops.launches["flash_attention"] == n1["flash_attention"] + 1
+    assert ops.launches["flash_attention_bwd"] == \
+        n1["flash_attention_bwd"] + 1
+    assert ops.plain_calls == p1
+    _check_flash_bwd(grads, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", [(192, 128), (24, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_mla_splits_key_tiles(cuda_device, pair, dtype):
+    """A long prompt at MLA's pairs: several dK/dV blocks a key tile, their
+    partials tile (dk + dv) floats each in the workspace, summed in split
+    order; the same bits twice, the counters back at zero."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (
+        bwd_scratch, flash_attention_bwd_cuda, flash_attention_cuda,
+        plan_flash_bwd)
+    tdt = DTYPES[dtype]
+    dims = (1, 512, 512, 4, 2) + pair
+    q, k, v, do = _mla_bwd_inputs(dims, tdt, cuda_device, 51)
+    o, lse = flash_attention_cuda(q, k, v, bk=64, with_lse=True)
+    plan = plan_flash_bwd(q, k, v, o, do, 64)
+    assert plan.splits > 1 and plan.vec
+    got = flash_attention_bwd_cuda(q, k, v, o, lse, do, bk=64)
+    again = flash_attention_bwd_cuda(q, k, v, o, lse, do, bk=64)
+    torch.cuda.synchronize()
+    for g, a in zip(got, again):
+        assert torch.equal(g, a)
+    _check_flash_bwd(got, ref.flash_attention_bwd_ref(q, k, v, o, lse, do),
+                     dtype)
+    counters = bwd_scratch(1, 2, 512, plan.tile, plan.splits, *pair)[1]
+    _, cnt = _build.scratch(q.device, _build.stream(), 0, counters)
+    assert int(cnt[:counters].abs().sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", [(192, 128), (24, 16)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_mla_strided_and_misaligned(cuda_device, pair,
+                                                        dtype):
+    """MLA's pairs from strided views: q a slice of wider rows, k one
+    element off 16 bytes, v a head slice, dO a slice of wider rows: the
+    element loads, against the plain version; the same views made
+    contiguous take cp.async and agree too."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda, plan_flash_bwd)
+    tdt = DTYPES[dtype]
+    dk, dv = pair
+    rng = np.random.default_rng(52)
+    B, S, H = 1, 31, 16
+    mk = lambda *s: _dev(rng.standard_normal(s, np.float32),  # noqa: E731
+                         tdt, cuda_device)
+    q = mk(B, S, H, dk + 8)[..., :dk]
+    k = mk(1 + B * S * H * dk)[1:].view(B, S, H, dk)
+    v = mk(B, S, 2 * H, dv)[:, :, ::2]
+    do = mk(B, S, H, dv + 8)[..., :dv]
+    scale = 1.0 / np.sqrt(dk)
+    for bk in (16, 64):
+        o, lse = flash_attention_cuda(q, k, v, bk=bk, with_lse=True,
+                                      scale=scale)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, scale=scale)
+        assert not plan_flash_bwd(q, k, v, o, do, bk).vec
+        _check_flash_bwd(flash_attention_bwd_cuda(q, k, v, o, lse, do, bk=bk,
+                                                  scale=scale), want, dtype)
+        qc, kc, vc, dc = (t.contiguous() for t in (q, k.clone(), v, do))
+        assert plan_flash_bwd(qc, kc, vc, o, dc, bk).vec
+        _check_flash_bwd(flash_attention_bwd_cuda(qc, kc, vc, o, lse, dc,
+                                                  bk=bk, scale=scale),
+                         want, dtype)
+        torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_refuses_the_tile_it_leaves_out(cuda_device):
+    """f32 at (192, 128) with 64 keys is not instantiated (its tiles exceed
+    a block's shared memory): the plan takes 32 for a 64-key chunk, and a
+    plan of the kernel's own geometry at 64 keys is refused by the C entry
+    before any launch."""
+    from dataclasses import replace as dc_replace
+    from repro_torch.kernels.flash_attention import (
+        BWD_TILES_OUT, _plan_flash_bwd, flash_attention_bwd_cuda,
+        flash_attention_cuda, plan_flash_bwd)
+    assert (torch.float32, 192, 128, 64) in BWD_TILES_OUT
+    q, k, v, do = _mla_bwd_inputs((1, 70, 70, 4, 2, 192, 128),
+                                  torch.float32, cuda_device, 53)
+    o, lse = flash_attention_cuda(q, k, v, bk=64, with_lse=True)
+    plan = plan_flash_bwd(q, k, v, o, do, 64)
+    assert plan.tile == 32
+    at64 = _plan_flash_bwd(torch.float32, 1, 70, 70, 4, 2, 192, 128,
+                           plan.vec, 64, True)
+    assert (at64.tile, at64.warps, at64.rows) == (64, 8, 32)
+    n0 = ops.launches["flash_attention_bwd"]
+    for bad in (at64, dc_replace(plan, tile=64)):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            flash_attention_bwd_cuda(q, k, v, o, lse, do, plan=bad)
+    assert ops.launches["flash_attention_bwd"] == n0
+    _check_flash_bwd(flash_attention_bwd_cuda(q, k, v, o, lse, do, plan=plan),
+                     ref.flash_attention_bwd_ref(q, k, v, o, lse, do),
+                     "float32")
 
 
 @pytest.mark.cuda

@@ -471,11 +471,12 @@ def test_flash_bwd_plan_geometry(d, dtype, bk):
         assert plan.rows == (32 if d > 64 else 64)
         assert plan.warps * 32 * 4 * tile_rows == plan.tile * plan.rows
     assert plan.splits == 1
-    assert bwd_scratch(2, 3, 32, plan.tile, plan.splits, d) == (0, 0)
+    assert bwd_scratch(2, 3, 32, plan.tile, plan.splits, d, d) == (0, 0)
     assert plan.q_blocks == -(-32 * 3 // plan.rows)
     long = _bwd_plan(1, 2048, 2048, 9, 3, d, dtype, 64)
     assert long.splits > 1
-    ws_floats, counters = bwd_scratch(1, 3, 2048, long.tile, long.splits, d)
+    ws_floats, counters = bwd_scratch(1, 3, 2048, long.tile, long.splits, d,
+                                     d)
     assert counters == 3 * (2048 // 64)
     assert ws_floats == counters * long.splits * 2 * 64 * d
 

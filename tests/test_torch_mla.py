@@ -21,8 +21,15 @@ sides; the JAX side runs under ``jax.jit``.
   tokens from both engines, ``params_from_jax``'s shape checks, and the
   port's prefill-then-decode against its own forward
   (``tests/test_models.py``'s consistency check);
-- the serve CLI, and what stays unported raising: the study
-  (``mla_fb``) and a recorded backward at dk != dv.
+- the serve CLI;
+- the backward at dk != dv: the plain flash backward at (24, 16) and
+  (192, 128) with MLA's scale against ``jax.grad`` of ``chunked_attention``
+  and autograd of the plain forward, a recorded ``ops.flash_attention``
+  and ``mla_block`` against autograd of the plain forward, and the study:
+  ``LMStudy("deepseek-v2")``'s 24 points carry the JAX study's signatures
+  and counts, and its ``mla_fb`` gradients match ``jax.grad`` of the JAX
+  study's closure at kv 16/64 x remat none/full (atol 1e-5 times each
+  tensor's largest magnitude, as ``tests/test_torch_grads.py``).
 
 Tolerances as ``tests/test_torch_models.py``: rtol 1e-4, atol 1e-5 (the
 same f32 arithmetic in another order).
@@ -42,6 +49,10 @@ from repro.models.model import Model as JaxModel, ModelKnobs as JaxKnobs
 from repro.serve.engine import Engine as JaxEngine
 from repro.serve.engine import Request as JaxRequest
 from repro.serve.engine import ServeConfig as JaxServeConfig
+from repro.tune import lm_study as jax_lm_study
+from repro.tune.lm_study import LMStudy as JaxStudy
+from repro.tune.lm_study import StepKnobs as JaxStepKnobs
+from repro.tune.lm_study import lm_config_space as jax_space
 from repro_torch.configs import get_config
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import serve
@@ -49,7 +60,7 @@ from repro_torch.models import layers as L
 from repro_torch.models.convert import params_from_jax
 from repro_torch.models.model import Model, check_supported
 from repro_torch.serve.engine import Engine, Request, ServeConfig
-from repro_torch.tune import LMStudy
+from repro_torch.tune import LMStudy, StepKnobs, lm_config_space
 
 RTOL, ATOL = 1e-4, 1e-5
 ARCH = "deepseek-v2"
@@ -334,29 +345,129 @@ def test_serve_main_cpu(capsys):
     assert "3 requests, 12 tokens" in capsys.readouterr().out
 
 
-def test_study_raises_until_mla_fb():
-    with pytest.raises(NotImplementedError, match="mla_fb"):
-        LMStudy(ARCH, device="cpu")
+@pytest.fixture(scope="module")
+def studies():
+    """(JAX study, port study) of reduced deepseek-v2 on the shared tree
+    (the JAX study is built on it, not on a draw of its own)."""
+    jcfg, cfg = _configs()
+    tree = _shared_tree(jcfg)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax_lm_study, "init_params",
+                   lambda cfg, key: jax.tree.map(jnp.asarray, tree))
+        js = JaxStudy(ARCH, batch=2, seq=32)
+    ts = LMStudy(ARCH, batch=2, seq=32, device="cpu")
+    ts.params = params_from_jax(tree, cfg, device="cpu")
+    return js, ts
+
+
+def test_study_raises_until_mla_fb(studies):
+    """The study constructs for deepseek-v2 on the CPU, and each of its 24
+    points' kernel sequence (mla_fb and moe_fb per layer, embed_loss_fb,
+    adamw) carries the JAX study's signatures and occurrence counts."""
+    js, ts = studies
+    space = lm_config_space(ts.cfg)
+    assert len(space) == len(jax_space(js.cfg)) == 24
+    for tk, jk in zip(space, jax_space(js.cfg)):
+        tseq = ts.kernel_sequence(tk)
+        assert [(s.kind, s.name, s.params, f) for s, _, f in tseq] == \
+            [(s.kind, s.name, s.params, f)
+             for s, _, f in js.kernel_sequence(jk)]
+        assert {s.name for s, _, _ in tseq} == {
+            "mla_fb", "moe_fb", "embed_loss_fb", "adamw"}
+
+
+@pytest.mark.parametrize("kv", [16, 64])
+@pytest.mark.parametrize("remat", ["none", "full"])
+def test_mla_fb_grads_match_jax(studies, kv, remat):
+    """The port's mla_fb closure (the flash backward's plain version at
+    (24, 16)) against ``jax.grad`` of the JAX study's, on the same layer-0
+    weights and input: every mixer parameter's gradient, none zero."""
+    js, ts = studies
+    kn = dict(kv_chunk=kv, remat=remat)
+    _, jbuild = js._mixer_kernel("mla", 0, JaxStepKnobs("k", **kn), 2)
+    _, tbuild = ts._mixer_kernel("mla", 0, StepKnobs("k", **kn), 2)
+    jfn, (jmix, _) = jbuild()
+    tfn, (tmix, _) = tbuild()
+    x = _randn(11, (2, 32, 64))
+    jg = jfn(jmix, jnp.asarray(x))
+    n0 = ops.plain_calls["flash_attention_bwd"]
+    tg = tfn(tmix, torch.from_numpy(x))
+    assert ops.plain_calls["flash_attention_bwd"] == n0 + 1
+    assert set(tg) == set(jg) == {"ln", "wq_a", "q_ln", "wq_b", "wkv_a",
+                                  "kv_ln", "wk_b", "wv_b", "wo"}
+    for k in tg:
+        want = np.asarray(jg[k])
+        scale = max(1.0, float(np.abs(want).max()))
+        assert float(np.abs(want).max()) > 0.0
+        _close(tg[k].reshape(want.shape), want, atol=ATOL * scale)
+
+
+@pytest.mark.parametrize("dk,dv", [(24, 16), (192, 128)])
+def test_flash_bwd_ref_dk_ne_dv_matches_jax(dk, dv):
+    """The plain backward at MLA's pairs with MLA's scale 1/sqrt(dk) (and
+    one other) against ``jax.grad`` of the JAX model's chunked attention
+    with ``softmax_scale`` (GQA, suffix queries, 3 chunks) and against
+    autograd of the plain forward: dq and dk dk wide, dv dv wide."""
+    from repro.models.layers import chunked_attention
+    B, Sq, Skv, H, KVH = 2, 10, 24, 4, 2
+    q, do = _randn(12, (B, Sq, H, dk)), _randn(13, (B, Sq, H, dv))
+    k, v = _randn(14, (B, Skv, KVH, dk)), _randn(15, (B, Skv, KVH, dv))
+    for scale in (1.0 / np.sqrt(dk), 0.3):
+        tq, tk, tv = (torch.from_numpy(a).requires_grad_()
+                      for a in (q, k, v))
+        o, lse = ref.flash_attention_ref(tq, tk, tv, return_lse=True,
+                                         scale=scale)
+        auto = torch.autograd.grad(o, (tq, tk, tv), torch.from_numpy(do))
+        mine = ref.flash_attention_bwd_ref(
+            tq.detach(), tk.detach(), tv.detach(), o.detach(), lse,
+            torch.from_numpy(do), scale=scale)
+
+        def jfwd(q, k, v):
+            return chunked_attention(
+                q, k, v, q_positions=jnp.arange(Skv - Sq, Skv),
+                kv_positions=jnp.arange(Skv), causal=True, kv_chunk=8,
+                softmax_scale=scale)
+        _, vjp = jax.vjp(jfwd, *map(jnp.asarray, (q, k, v)))
+        assert [tuple(g.shape) for g in mine] == [q.shape, k.shape, v.shape]
+        for g, a, j in zip(mine, auto, vjp(jnp.asarray(do))):
+            _close(g, a.numpy())
+            _close(g, j, rtol=3e-4, atol=3e-4)
 
 
 def test_recorded_backward_at_dk_ne_dv_raises(weights):
-    """No gradient through the flash kernels at dk != dv yet: the op and
-    an MLA block under autograd raise before anything runs; without
-    gradients the same call serves."""
-    q = torch.randn(1, 4, 2, 24, requires_grad=True)
-    k, v = torch.randn(1, 4, 2, 24), torch.randn(1, 4, 2, 16)
-    n0 = ops.plain_calls["flash_attention"]
-    with pytest.raises(NotImplementedError, match="mla_fb"):
-        ops.flash_attention(q, k, v)
-    assert ops.plain_calls["flash_attention"] == n0
-    with torch.no_grad():
-        assert ops.flash_attention(q, k, v).shape == (1, 4, 2, 16)
+    """Gradients run through the flash op at dk != dv: a recorded
+    ``ops.flash_attention`` at (24, 16) with MLA's scale, and an MLA block
+    under autograd (its backward through ``flash_attention_bwd_ref``),
+    match autograd of the plain forward on the same inputs."""
+    rng = np.random.default_rng(16)
+    qkv = [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+           for sh in ((1, 6, 4, 24), (1, 6, 2, 24), (1, 6, 2, 16))]
+    do = torch.from_numpy(rng.standard_normal((1, 6, 4, 16))
+                          .astype(np.float32))
+    grads = []
+    n0 = ops.plain_calls["flash_attention_bwd"]
+    for fn in (ops.flash_attention, ref.flash_attention_ref):
+        ts = [t.clone().requires_grad_() for t in qkv]
+        (fn(*ts, scale=1 / np.sqrt(24)) * do).sum().backward()
+        grads.append([t.grad for t in ts])
+    assert ops.plain_calls["flash_attention_bwd"] == n0 + 1
+    for g, w in zip(*grads):
+        _close(g, w.numpy())
+
     _, cfg = _configs()
-    mix = {k_: w.clone().requires_grad_() for k_, w in
-           _layer(weights[1], "mix_").items()}
     x = torch.from_numpy(_randn(8, (1, 6, 64)))
-    with pytest.raises(NotImplementedError, match="dk != dv"):
-        L.mla_block(mix, x, cfg, positions=torch.arange(6))
+    pos = torch.arange(6)
+    out = []
+    for flash in (ops.flash_attention, ref.flash_attention_ref):
+        mix = {k_: w.clone().requires_grad_() for k_, w in
+               _layer(weights[1], "mix_").items()}
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(L.ops, "flash_attention", lambda q, k, v, bk=None,
+                       **kw: flash(q, k, v, **kw))
+            h, _ = L.mla_block(mix, x, cfg, positions=pos, kv_chunk=4)
+        out.append(torch.autograd.grad((h * h).sum(), list(mix.values())))
+    for g, w in zip(*out):
+        _close(g, w.numpy())
 
 
 def test_scale_reaches_the_backward_at_dk_eq_dv():
@@ -406,6 +517,45 @@ def test_flash_pairs_and_tiles():
     # a head of up to 64 positions
     plan = plan_flash(q[:, :31], k[:, :31], v[:, :31])
     assert (plan.gh, plan.bq, plan.bk, plan.grid) == (1, 64, 32, (1, 128, 1))
+
+
+def test_flash_bwd_plan_at_mla_pairs():
+    """The backward's tiles and geometry at MLA's pairs.  f32 at (192, 128)
+    has no 64-key tile (244,992 bytes of staged tiles against 232,448), so
+    beyond 32 keys a 64-key chunk takes 32 there, as in the forward; at
+    the study's S 32 both knobs clamp to the sequence (kv16 -> 16, kv64 ->
+    32) in either dtype.  f32 takes 32-row chunks and 4 x 2 score tiles
+    where a width exceeds 64, bf16 4 warps of 64 rows; a split partial
+    holds tile (dk + dv) floats."""
+    from repro_torch.kernels.flash_attention import (
+        BK_TILES, BWD_TILES_OUT, HEAD_DIM_PAIRS, bwd_scratch, bwd_tiles,
+        plan_flash_bwd)
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert BWD_TILES_OUT == ((f32, 192, 128, 64),)
+    assert bwd_tiles(f32, 192, 128) == (16, 32)
+    for pair in HEAD_DIM_PAIRS:
+        for dt in (f32, bf16):
+            if (dt, pair) != (f32, (192, 128)):
+                assert bwd_tiles(dt, *pair) == BK_TILES
+
+    def plan(S, dt, bk, dk=192, dv=128):
+        q, k = torch.zeros(2, S, 4, dk, dtype=dt), \
+            torch.zeros(2, S, 2, dk, dtype=dt)
+        v, o = torch.zeros(2, S, 2, dv, dtype=dt), \
+            torch.zeros(2, S, 4, dv, dtype=dt)
+        return plan_flash_bwd(q, k, v, o, o, bk)
+    for dt in (f32, bf16):
+        assert [plan(32, dt, bk).tile for bk in (16, 64)] == [16, 32]
+    assert (plan(70, f32, 64).tile, plan(70, bf16, 64).tile) == (32, 64)
+    geo = {(dt, bk): (plan(32, dt, bk).warps, plan(32, dt, bk).rows)
+           for dt in (f32, bf16) for bk in (16, 64)}
+    assert geo == {(f32, 16): (2, 32), (f32, 64): (4, 32),
+                   (bf16, 16): (4, 64), (bf16, 64): (4, 64)}
+    red = plan(32, f32, 64, 24, 16)
+    assert (red.tile, red.warps, red.rows) == (32, 4, 64)
+    assert bwd_scratch(1, 2, 512, 32, 4, 192, 128) == (2 * 16 * 4 * 32 * 320,
+                                                       2 * 16)
+    assert bwd_scratch(1, 2, 512, 32, 1, 192, 128) == (0, 0)
 
 
 @pytest.mark.parametrize("dk,dv", [(24, 24), (192, 192), (128, 64),

@@ -22,7 +22,8 @@ with numpy from a seed and given to both sides.
   index first) and gates, and a zero router routes ``moe_ffn`` as JAX
   does under sort and dense;
 - ``check_supported`` still rejects the families the port does not run,
-  and the study still rejects deepseek-v2 (its ``mla_fb`` is not ported).
+  and deepseek-v2 (MLA with this MoE FFN) constructs as a model and as a
+  study.
 
 The JAX side runs under ``jax.jit`` (one program a shape, where eager mode
 compiles every primitive on its first call), and the JAX weights are drawn
@@ -415,8 +416,12 @@ def test_other_families_still_rejected(arch):
 
 
 def test_deepseek_v2_study_still_rejected():
-    """deepseek-v2 is served (``tests/test_torch_mla.py``); its study needs
-    ``mla_fb``, the flash backward at dk != dv, which is not ported."""
+    """deepseek-v2 (MLA, and this MoE FFN with shared experts) constructs
+    as a model and as a study, whose steps run its ``moe_fb`` beside
+    ``mla_fb`` (``tests/test_torch_mla.py`` holds their signatures)."""
     Model(get_config("deepseek-v2", reduced=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="mla_fb"):
-        LMStudy("deepseek-v2", device="cpu")
+    study = LMStudy("deepseek-v2", device="cpu")
+    names = {s.name: s.params for s, _, _ in study.kernel_sequence(
+        lm_config_space(study.cfg)[1])}
+    assert names["moe_fb"] == (2, 32, 64, "dense", "none")
+    assert names["mla_fb"] == (2, 32, 64, 16, "none")
