@@ -153,7 +153,33 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               beside its bound, one call under torch.profiler; (d) the
               reduced deepseek-v2 study's
               24-point conditional session as phase 11's (d), every
-              flash backward launch at (24, 16).
+              flash backward launch at (24, 16);
+13. ssm    -- the SSM families: (e) first, every kernel at xlstm-125m's and
+              jamba's shapes against its plain version (f32 and bf16),
+              f32 timed as [kernels] rows (xlstm's up, wq/wk/wv, wif N 8,
+              down, sLSTM's w and its recurrent r[i] at M = B on a head's
+              columns of h, the head N 50304; jamba's in_proj, x_proj N
+              544, dt_w K 512 on x_proj's output columns, out_proj, q/k/v/o,
+              the dense FFN, the router N 16, the experts at cap 1 and 5,
+              the head N 65536; RMSNorm at 768 and 4096; flash at d 128
+              over 32/8 heads); (a) xlstm-125m at full width (12 layers,
+              0.65 GB f32) served through launch/serve.py as phase 3, the
+              counters zeroed just before and read just after: matmul and
+              RMSNorm at the counts derived from the configuration and the
+              prompts (sLSTM: nh recurrent products a step), no flash
+              launch (no attention), no plain call; then the CPU
+              comparison; (b) jamba-v0.1-52b at its published widths
+              (d_model 4096, 32/8 heads of 128, d_inner 8192, d_state 16,
+              16 experts of 14336 with top-2, vocab 65536, untied head)
+              with the depth cut to one period, 8 of 32 layers (53.3 GB of
+              f32, drawn on the card from a seeded CUDA generator after
+              deepseek-v2's are freed): served as phase 11's (a), every
+              flash launch at (128, 128), then held against the CPU layer
+              by layer (each layer's weights copied to the host once; the
+              routing of every MoE layer, each layer's output, the
+              logits); (c) three decode steps of each model under
+              torch.profiler, the scans' plain ops, the causal conv, the
+              sLSTM recurrent products and jamba's experts split out.
 
 It prints the kernels as one JSON line, then the last line
 ``{"ok": true, "device": {...}}``.  ``--out PATH`` also writes the full
@@ -367,10 +393,15 @@ def absorbed_case(M, K, N, view, H, dtype, gen):
     A is q_nope of q (rows H blocks of 3 K / 2 apart), B head 0's block of
     the 2-D wk_b transposed (K-contiguous, columns H K apart).  "o_lat":
     A is o_lat (rows H K apart), B head 0's block of wv_b (rows H N
-    apart)."""
+    apart).  "a_rows" (the SSM blocks' products on column slices, sLSTM's
+    h_i . r[i] and Mamba's dt_w): A's rows H elements apart, B
+    contiguous."""
     if view == "q_lat":
         a = randn((M, H * (K + K // 2)), dtype, 1.0, gen)[:, :K]
         b = randn((N, H * K), dtype, 1.0 / math.sqrt(N), gen)[:, :K].T
+    elif view == "a_rows":      # A's rows H elements apart, B contiguous
+        a = randn((M, H), dtype, 1.0, gen)[:, :K]
+        b = randn((K, N), dtype, 1.0 / math.sqrt(K), gen)
     else:
         a = randn((M, H * K), dtype, 1.0, gen)[:, :K]
         b = randn((K, H * N), dtype, 1.0 / math.sqrt(K), gen)[:, :N]
@@ -870,16 +901,22 @@ def _recording_routing(routes):
         moe.moe_ffn = fn
 
 
+def _device_of(params):
+    """The device that a parameter tree lies on."""
+    return params["embed"]["tok"].device
+
+
 def logits_vs_cpu(cfg, p_gpu, p_cpu, steps, prompts=(13, 29)):
     """Prefill logits of each prompt and ``steps`` teacher-forced decode
-    steps through the port on the card against its CPU run on the same
-    weights (``SERVE_TOL``), each MoE layer's routing compared first.
-    Returns (max abs err, token-expert pairs, pairs dropped)."""
+    steps through the port on the card (where ``p_gpu`` lies) against its
+    CPU run on the same weights (``SERVE_TOL``), each MoE layer's routing
+    compared first.  Returns (max abs err, token-expert pairs, pairs
+    dropped)."""
     from repro_torch.models.model import Model
     rng = np.random.default_rng(1)
     worst, pairs, dropped = 0.0, 0, 0
     rtol, atol = SERVE_TOL
-    models = ((Model(cfg, device="cuda"), p_gpu),
+    models = ((Model(cfg, device=_device_of(p_gpu)), p_gpu),
               (Model(cfg, device="cpu"), p_cpu))
     for n in prompts:
         toks = rng.integers(0, cfg.vocab, size=(1, n + steps))
@@ -2174,16 +2211,35 @@ def _serve_engine(model, params):
 
 def serve_family(tag, arch, depth, cfg, p_cpu, p_gpu, per_step,
                  flash_pairs=None):
+    """``serve_runs``, then the card's prefill and teacher-forced decode
+    logits against the port's CPU run on the same weights, routing
+    compared first."""
+    stats = serve_runs(tag, arch, depth, cfg, p_gpu, per_step, flash_pairs)
+    # the same weights on the CPU: routing first, then the logits
+    prompts, steps = MOE_COMPARE
+    t0 = time.perf_counter()
+    worst, pairs, dropped = logits_vs_cpu(cfg, p_gpu, p_cpu, steps, prompts)
+    rtol, atol = SERVE_TOL
+    stats.update({"cpu_max_abs_err": worst, "cpu_pairs": pairs,
+                  "cpu_pairs_dropped": dropped,
+                  "cpu_compare_s": time.perf_counter() - t0})
+    print(f"[{tag}] CUDA vs CPU (prefill + {steps} teacher-forced decode "
+          f"steps, prompts {prompts}): routing equal in every layer and "
+          f"call, {dropped} of {pairs} token-expert pairs dropped by the "
+          f"capacity; logits max abs err {worst:.3e} (rtol {rtol}, atol "
+          f"{atol}); {stats['cpu_compare_s']:.1f} s")
+    return stats
+
+
+def serve_runs(tag, arch, depth, cfg, p_gpu, per_step, flash_pairs=None):
     """Serve 8 requests on the card three times with the launch counters
     zeroed just before the first and read just after it: the forward
     kernels only, the expected count per prefill and decode step
     (``per_step``), no plain call, the same tokens every run; host-clock
-    ms (least of the 3 runs).  Then the card's prefill and teacher-forced
-    decode logits against the port's CPU run on the same weights, routing
-    compared first.  ``flash_pairs``: a list that records the (dk, dv) of
-    every flash launch of the first run."""
+    ms (least of the 3 runs).  ``flash_pairs``: a list that records the
+    (dk, dv) of every flash launch of the first run."""
     from repro_torch.models.model import Model
-    model = Model(cfg, device="cuda")
+    model = Model(cfg, device=_device_of(p_gpu))
     runs = []
     for i in range(3):
         eng = _serve_engine(model, p_gpu)
@@ -2242,35 +2298,24 @@ def serve_family(tag, arch, depth, cfg, p_cpu, p_gpu, per_step,
           f"decode {stats['decode_ms']:.2f} ms a step (host clock, least of "
           f"3 runs: {[round(m, 2) for m in stats['decode_ms_runs']]}); "
           f"launches a prefill {per_pre}, a decode step {per_dec}")
-
-    # the same weights on the CPU: routing first, then the logits
-    prompts, steps = MOE_COMPARE
-    t0 = time.perf_counter()
-    worst, pairs, dropped = logits_vs_cpu(cfg, p_gpu, p_cpu, steps, prompts)
-    rtol, atol = SERVE_TOL
-    stats.update({"cpu_max_abs_err": worst, "cpu_pairs": pairs,
-                  "cpu_pairs_dropped": dropped,
-                  "cpu_compare_s": time.perf_counter() - t0})
-    print(f"[{tag}] CUDA vs CPU (prefill + {steps} teacher-forced decode "
-          f"steps, prompts {prompts}): routing equal in every layer and "
-          f"call, {dropped} of {pairs} token-expert pairs dropped by the "
-          f"capacity; logits max abs err {worst:.3e} (rtol {rtol}, atol "
-          f"{atol}); {stats['cpu_compare_s']:.1f} s")
     return stats
 
 
 @contextlib.contextmanager
-def _recording_flash_pairs(pairs, entry="flash_attention_cuda"):
+def _recording_flash_pairs(pairs, entry="flash_attention_cuda",
+                           heads=False):
     """While open, every launch of the flash forward on the card (``entry``
     "flash_attention_bwd_cuda": the backward) appends its (dk, dv) to
-    ``pairs`` (measurement only; None: nothing wrapped)."""
+    ``pairs``, or with ``heads`` its (H, KVH, dk, dv) (measurement only;
+    None: nothing wrapped)."""
     if pairs is None:
         yield
         return
     fn = getattr(ops, entry)
 
     def rec(q, k, v, *a, **kw):
-        pairs.append((q.shape[-1], v.shape[-1]))
+        pairs.append((q.shape[2], k.shape[2]) * heads
+                     + (q.shape[-1], v.shape[-1]))
         return fn(q, k, v, *a, **kw)
     setattr(ops, entry, rec)
     try:
@@ -2876,6 +2921,389 @@ def phase_mla():
             "grads": grads, "study": study, "params": n_params}
 
 
+# -- phase 13: the SSM families (xlstm-125m, jamba at full width) -------------
+
+# jamba-v0.1-52b at its published widths with the depth cut to one period,
+# 8 of 32 layers (7 Mamba, attention at position 4; dense FFNs at even
+# positions, MoE at odd ones): 12.79 B body and 0.54 B embedding and head
+# parameters, 53.3 GB of f32; the largest layer, an MoE one, is 11.3 GB
+JAMBA_LAYERS = 8
+SSM_COMPARE = ((13, 29), 2)     # jamba's layer-by-layer comparison
+
+
+def ssm_kernel_cases(xcfg, jcfg):
+    """(kernel, label, shape spec, timed dtypes) at xlstm-125m's and
+    jamba's shapes, f32 timed: each projection at a 4-slot decode step
+    (M 4) and the widest at a 31-token prompt; sLSTM's h_i . r[i] (M = B,
+    A on head i's columns of h) and Mamba's dt_w (A the dt rank's columns
+    of x_proj's output) on their strided views; the router, the experts at
+    cap 1 (decode) and 5 (31-token prompt), the untied heads; RMSNorm at
+    768 and 4096; flash at d 128 over 32/8 heads."""
+    f32 = (torch.float32,)
+    D, di, nh, V = xcfg.d_model, xcfg.d_inner, xcfg.n_heads, xcfg.vocab
+    dh = D // nh
+    cases = []
+    for ph, M in (("decode", 4), ("prefill", PROMPT_MAX)):
+        cases += [("matmul", f"xlstm {ph} {lab} {M}x{K}x{N}",
+                   (M, K, N, False), f32)
+                  for lab, K, N in (("up / sLSTM w", D, 2 * di),
+                                    ("wq/wk/wv", di, di),
+                                    ("wif", di, 2 * nh),
+                                    ("down", di, D))]
+    cases += [("matmul", f"xlstm decode sLSTM r[i] 4x{dh}x{4 * dh} "
+               f"(head block of h)", (4, dh, 4 * dh, "a_rows", D), f32),
+              ("matmul", f"xlstm decode head 4x{D}x{V}", (4, D, V, False),
+               f32)]
+    D, di, N, V = jcfg.d_model, jcfg.d_inner, jcfg.d_state, jcfg.vocab
+    dtr, E, Fe, F_ = di // 16, jcfg.moe.n_experts, jcfg.moe.d_ff_expert, \
+        jcfg.d_ff
+    HD, KD = jcfg.n_heads * jcfg.head_dim, jcfg.n_kv_heads * jcfg.head_dim
+    for ph, M in (("decode", 4), ("prefill", PROMPT_MAX)):
+        cases += [("matmul", f"jamba {ph} {lab} {M}x{K}x{N}",
+                   (M, K, N, False), f32)
+                  for lab, K, N in (("in_proj", D, 2 * di),
+                                    ("x_proj", di, dtr + 2 * N),
+                                    ("out_proj", di, D))]
+        cases.append(("matmul", f"jamba {ph} dt_w {M}x{dtr}x{di} (rows of "
+                      f"x_proj's output)", (M, dtr, di, "a_rows",
+                                            dtr + 2 * N), f32))
+    cases += [("matmul", f"jamba decode {lab} 4x{K}x{N}", (4, K, N, False),
+               f32)
+              for lab, K, N in (("q/o", D, HD), ("k/v", D, KD),
+                                ("dense gate/up", D, F_),
+                                ("dense down", F_, D), ("router", D, E))]
+    for ph, cap in (("decode", 1), ("prefill", 5)):
+        cases += [("matmul", f"jamba {ph} expert gate/up {cap}x{D}x{Fe}",
+                   (cap, D, Fe, False), f32),
+                  ("matmul", f"jamba {ph} expert down {cap}x{Fe}x{D}",
+                   (cap, Fe, D, False), f32)]
+    cases.append(("matmul", f"jamba decode head 4x{D}x{V}",
+                  (4, D, V, False), f32))
+    cases += [("rmsnorm", f"{arch} {ph} {M}x{w}", (M, w), f32)
+              for arch, w in (("xlstm", xcfg.d_model),
+                              ("jamba", jcfg.d_model))
+              for ph, M in (("decode", 4), ("prefill", PROMPT_MAX))]
+    H, KVH, d = jcfg.n_heads, jcfg.n_kv_heads, jcfg.head_dim
+    cases += [("flash_attention", f"jamba prefill B1 S{S} H{H}/{KVH} d{d}",
+               (1, S, S, H, KVH, d), f32) for S in (4, PROMPT_MAX)]
+    return cases
+
+
+def ssm_per_step_launches(cfg, S: int):
+    """Kernel launches of a prefill of an S-token prompt and of a decode
+    step, from the configuration: per layer its mixer's norm and products
+    (Mamba: in_proj, x_proj, dt_w, out_proj; mLSTM: up, wq, wk, wv, wif,
+    down; sLSTM: w, up, down and nh recurrent products a step, so nh S a
+    prefill; attention: q, k, v, o and one flash launch a prefill), its
+    FFN's (dense: a norm and three products; MoE: the router and three
+    products an expert, no norm); the final norm and the head."""
+    mm_mix = {"mamba": 4, "mlstm": 6, "slstm": 3, "attn": 4}
+    pre = {"rmsnorm": 1, "matmul": 1, "flash_attention": 0}
+    dec = dict(pre)
+    for kind, fk in zip(cfg.pattern * cfg.n_periods,
+                        cfg.ffn_pattern * cfg.n_periods):
+        if fk == "moe":
+            ffn = 1 + 3 * cfg.moe.n_experts
+        else:
+            ffn = {"dense": 3, "none": 0}[fk]
+        norms = 1 + (fk == "dense")
+        rec = cfg.n_heads if kind == "slstm" else 0
+        for out, steps in ((pre, S), (dec, 1)):
+            out["rmsnorm"] += norms
+            out["matmul"] += mm_mix[kind] + rec * steps + ffn
+        pre["flash_attention"] += kind == "attn"
+    return pre, dec
+
+
+def phase_ssm_xlstm(reduced=False, device="cuda"):
+    """(a) xlstm-125m served through ``launch/serve.py`` as phase 3 serves
+    smollm-135m, the launch counters zeroed just before and read just
+    after: matmul and RMSNorm at the counts ``ssm_per_step_launches``
+    gives for the prompts drawn, no flash launch (no attention), no plain
+    call; then the card's prefill and 8 teacher-forced decode steps of two
+    prompts against the port's CPU run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import serve
+    argv = ["--arch", "xlstm-125m"] + SERVE_ARGV[2:] + (
+        ["--reduced"] if reduced else []) + ["--device", device]
+    cfg = get_config("xlstm-125m", reduced=reduced)
+    _zero_counts()
+    t0 = time.perf_counter()
+    eng = serve.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, plain = dict(ops.launches), dict(ops.plain_calls)
+    print(f"[ssm] xlstm serve launches: {launches}; plain calls: {plain}")
+    if any(plain.values()):
+        raise AssertionError(f"the xlstm serve called plain versions: "
+                             f"{plain}")
+    lens = [len(r.tokens) for r in serve.synthetic_requests(
+        int(argv[argv.index("--requests") + 1]), cfg.vocab, 0)]
+    pre, dec = eng.timings["prefill_s"], eng.timings["decode_s"]
+    per_dec = ssm_per_step_launches(cfg, 1)[1]
+    expect = {k: sum(ssm_per_step_launches(cfg, n)[0][k] for n in lens)
+              + len(dec) * per_dec[k] for k in per_dec}
+    if any(launches[k] for k in launches if k not in FORWARD):
+        raise AssertionError(f"serving launched a backward kernel: "
+                             f"{launches}")
+    got = {k: launches[k] for k in FORWARD}
+    if got != expect:
+        raise AssertionError(f"xlstm launches {launches} != {len(pre)} "
+                             f"prefills of {lens} tokens and {len(dec)} "
+                             f"decode steps: {expect}")
+    toks = [t for r in eng.results.values() for t in r.tokens]
+    if len(eng.results) != len(lens) or any(
+            len(r.tokens) != 16 for r in eng.results.values()) \
+            or not all(0 <= t < cfg.vocab for t in toks):
+        raise AssertionError("xlstm serve results have the wrong count or "
+                             "range")
+    n_params = sum(v.numel() for sub in eng.params.values()
+                   for v in sub.values())
+    stats = {"layers": cfg.n_layers, "params": n_params,
+             "requests": len(eng.results), "tokens": len(toks),
+             "main_wall_s": wall,
+             "prefill_ms_mean": 1e3 * float(np.mean(pre)),
+             "decode_ms_mean": 1e3 * float(np.mean(dec)),
+             "decode_ms_median": 1e3 * float(np.median(dec)),
+             "decode_steps": len(dec), "prefills": len(pre),
+             "launches": got, "launches_per_decode_step": per_dec,
+             "prompt_lengths": lens}
+    print(f"[ssm] serve full-width xlstm-125m ({cfg.n_layers} layers, "
+          f"{4 * n_params / 1e9:.2f} GB f32): {len(eng.results)} requests, "
+          f"{len(toks)} tokens; prefill {stats['prefill_ms_mean']:.2f} ms a "
+          f"request, decode {stats['decode_ms_mean']:.2f} ms a step (median "
+          f"{stats['decode_ms_median']:.2f}; host clock); launches a decode "
+          f"step {per_dec}, no flash (no attention)")
+    p_dev = eng.params
+    p_cpu = {g: {k: v.cpu() for k, v in sub.items()}
+             for g, sub in p_dev.items()}
+    worst, _, _ = logits_vs_cpu(cfg, p_dev, p_cpu, 8)
+    stats["cpu_max_abs_err"] = worst
+    print(f"[ssm] xlstm CUDA vs CPU logits (prefill + 8 decode steps, 2 "
+          f"prompts): max abs err {worst:.3e} (rtol {SERVE_TOL[0]}, atol "
+          f"{SERVE_TOL[1]})")
+    return stats, p_dev
+
+
+def layers_vs_cpu(tag, cfg, p_dev, prompts, steps):
+    """The card's prefill and ``steps`` teacher-forced decode steps of each
+    prompt, every layer's output kept, against the port's CPU run in
+    layer-major order: each layer's weights are copied to the CPU once,
+    and the CPU runs that layer for every prompt and step on its own
+    previous layer's outputs, with its own CPU state; each MoE layer's
+    routing is compared first, then the layer's output (``SERVE_TOL``, the
+    absolute part times the activation's largest magnitude), then, after
+    the final norm and the head, the logits (``SERVE_TOL``).  The host
+    never holds more than one layer's weights.  Returns the stats."""
+    from repro_torch.models import layers as L
+    from repro_torch.models.model import Model, map_cache
+    device, s_max = _device_of(p_dev), 64
+    dev_model, cpu = Model(cfg, device=device), Model(cfg, device="cpu")
+    rng = np.random.default_rng(1)
+    toks = {n: torch.from_numpy(rng.integers(0, cfg.vocab,
+                                             size=(1, n + steps)))
+            for n in prompts}
+    kept = []
+    blk, blk_dec = dev_model._block, dev_model._block_decode
+
+    def keep_block(*a):
+        x, c = blk(*a)
+        kept.append(x.float().cpu())
+        return x, c
+
+    def keep_decode(*a):
+        x = blk_dec(*a)
+        kept.append(x.float().cpu())
+        return x
+    dev_model._block, dev_model._block_decode = keep_block, keep_decode
+    card = {}
+    t0 = time.perf_counter()
+    with _recording_routing([]) as routes:
+        for n in prompts:
+            tt = toks[n].to(device)
+            for s in range(steps + 1):
+                kept.clear()
+                routes.clear()
+                if s == 0:
+                    lg, cache, _ = dev_model.prefill(
+                        p_dev, {"tokens": tt[:, :n]}, s_max)
+                else:
+                    lg, cache = dev_model.decode_step(
+                        p_dev, cache, torch.tensor([n + s - 1],
+                                                   device=device),
+                        {"tokens": tt[:, n + s - 1:n + s]})
+                card[n, s] = (list(kept), [(i.cpu(), k.cpu())
+                                           for i, k in routes],
+                              lg.float().cpu())
+    card_s = time.perf_counter() - t0
+
+    def to_cpu(d):
+        return {k: v.cpu() for k, v in d.items()}
+    small = {g: to_cpu(p_dev[g]) for g in ("embed", "final", "head")
+             if g in p_dev}
+    xs = {(n, s): cpu._embed(small, {"tokens": toks[n][:, :n] if s == 0
+                                     else toks[n][:, n + s - 1:n + s]})
+          for n in prompts for s in range(steps + 1)}
+    caches = {n: cpu.init_cache(1, max(n, s_max)) for n in prompts}
+    rtol, atol = SERVE_TOL
+    worst_act, n_moe, pairs, copy_s, cpu_s = 0.0, 0, 0, 0.0, 0.0
+    for layer, (j, i, pm, pf) in enumerate(dev_model._layers(p_dev)):
+        t0 = time.perf_counter()
+        pm, pf = to_cpu(pm), to_cpu(pf)
+        copy_s += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        moe = cfg.ffn_pattern[i] == "moe"
+        for n in prompts:
+            kv_positions = torch.arange(max(n, s_max))
+            for s in range(steps + 1):
+                with _recording_routing([]) as r:
+                    if s == 0:
+                        x, c = cpu._block(i, pm, pf, xs[n, 0],
+                                          torch.arange(n))
+                        cpu._store(caches[n], j, i, c)
+                    else:
+                        x = cpu._block_decode(
+                            i, pm, pf, xs[n, s],
+                            map_cache(lambda a: a[j], caches[n][i]),
+                            torch.tensor([n + s - 1]), kv_positions)
+                xs[n, s] = x
+                outs, routes, _ = card[n, s]
+                if moe:
+                    (gi, gk), (ci, ck) = routes[n_moe], r[0]
+                    if not (torch.equal(gi, ci) and torch.equal(gk, ck)):
+                        raise AssertionError(
+                            f"[{tag}] routing differs from the CPU run at "
+                            f"layer {layer} (period {j}, position {i}), "
+                            f"prompt {n}, step {s}: experts {gi.tolist()} "
+                            f"vs {ci.tolist()}")
+                    pairs += ck.numel()
+                g = outs[layer]
+                err = (g - x).abs()
+                scale = max(1.0, float(x.abs().max()))
+                if not torch.isfinite(g).all() or bool(
+                        (err > atol * scale + rtol * x.abs()).any()):
+                    raise AssertionError(
+                        f"[{tag}] layer {layer} (period {j}, position {i}, "
+                        f"{cfg.pattern[i]}/{cfg.ffn_pattern[i]}) output "
+                        f"differs from the CPU run for prompt {n} step {s}: "
+                        f"max abs err {float(err.max()):.3e}, scale {scale}")
+                worst_act = max(worst_act, float(err.max()) / scale)
+        n_moe += moe
+        cpu_s += time.perf_counter() - t0
+        del pm, pf
+    worst = 0.0
+    for n in prompts:
+        for s in range(steps + 1):
+            x = xs[n, s][:, -1:] if s == 0 else xs[n, s]
+            x = L.rms_norm(x, small["final"]["ln"], cfg.norm_eps)
+            want = cpu._head(small, x)[:, 0].float()
+            got = card[n, s][2]
+            err = (got - want).abs()
+            if not torch.isfinite(got).all() or bool(
+                    (err > atol + rtol * want.abs()).any()):
+                raise AssertionError(
+                    f"[{tag}] CUDA vs CPU logits disagree for a {n}-token "
+                    f"prompt at step {s}: max abs err {float(err.max()):.3e}")
+            worst = max(worst, float(err.max()))
+    stats = {"logits_max_abs_err": worst,
+             "activation_max_err_over_scale": worst_act,
+             "moe_layers": n_moe, "token_expert_pairs": pairs,
+             "card_s": card_s, "copy_s": copy_s, "cpu_s": cpu_s}
+    print(f"[{tag}] CUDA vs CPU layer by layer (prefill + {steps} "
+          f"teacher-forced decode steps, prompts {prompts}): routing equal "
+          f"in all {n_moe} MoE layers ({pairs} token-expert pairs), every "
+          f"layer's output within rtol {rtol}, atol {atol} x scale (max err "
+          f"/ scale {worst_act:.2e}), logits max abs err {worst:.3e}; card "
+          f"{card_s:.1f} s, weight copies {copy_s:.1f} s, CPU {cpu_s:.1f} s")
+    return stats
+
+
+def phase_ssm_jamba(cfg, device="cuda"):
+    """(b) jamba at its published widths cut to one period, drawn on the
+    card from a seeded CUDA generator (the CPU draw of 13.3 G values would
+    take minutes): served as phase 11's (a) (three runs, the counters
+    zeroed around the first: the launches a prefill and a decode step from
+    the configuration, every flash launch at (128, 128), no plain call),
+    then held against the CPU layer by layer (``layers_vs_cpu``)."""
+    from repro_torch.models.model import init_params
+    t0 = time.perf_counter()
+    p_dev = init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                        device)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    n_params = sum(v.numel() for sub in p_dev.values() for v in sub.values())
+    step_bytes = 4 * sum(v.numel() for g, sub in p_dev.items()
+                         if g != "embed" for v in sub.values())
+    step_bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
+    print(f"[ssm] jamba-v0.1-52b at its published widths, {cfg.n_layers} of "
+          f"32 layers: {n_params} f32 parameters ({4 * n_params / 1e9:.2f} "
+          f"GB), drawn on the {device} in {draw_s:.1f} s; a decode step "
+          f"reads {step_bytes / 1e9:.2f} GB of weights (bound "
+          f"{step_bound_ms:.2f} ms at 3.35 TB/s)")
+    launched = []
+    with _recording_flash_pairs(launched, heads=True):
+        stats = serve_runs("ssm", "jamba-v0.1-52b", 32, cfg, p_dev,
+                           ssm_per_step_launches(cfg, 1))
+    want = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim)
+    if len(launched) != 3 * stats["prefills"] * stats["launches_per_prefill"][
+            "flash_attention"] or set(launched) != {want}:
+        raise AssertionError(f"[ssm] jamba's {len(launched)} flash launches "
+                             f"in 3 runs were at (H, KVH, dk, dv) "
+                             f"{sorted(set(launched))}, not all at {want}")
+    print(f"[ssm] jamba's {len(launched)} flash launches in 3 runs were all "
+          f"at (H, KVH, dk, dv) {want}")
+    prompts, steps = SSM_COMPARE
+    stats.update({"params": n_params, "draw_s": draw_s,
+                  "flash_launches_3_runs": len(launched),
+                  "flash_shape": want,
+                  "decode_step_weight_bytes": step_bytes,
+                  "decode_step_bound_ms": step_bound_ms,
+                  "cpu": layers_vs_cpu("ssm", cfg, p_dev, prompts, steps)})
+    return stats, p_dev
+
+
+def phase_ssm():
+    """(e) the kernels at xlstm-125m's and jamba's shapes; (a) xlstm-125m
+    served at full width and held against the CPU; (b) jamba at its
+    published widths (8 of 32 layers) served and held against the CPU
+    layer by layer; (c) three decode steps of each under the profiler, the
+    scans' plain ops, the causal conv and (jamba) the experts split
+    out."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe, ssm
+    xcfg = get_config("xlstm-125m")
+    jcfg = replace(get_config("jamba-v0.1-52b"), n_layers=JAMBA_LAYERS)
+    gen = torch.Generator().manual_seed(9)
+    rows, worst = [], {}
+    check_cases(ssm_kernel_cases(xcfg, jcfg), gen, rows, worst)
+    print(f"[ssm] {len(rows)} kernel cases at xlstm-125m's and jamba's "
+          f"shapes agree; max abs err per kernel: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    torch.cuda.empty_cache()
+    xlstm, p_x = phase_ssm_xlstm()
+    n_slstm = xcfg.pattern.count("slstm") * xcfg.n_periods
+    xlstm["profile"] = profile_decode("ssm", xcfg, p_x, 3, [
+        (ssm, "chunked_scan", "sLSTM recurrent products (r)",
+         "scans' plain ops", xcfg.n_heads * n_slstm),
+        (ssm, "causal_conv", "conv products (none)", "causal conv plain ops",
+         0)])
+    del p_x
+    torch.cuda.empty_cache()
+    jamba, p_j = phase_ssm_jamba(jcfg)
+    n_moe = jcfg.ffn_pattern.count("moe") * jcfg.n_periods
+    jamba["profile"] = profile_decode("ssm", jcfg, p_j, 3, [
+        (ssm, "chunked_scan", "scan products (none)", "scans' plain ops", 0),
+        (ssm, "causal_conv", "conv products (none)", "causal conv plain ops",
+         0),
+        (moe, "_expert_ffn", "expert products",
+         "experts' plain ops (silu, mul, stack)",
+         3 * jcfg.moe.n_experts * n_moe),
+        (moe, "moe_ffn", "router products", "dispatch's plain ops", None)])
+    del p_j
+    torch.cuda.empty_cache()
+    return {"kernels": rows, "xlstm": xlstm, "jamba": jamba}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -2912,6 +3340,8 @@ def main(argv=None) -> int:
     moe = phase_moe()
     torch.cuda.empty_cache()
     mla = phase_mla()
+    torch.cuda.empty_cache()
+    ssm = phase_ssm()
 
     # one entry per kernel: its largest main-path shape at f32 (forward:
     # the serving path's, launches counted there; backward: the tuning
@@ -2943,6 +3373,9 @@ def main(argv=None) -> int:
             "launches_mla": {
                 "serve": mla["serve"]["launches"].get(name, 0),
                 "study": mla["study"]["launches"][name]},
+            "launches_ssm": {
+                "xlstm serve": ssm["xlstm"]["launches"].get(name, 0),
+                "jamba serve": ssm["jamba"]["launches"].get(name, 0)},
             "max_abs_err": max(r["max_abs_err"] for r in table
                                if r["kernel"] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -2976,7 +3409,7 @@ def main(argv=None) -> int:
                                         "tune": tune, "daemon": daemon,
                                         "sim": sim, "measured": measured,
                                         "workers": workers, "moe": moe,
-                                        "mla": mla},
+                                        "mla": mla, "ssm": ssm},
                                        indent=1))
     print(f"[time] chip_smoke.py took {time.perf_counter() - T_START:.1f} s "
           f"from its start, the kernels' build included")

@@ -4,8 +4,13 @@
 The kernels are the layers' compute: every norm goes through
 ``ops.rmsnorm``, prefill attention through ``ops.flash_attention`` and
 every projection through ``ops.matmul`` (CUDA kernels on the card, plain
-PyTorch on the CPU).  ``decode_attention`` and MLA's latent scores at
-decode are plain tensor code, as they are in JAX.  Projection weights are
+PyTorch on the CPU).  What stays plain tensor code, as it is plain
+``jnp`` outside any Pallas kernel in JAX, is the contractions between
+activations: ``decode_attention``, MLA's latent scores at decode, and the
+recurrent scans of ``ssm.py`` (Mamba's ``h . c``, mLSTM's ``C . q`` and
+``n . q`` and its chunkwise L x L products and state updates, the gates
+and the causal conv); the weight products inside the scans (sLSTM's
+recurrent ``r``) go through ``ops.matmul``.  Projection weights are
 2-D, ``(D, H*dh)`` for q/k/v and ``(H*dh, D)`` for o; MLA's ``wq_b``,
 ``wk_b`` and ``wv_b`` are ``(r, H*d)`` (``models/convert.py`` reshapes
 the JAX ``(D, H, dh)``/``(H, dh, D)``/``(r, H, d)`` tensors).  The

@@ -1,22 +1,26 @@
-"""Model assembly for the attention families: parameters, forward, prefill,
-decode (port of ``repro.models.model`` for ``pattern=("attn",)`` with
-``ffn_pattern`` ``("dense",)`` or ``("moe",)``, and ``pattern=("mla",)``
-with ``("moe",)``, deepseek-v2).
+"""Model assembly for every family without a frontend stub: parameters,
+forward, prefill, decode (port of ``repro.models.model``).
 
-Parameters are a plain dict of tensors, as in JAX, with every block weight
-stacked over layers (leading ``n_layers`` dim; projections 2-D, see
-``layers.py``).  The ``lax.scan`` over periods is a loop over layers.  The
-cache keeps the JAX structure ``((k, v),)``, updated in place: ``k``/``v``
-of shape ``(n_layers, B, s_max, KVH, dh)`` under attention, and MLA's
-latent ``c_kv (n_layers, B, s_max, kv_lora)`` and ``k_rope (n_layers, B,
-s_max, d_rope)``.
+A configuration's ``pattern`` and ``ffn_pattern`` are one period of layer
+kinds (mixers ``attn``, ``mla``, ``mamba``, ``mlstm``, ``slstm``; FFNs
+``dense``, ``moe``, ``none``), repeated ``n_periods`` times.  Parameters
+are a plain dict of tensors, as in JAX: one group per position of the
+period, ``pos0``-``pos{period-1}``, each weight stacked over periods
+(leading ``n_periods`` dim; attention and MLA projections 2-D, see
+``layers.py``).  The ``lax.scan`` over periods is a loop over periods,
+then positions.  The cache keeps the JAX structure, one entry per
+position, each leaf with a leading ``n_periods`` dim and batch at dim 1,
+updated in place: ``(k, v)`` of shape ``(P, B, s_max, KVH, dh)`` under
+attention; MLA's latent ``(c_kv, k_rope)``; Mamba's ``(conv, ssm)``;
+mLSTM's ``(conv, (C, n, m))``; sLSTM's ``(c, n, h, m)``.  Conv states are
+in the compute dtype, SSM states in f32.
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Dict, Iterator, Tuple
+from typing import Callable, Dict, Iterator, Tuple
 
 import torch
 
@@ -24,96 +28,135 @@ from ..configs.base import ArchConfig
 from ..device import DeviceLike, resolve_device
 from . import layers as L
 from . import moe as M
+from . import ssm as S
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
 
 @dataclass(frozen=True)
 class ModelKnobs:
-    """Step-function choices of the attention families (the JAX
-    ``ModelKnobs`` fields that the port's paths read, with JAX's defaults;
-    ``remat`` is read by the tuning loop, ``tune/lm_study.py``)."""
+    """Step-function choices (the JAX ``ModelKnobs`` fields that the port's
+    paths read, with JAX's defaults; ``remat`` is read by the tuning loop,
+    ``tune/lm_study.py``)."""
 
     kv_chunk: int = 1024          # flash-attention KV chunk
     moe_dispatch: str = "a2a"     # 'a2a' (one device: 'sort'), 'sort', 'dense'
+    ssm_chunk: int = 256          # mamba/xlstm chunk length
     remat: str = "full"           # 'none' | 'full'
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
     logits_f32: bool = True
 
 
-# the (pattern, ffn_pattern) pairs the port runs
-SUPPORTED = ((("attn",), ("dense",)), (("attn",), ("moe",)),
-             (("mla",), ("moe",)))
+# the layer kinds the port runs, in any period
+MIXERS = ("attn", "mla", "mamba", "mlstm", "slstm")
+FFNS = ("dense", "moe", "none")
+# the mixers whose cache is a sequence (padded to s_max, read at kv_positions)
+ATTENTION = ("attn", "mla")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    if ((cfg.pattern, cfg.ffn_pattern) not in SUPPORTED
+    if (set(cfg.pattern) - set(MIXERS) or set(cfg.ffn_pattern) - set(FFNS)
             or cfg.n_codebooks or cfg.n_patches):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves the attention families only "
-            f"((pattern, ffn_pattern) in {SUPPORTED}, no frontend stubs); "
-            f"got {cfg.pattern}/{cfg.ffn_pattern}")
+            f"{cfg.name}: the port runs periods of the mixers {MIXERS} with "
+            f"the FFNs {FFNS} and no frontend stub; got "
+            f"{cfg.pattern}/{cfg.ffn_pattern}, n_codebooks "
+            f"{cfg.n_codebooks}, n_patches {cfg.n_patches}")
 
 
-def _mix_spec(cfg: ArchConfig) -> Dict[str, Tuple[tuple, float]]:
-    """The mixer's (shape, fan_in) per parameter, stacked over layers (JAX
-    ``_kind_params`` with the fan-ins there).  The JAX init zeroes every
-    name ending in ``_b`` (meant for biases), which takes in MLA's
-    ``wq_b``, ``wk_b`` and ``wv_b`` and makes its block's output zero; the
-    port draws them from their fan-ins, so the path computes something."""
-    D, P, H = cfg.d_model, cfg.n_layers, cfg.n_heads
-    if cfg.pattern == ("mla",):
+def _kind_spec(cfg: ArchConfig, kind: str) -> Dict[str, Tuple[tuple, float]]:
+    """One mixer's (shape, fan_in) per parameter, unstacked (JAX
+    ``_kind_params`` with the fan-ins there; fan 0 = zeros).  The JAX init
+    zeroes every name ending in ``_b`` (meant for biases), which takes in
+    MLA's ``wq_b``, ``wk_b`` and ``wv_b`` and makes its block's output
+    zero; the port draws them from their fan-ins, so the path computes
+    something."""
+    D, H, di = cfg.d_model, cfg.n_heads, cfg.d_inner
+    out = {"ln": ((D,), 0.0)}
+    if kind == "attn":
+        HD, KD = H * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+        out.update({"wq": ((D, HD), D), "wk": ((D, KD), D),
+                    "wv": ((D, KD), D), "wo": ((HD, D), HD)})
+    elif kind == "mla":
         m = cfg.mla
-        return {"mix_ln": ((P, D), 0.0),
-                "mix_wq_a": ((P, D, m.q_lora), D),
-                "mix_q_ln": ((P, m.q_lora), 0.0),
-                "mix_wq_b": ((P, m.q_lora, H * (m.d_nope + m.d_rope)),
+        out.update({"wq_a": ((D, m.q_lora), D),
+                    "q_ln": ((m.q_lora,), 0.0),
+                    "wq_b": ((m.q_lora, H * (m.d_nope + m.d_rope)),
                              m.q_lora),
-                "mix_wkv_a": ((P, D, m.kv_lora + m.d_rope), D),
-                "mix_kv_ln": ((P, m.kv_lora), 0.0),
-                "mix_wk_b": ((P, m.kv_lora, H * m.d_nope), m.kv_lora),
-                "mix_wv_b": ((P, m.kv_lora, H * m.d_v), m.kv_lora),
-                "mix_wo": ((P, H * m.d_v, D), H * m.d_v)}
-    HD, KD = H * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
-    return {"mix_ln": ((P, D), 0.0),
-            "mix_wq": ((P, D, HD), D), "mix_wk": ((P, D, KD), D),
-            "mix_wv": ((P, D, KD), D), "mix_wo": ((P, HD, D), HD)}
+                    "wkv_a": ((D, m.kv_lora + m.d_rope), D),
+                    "kv_ln": ((m.kv_lora,), 0.0),
+                    "wk_b": ((m.kv_lora, H * m.d_nope), m.kv_lora),
+                    "wv_b": ((m.kv_lora, H * m.d_v), m.kv_lora),
+                    "wo": ((H * m.d_v, D), H * m.d_v)})
+    elif kind == "mamba":
+        N, dtr = cfg.d_state, di // 16
+        out.update({"in_proj": ((D, 2 * di), D),
+                    "conv_w": ((cfg.d_conv, di), cfg.d_conv),
+                    "x_proj": ((di, dtr + 2 * N), di),
+                    "dt_w": ((dtr, di), dtr),
+                    "dt_b": ((di,), 0.0),
+                    "a_log": ((di, N), 0.0),
+                    "d": ((di,), 0.0),
+                    "out_proj": ((di, D), di)})
+    elif kind == "mlstm":
+        out.update({"up": ((D, 2 * di), D),
+                    "conv_w": ((cfg.d_conv, di), cfg.d_conv),
+                    "wq": ((di, di), di), "wk": ((di, di), di),
+                    "wv": ((di, di), di),
+                    "wif": ((di, 2 * H), di),
+                    "b_if": ((2 * H,), 0.0),
+                    "down": ((di, D), di)})
+    else:   # slstm
+        dh = D // H
+        out.update({"w": ((D, 4 * D), D),
+                    "r": ((H, dh, 4 * dh), dh),
+                    "b": ((4 * D,), 0.0),
+                    "up": ((D, 2 * di), D),
+                    "down": ((di, D), di)})
+    return out
 
 
-def _ffn_spec(cfg: ArchConfig) -> Dict[str, Tuple[tuple, float]]:
-    """The FFN's (shape, fan_in) per parameter, stacked over layers (JAX
-    ``_ffn_params``)."""
-    D, P = cfg.d_model, cfg.n_layers
-    out = {"ffn_ln": ((P, D), 0.0)}
-    if cfg.ffn_pattern == ("dense",):
+def _ffn_spec(cfg: ArchConfig, fk: str) -> Dict[str, Tuple[tuple, float]]:
+    """One FFN's (shape, fan_in) per parameter, unstacked (JAX
+    ``_ffn_params``; ``none`` has none)."""
+    D = cfg.d_model
+    if fk == "none":
+        return {}
+    out = {"ln": ((D,), 0.0)}
+    if fk == "dense":
         F = cfg.d_ff
-        out.update({"ffn_w_gate": ((P, D, F), D), "ffn_w_up": ((P, D, F), D),
-                    "ffn_w_down": ((P, F, D), F)})
+        out.update({"w_gate": ((D, F), D), "w_up": ((D, F), D),
+                    "w_down": ((F, D), F)})
         return out
     e = cfg.moe
     E, Fe = e.n_experts, e.d_ff_expert
-    out.update({"ffn_router": ((P, D, E), D),
-                "ffn_w_gate": ((P, E, D, Fe), D),
-                "ffn_w_up": ((P, E, D, Fe), D),
-                "ffn_w_down": ((P, E, Fe, D), Fe)})
+    out.update({"router": ((D, E), D),
+                "w_gate": ((E, D, Fe), D),
+                "w_up": ((E, D, Fe), D),
+                "w_down": ((E, Fe, D), Fe)})
     if e.n_shared:
         Fs = e.n_shared * Fe
-        out.update({"ffn_sh_gate": ((P, D, Fs), D),
-                    "ffn_sh_up": ((P, D, Fs), D),
-                    "ffn_sh_down": ((P, Fs, D), Fs)})
+        out.update({"sh_gate": ((D, Fs), D), "sh_up": ((D, Fs), D),
+                    "sh_down": ((Fs, D), Fs)})
     return out
 
 
 def spec_tree(cfg: ArchConfig) -> Dict[str, Dict[str, Tuple[tuple, float]]]:
-    """(shape, fan_in) per parameter; fan 0 = zeros, -1 = embedding init."""
+    """(shape, fan_in) per parameter; fan 0 = zeros, -1 = embedding init.
+    Block weights are stacked over periods: ``pos{i}`` holds position
+    ``i``'s mixer (``mix_*``) and FFN (``ffn_*``) weights with a leading
+    ``n_periods`` dim."""
     check_supported(cfg)
-    D, V = cfg.d_model, cfg.vocab
-    tree = {
-        "embed": {"tok": ((V, D), -1)},
-        "pos0": {**_mix_spec(cfg), **_ffn_spec(cfg)},
-        "final": {"ln": ((D,), 0.0)},
-    }
+    D, V, P = cfg.d_model, cfg.vocab, cfg.n_periods
+    tree = {"embed": {"tok": ((V, D), -1)}, "final": {"ln": ((D,), 0.0)}}
+    for i, (kind, fk) in enumerate(zip(cfg.pattern, cfg.ffn_pattern)):
+        pos = {}
+        for pre, spec in (("mix_", _kind_spec(cfg, kind)),
+                          ("ffn_", _ffn_spec(cfg, fk))):
+            for nm, (shape, fan) in spec.items():
+                pos[pre + nm] = ((P,) + shape, fan)
+        tree[f"pos{i}"] = pos
     if not cfg.tie_embeddings:
         tree["head"] = {"w": ((D, V), D)}
     return tree
@@ -122,21 +165,40 @@ def spec_tree(cfg: ArchConfig) -> Dict[str, Dict[str, Tuple[tuple, float]]]:
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device: DeviceLike = None,
                 dtype: torch.dtype = torch.float32) -> Params:
-    """Random weights with the JAX init's distributions: norms zero (scale
-    1 + w = 1), embeddings N(0, 0.02^2), projections N(0, 1/fan_in).
-    Drawn on the CPU from ``generator``, so one seed gives the same weights
-    on every device."""
+    """Random weights with the JAX init's distributions: norms and biases
+    zero (scale 1 + w = 1), embeddings N(0, 0.02^2), projections N(0,
+    1/fan_in); Mamba's skip weight ``d`` ones, ``a_log`` log(1..N) on every
+    channel (A = -[1..N], S4D-real) and ``dt_b`` log(expm1(0.01)).  Drawn
+    on the generator's device (a CPU generator gives the same weights on
+    every device), then moved to ``device``."""
     dev = resolve_device(device)
     params: Params = {}
     for g, sub in sorted(spec_tree(cfg).items()):
         for nm, (shape, fan) in sorted(sub.items()):
-            if fan == 0.0:
+            if nm.endswith("a_log"):
+                w = torch.log(torch.arange(1, shape[-1] + 1,
+                                           dtype=torch.float32)) \
+                    .expand(shape).contiguous()
+            elif nm.endswith("dt_b"):
+                w = torch.full(shape, math.log(math.expm1(0.01)))
+            elif nm.endswith("mix_d"):
+                w = torch.ones(shape)
+            elif fan == 0.0:
                 w = torch.zeros(shape)
             else:
                 std = 0.02 if fan == -1 else 1.0 / math.sqrt(max(fan, 1))
-                w = torch.randn(shape, generator=generator) * std
+                w = torch.randn(shape, generator=generator,
+                                device=generator.device) * std
             params.setdefault(g, {})[nm] = w.to(device=dev, dtype=dtype)
     return params
+
+
+def map_cache(fn: Callable, *trees):
+    """``fn`` over the leaves of cache trees of one structure (nested
+    tuples of tensors); returns the results in that structure."""
+    if isinstance(trees[0], torch.Tensor):
+        return fn(*trees)
+    return tuple(map_cache(fn, *sub) for sub in zip(*trees))
 
 
 class Model:
@@ -168,36 +230,75 @@ class Model:
 
     # -- layers ---------------------------------------------------------------
 
-    def _ffn(self, pf, x):
-        if self.cfg.ffn_pattern == ("moe",):
-            return M.moe_ffn(pf, x, self.cfg,
-                             dispatch=self.knobs.moe_dispatch)
-        return L.ffn_block(pf, x, self.cfg)
+    def _layers(self, params) -> Iterator[Tuple[int, int, dict, dict]]:
+        """Per layer, periods then positions: (period j, position i, mixer
+        params, ffn params), views of position i's stacks at period j."""
+        for j in range(self.cfg.n_periods):
+            for i in range(self.cfg.period):
+                stack = params[f"pos{i}"]
+                yield (j, i,
+                       {k[4:]: v[j] for k, v in stack.items()
+                        if k.startswith("mix_")},
+                       {k[4:]: v[j] for k, v in stack.items()
+                        if k.startswith("ffn_")})
 
-    @property
-    def _mla(self) -> bool:
-        return self.cfg.pattern == ("mla",)
+    def _ffn(self, i, pf, x):
+        """x plus position i's FFN (none: x)."""
+        fk = self.cfg.ffn_pattern[i]
+        if fk == "moe":
+            return x + M.moe_ffn(pf, x, self.cfg,
+                                 dispatch=self.knobs.moe_dispatch)
+        if fk == "dense":
+            return x + L.ffn_block(pf, x, self.cfg)
+        return x
 
-    def _layers(self, params) -> Iterator[Tuple[dict, dict]]:
-        """Per layer: (mixer params, ffn params), views of the stacks."""
-        stack = params["pos0"]
-        for i in range(self.cfg.n_layers):
-            yield ({k[4:]: v[i] for k, v in stack.items()
-                    if k.startswith("mix_")},
-                   {k[4:]: v[i] for k, v in stack.items()
-                    if k.startswith("ffn_")})
+    def _block(self, i, p, pf, x, positions):
+        """One layer at position i over the whole sequence: (x, its cache
+        entry)."""
+        cfg, kn = self.cfg, self.knobs
+        kind = cfg.pattern[i]
+        if kind == "attn":
+            h, c = L.attn_block(p, x, cfg, positions=positions,
+                                kv_chunk=kn.kv_chunk)
+        elif kind == "mla":
+            h, c = L.mla_block(p, x, cfg, positions=positions,
+                               kv_chunk=kn.kv_chunk)
+        elif kind == "mamba":
+            h, c = S.mamba_block(p, x, cfg, chunk=kn.ssm_chunk)
+        elif kind == "mlstm":
+            h, c = S.mlstm_block(p, x, cfg, chunk=kn.ssm_chunk)
+        else:
+            h, c = S.slstm_block(p, x, cfg, chunk=kn.ssm_chunk)
+        return self._ffn(i, pf, x + h), c
+
+    def _block_decode(self, i, p, pf, x, c, t, kv_positions):
+        """One layer at position i for one new token; ``c`` is its cache
+        entry (views at its period), written in place.  The SSM kinds run
+        at chunk 1 from their carried state and ignore ``t``."""
+        cfg = self.cfg
+        kind = cfg.pattern[i]
+        if kind in ATTENTION:
+            decode = L.attn_decode if kind == "attn" else L.mla_decode
+            h, _ = decode(p, x, c, cfg, t=t, kv_positions=kv_positions)
+        else:
+            if kind == "mamba":
+                h, new = S.mamba_block(p, x, cfg, chunk=1, conv_state=c[0],
+                                       ssm_state=c[1])
+            elif kind == "mlstm":
+                h, new = S.mlstm_block(p, x, cfg, chunk=1, conv_state=c[0],
+                                       state=c[1])
+            else:
+                h, new = S.slstm_block(p, x, cfg, chunk=1, state=c)
+            map_cache(lambda old, nw: old.copy_(nw), c, new)
+        return self._ffn(i, pf, x + h)
 
     def _backbone(self, params, batch, *, with_cache=False):
         cfg = self.cfg
         x = self._embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
         caches = []
-        block = L.mla_block if self._mla else L.attn_block
-        for p, pf in self._layers(params):
-            h, c = block(p, x, cfg, positions=positions,
-                         kv_chunk=self.knobs.kv_chunk)
-            x = x + h
-            x = x + self._ffn(pf, x)
+        for _, i, p, pf in self._layers(params):
+            x, c = self._block(i, p, pf, x, positions)
             if with_cache:
                 caches.append(c)
         x = L.rms_norm(x, params["final"]["ln"], cfg.norm_eps)
@@ -212,13 +313,35 @@ class Model:
 
     def init_cache(self, batch_size: int, s_max: int):
         cfg = self.cfg
-        lead = (cfg.n_layers, batch_size, s_max)
-        if self._mla:
-            shapes = (lead + (cfg.mla.kv_lora,), lead + (cfg.mla.d_rope,))
-        else:
-            shapes = (lead + (cfg.n_kv_heads, cfg.head_dim),) * 2
-        kw = dict(dtype=self.knobs.compute_dtype, device=self.device)
-        return (tuple(torch.zeros(s, **kw) for s in shapes),)
+        f32 = torch.float32
+
+        def full(*shape, dtype=self.knobs.compute_dtype, fill=0.0):
+            return torch.full((cfg.n_periods, batch_size) + shape, fill,
+                              dtype=dtype, device=self.device)
+
+        di, nh, D = cfg.d_inner, cfg.n_heads, cfg.d_model
+        out = []
+        for kind in cfg.pattern:
+            if kind == "attn":
+                kv = (s_max, cfg.n_kv_heads, cfg.head_dim)
+                out.append((full(*kv), full(*kv)))
+            elif kind == "mla":
+                out.append((full(s_max, cfg.mla.kv_lora),
+                            full(s_max, cfg.mla.d_rope)))
+            elif kind == "mamba":
+                out.append((full(cfg.d_conv - 1, di),
+                            full(di, cfg.d_state, dtype=f32)))
+            elif kind == "mlstm":
+                dh = di // nh
+                out.append((full(cfg.d_conv - 1, di),
+                            (full(nh, dh, dh, dtype=f32),
+                             full(nh, dh, dtype=f32),
+                             full(nh, dtype=f32, fill=-1e30))))
+            else:   # slstm
+                out.append((full(D, dtype=f32), full(D, dtype=f32),
+                            full(D, dtype=f32),
+                            full(nh, dtype=f32, fill=-1e30)))
+        return tuple(out)
 
     def prefill(self, params, batch, s_max: int, logits_at=None):
         """Run the full prompt, build an s_max-capacity cache.
@@ -226,21 +349,39 @@ class Model:
         ``logits_at``: optional (B,) positions of each row's true prompt end
         (right-padded batches); default = last position.  Returns
         (logits (B, V) at those positions, cache, t=prompt_len).  The pad
-        positions' K/V (MLA: latents) stay in the cache; decode masks
-        them."""
+        positions' K/V (MLA: latents) stay in the cache, and decode masks
+        them; an SSM's state is the one after the whole padded prompt, as
+        in the reference."""
         x, caches = self._backbone(params, batch, with_cache=True)
-        B, S = x.shape[0], x.shape[1]
+        B, S_ = x.shape[0], x.shape[1]
         if logits_at is None:
             x_last = x[:, -1:]
         else:
             rows = torch.arange(B, device=x.device)
             x_last = x[rows, logits_at.long()][:, None]
         logits = self._head(params, x_last)[:, 0]
-        k_all, v_all = self.init_cache(B, max(S, s_max))[0]
-        for i, (k, v) in enumerate(caches):
-            k_all[i, :, :S] = k
-            v_all[i, :, :S] = v
-        return logits, ((k_all, v_all),), S
+        cache = self.init_cache(B, max(S_, s_max))
+        for (j, i, _, _), c in zip(self._layers(params), caches):
+            self._store(cache, j, i, c)
+        return logits, cache, S_
+
+    def _store(self, cache, j, i, c):
+        """Write layer (j, i)'s prefill cache entry ``c`` into ``cache`` in
+        place: attention's and MLA's at the head of the sequence, an SSM's
+        state whole."""
+        if self.cfg.pattern[i] in ATTENTION:
+            S_ = c[0].shape[1]
+            map_cache(lambda big, one: big[j, :, :S_].copy_(one), cache[i], c)
+        else:
+            map_cache(lambda big, one: big[j].copy_(one), cache[i], c)
+
+    def _cache_smax(self, cache) -> int:
+        """The sequence capacity of the first attention or MLA position's
+        cache (0 where the period has none)."""
+        for kind, c in zip(self.cfg.pattern, cache):
+            if kind in ATTENTION:
+                return c[0].shape[2]
+        return 0
 
     def decode_step(self, params, cache, t, batch):
         """One new token per row.  t: int, 0-d or (B,) positions (ragged
@@ -248,14 +389,10 @@ class Model:
         returns (logits (B, V), cache)."""
         cfg = self.cfg
         x = self._embed(params, batch)
-        k_all, v_all = cache[0]
         t = torch.as_tensor(t, device=x.device).long()
-        kv_positions = torch.arange(k_all.shape[2], device=x.device)
-        decode = L.mla_decode if self._mla else L.attn_decode
-        for i, (p, pf) in enumerate(self._layers(params)):
-            h, _ = decode(p, x, (k_all[i], v_all[i]), cfg, t=t,
-                          kv_positions=kv_positions)
-            x = x + h
-            x = x + self._ffn(pf, x)
+        kv_positions = torch.arange(self._cache_smax(cache), device=x.device)
+        for j, i, p, pf in self._layers(params):
+            c = map_cache(lambda a: a[j], cache[i])
+            x = self._block_decode(i, p, pf, x, c, t, kv_positions)
         x = L.rms_norm(x, params["final"]["ln"], cfg.norm_eps)
         return self._head(params, x)[:, 0], cache

@@ -1,0 +1,318 @@
+"""Recurrent mixers: Mamba (selective SSM), mLSTM and sLSTM (xLSTM) (port of
+``repro.models.ssm``).
+
+Every weight product goes through the matmul kernel (``layers.linear`` ->
+``ops.matmul``): the in/out and up/down projections, Mamba's ``x_proj`` and
+``dt_w``, mLSTM's q/k/v and gate weights, and sLSTM's input weight ``w``
+and its recurrent weight ``r``.  ``r`` stays 3-D, ``(nh, dh, 4 dh)`` as in
+JAX, and each step takes one launch a head on head ``i``'s contiguous
+block.  Each block's norm goes through the RMSNorm kernel.
+
+What stays plain PyTorch, as it is plain ``jnp`` outside any Pallas kernel
+in the reference: the scans' contractions between activations (Mamba's
+``h . c``; mLSTM's ``C . q`` and ``n . q``; the chunkwise form's L x L
+products and state updates), the elementwise gates, and the depthwise
+causal conv.  A kernel for the scans is later work.
+
+``chunked_scan`` keeps the reference's refusal of a length that is longer
+than one chunk of ``chunk`` steps and not a multiple of it, and runs the
+steps in one loop.  The reference rematerializes each chunk's body in its
+backward (``jax.checkpoint``); that matters only under autograd, which the
+port's serving path does not record.  The reference's ``_manual_scan`` and the
+sharding annotations are no-ops without rules and are dropped.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops
+from . import layers as L
+
+
+def _steps(xs):
+    return xs.shape[0] if isinstance(xs, torch.Tensor) else xs[0].shape[0]
+
+
+def _at(xs, t):
+    return xs[t] if isinstance(xs, torch.Tensor) else tuple(a[t] for a in xs)
+
+
+def chunked_scan(step_fn, carry, xs, *, chunk: int):
+    """scan(step_fn, carry, xs) over xs's leading (S,) dim (a tensor or a
+    tuple of tensors); ``step_fn(carry, x_t) -> (carry, y_t)`` with ``y_t``
+    a tensor.  Returns (final carry, ys (S, ...)).  Refuses S > chunk where
+    chunk does not divide S, as the reference does; the steps run in
+    order, so without remat the chunks need no loop of their own."""
+    S = _steps(xs)
+    if S > chunk and S % chunk:
+        raise ValueError(f"chunked_scan: {S} steps are not a whole number "
+                         f"of chunks of {chunk}")
+    ys = []
+    for t in range(S):
+        carry, y = step_fn(carry, _at(xs, t))
+        ys.append(y)
+    return carry, torch.stack(ys)
+
+
+# ---------------------------------------------------------------------------
+# causal depthwise conv (shared by mamba/mlstm)
+# ---------------------------------------------------------------------------
+
+def causal_conv(x, w, state=None):
+    """x: (B, S, C), w: (K, C) depthwise.  ``state``: (B, K-1, C) carried
+    from the previous segment (decode); returns (y, new_state)."""
+    B, S, C = x.shape
+    K = w.shape[0]
+    if state is None:
+        state = x.new_zeros((B, K - 1, C))
+    xp = torch.cat([state, x], dim=1)
+    y = torch.zeros_like(x)
+    for i in range(K):
+        y = y + xp[:, i:i + S, :] * w[i]
+    new_state = xp[:, S:, :] if K > 1 else state
+    return y, new_state
+
+
+# ---------------------------------------------------------------------------
+# Mamba (selective SSM)
+# ---------------------------------------------------------------------------
+
+def _mamba_inner(p, xz, cfg, conv_state, ssm_state, *, chunk):
+    """xz: (B, S, 2*di) from in_proj.  Returns (y (B,S,di), conv, ssm)."""
+    di = cfg.d_inner
+    N = cfg.d_state
+    x, z = xz[..., :di], xz[..., di:]
+    x, conv_state = causal_conv(x, p["conv_w"], conv_state)
+    x = F.silu(x)
+
+    dbc = L.linear(x, p["x_proj"])
+    dtr = di // 16
+    dt = F.softplus(L.linear(dbc[..., :dtr], p["dt_w"]) + p["dt_b"])
+    Bc = dbc[..., dtr:dtr + N]
+    Cc = dbc[..., dtr + N:]
+    A = -torch.exp(p["a_log"].float())                     # (di, N)
+
+    def step(h, inp):
+        x_t, dt_t, b_t, c_t = inp                   # (B,di),(B,di),(B,N)
+        dA = torch.exp(dt_t.float()[..., None] * A)
+        dBx = (dt_t * x_t).float()[..., None] * b_t.float()[:, None, :]
+        h = h * dA + dBx
+        y_t = torch.einsum("bcn,bn->bc", h, c_t.float())
+        return h, y_t.to(x_t.dtype)
+
+    xs = (x.transpose(0, 1), dt.transpose(0, 1), Bc.transpose(0, 1),
+          Cc.transpose(0, 1))
+    ssm_state, ys = chunked_scan(step, ssm_state, xs, chunk=chunk)
+    y = ys.transpose(0, 1) + x * p["d"]
+    y = y * F.silu(z)
+    return y, conv_state, ssm_state
+
+
+def mamba_block(p, x, cfg, *, chunk=256, conv_state=None, ssm_state=None):
+    """Full mamba block.  Returns (out, (conv_state, ssm_state))."""
+    B = x.shape[0]
+    di, N = cfg.d_inner, cfg.d_state
+    if ssm_state is None:
+        ssm_state = torch.zeros((B, di, N), dtype=torch.float32,
+                                device=x.device)
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    xz = L.linear(h, p["in_proj"])
+    y, conv_state, ssm_state = _mamba_inner(
+        p, xz, cfg, conv_state, ssm_state, chunk=chunk)
+    out = L.linear(y, p["out_proj"])
+    return out, (conv_state, ssm_state)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM (xLSTM matrix-memory block, recurrent-chunked form)
+# ---------------------------------------------------------------------------
+
+def _mlstm_state(B, nh, dh, device):
+    return (torch.zeros((B, nh, dh, dh), dtype=torch.float32, device=device),
+            torch.zeros((B, nh, dh), dtype=torch.float32, device=device),
+            torch.full((B, nh), -1e30, dtype=torch.float32, device=device))
+
+
+def mlstm_block(p, x, cfg, *, chunk=128, conv_state=None, state=None,
+                mode: str = "chunkwise"):
+    """Returns (out, (conv_state, (C, n, m))).
+
+    State: C (B, nh, dv, dk) matrix memory, n (B, nh, dk) normalizer,
+    m (B, nh) log-space stabilizer.  ``mode``: 'chunkwise' (matmul-shaped,
+    default for S>1) or 'recurrent' (the oracle; always used for S=1)."""
+    B, S, D = x.shape
+    di = cfg.d_inner
+    nh = cfg.n_heads
+    dh = di // nh
+    if state is None:
+        state = _mlstm_state(B, nh, dh, x.device)
+    h = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    xz = L.linear(h, p["up"])
+    xi, z = xz[..., :di], xz[..., di:]
+    xi, conv_state = causal_conv(xi, p["conv_w"], conv_state)
+    xi = F.silu(xi)
+
+    q = L.linear(xi, p["wq"]).reshape(B, S, nh, dh)
+    k = L.linear(xi, p["wk"]).reshape(B, S, nh, dh)
+    v = L.linear(xi, p["wv"]).reshape(B, S, nh, dh)
+    gif = L.linear(xi, p["wif"]) + p["b_if"]
+    ig, fg = gif[..., :nh], gif[..., nh:]
+    scale = 1.0 / math.sqrt(dh)
+
+    if mode == "chunkwise" and S > 1:
+        state, y4 = _mlstm_chunkwise(q, k, v, ig, fg, state,
+                                     chunk=chunk, scale=scale)
+        y = y4.reshape(B, S, di) * F.silu(z)
+        return L.linear(y, p["down"]), (conv_state, state)
+
+    def step(carry, inp):
+        C, n, m = carry
+        q_t, k_t, v_t, i_t, f_t = inp
+        i_t = i_t.float()
+        logf = -F.softplus(-f_t.float())
+        m_new = torch.maximum(logf + m, i_t)
+        fe = torch.exp(logf + m - m_new)
+        ie = torch.exp(i_t - m_new)
+        kf = k_t.float() * scale
+        C = C * fe[..., None, None] + \
+            ie[..., None, None] * v_t.float()[..., None] * kf[:, :, None, :]
+        n = n * fe[..., None] + ie[..., None] * kf
+        qy = torch.einsum("bhvk,bhk->bhv", C, q_t.float())
+        denom = torch.maximum(
+            torch.abs(torch.einsum("bhk,bhk->bh", n, q_t.float())),
+            torch.exp(-m_new))[..., None]
+        return (C, n, m_new), (qy / denom).to(q_t.dtype)
+
+    xs = (q.transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1),
+          ig.transpose(0, 1), fg.transpose(0, 1))
+    state, ys = chunked_scan(step, state, xs, chunk=chunk)
+    y = ys.transpose(0, 1).reshape(B, S, di) * F.silu(z)
+    return L.linear(y, p["down"]), (conv_state, state)
+
+
+def _mlstm_chunkwise(q, k, v, ig, fg, state, *, chunk: int, scale: float):
+    """Chunkwise-parallel mLSTM, an exact reformulation of the recurrent
+    form (the reference's docstring derives it): with a_t = cumsum(logsig
+    f), b_s = i_s - a_s and stabilizer m_t = a_t + mm_t where mm_t =
+    max(m_in, cummax b), every intra-chunk weight is exp(b_s - mm_t) (q_t .
+    k_s).  The chunk length L is the largest divisor of S not above
+    ``chunk``.
+
+    q,k,v: (B,S,nh,dh); ig,fg: (B,S,nh); state=(C,n,m) as in mlstm_block.
+    Returns (state, y (B,S,nh,dh)).
+    """
+    B, S, nh, dh = q.shape
+    L_ = min(chunk, S)
+    while S % L_:
+        L_ -= 1
+    nc = S // L_
+
+    def to_chunks(x):
+        return x.reshape((B, nc, L_) + x.shape[2:]).transpose(0, 1)
+
+    qc, kc, vc = to_chunks(q), to_chunks(k), to_chunks(v)
+    ic, fc = to_chunks(ig.float()), to_chunks(fg.float())
+    mask = torch.tril(torch.ones((L_, L_), dtype=torch.bool,
+                                 device=q.device))
+    C, n, m_in = state
+    ys = []
+    for c in range(nc):
+        q_, k_, v_, i_, f_ = qc[c], kc[c], vc[c], ic[c], fc[c]
+        logf = -F.softplus(-f_)                         # (B,L,h)
+        a = torch.cumsum(logf, dim=1)
+        b = i_ - a
+        mm = torch.maximum(torch.cummax(b, dim=1).values, m_in[:, None])
+        qf = q_.float()
+        kf = k_.float() * scale
+        vf = v_.float()
+
+        sqk = torch.einsum("blhd,bshd->bhls", qf, kf)            # (B,h,L,L)
+        b_bhs = b.transpose(1, 2)                                 # (B,h,S)
+        mm_bht = mm.transpose(1, 2)                               # (B,h,T)
+        # dec[b,h,t,s] = exp(b_s - mm_t); mask s<=t
+        dec = torch.exp(b_bhs[:, :, None, :] - mm_bht[:, :, :, None])
+        Wt = torch.where(mask, sqk * dec, 0.0)
+        intra = torch.einsum("bhts,bshd->bthd", Wt, vf)
+
+        inter_scale = torch.exp(m_in[:, None] - mm)              # (B,L,h)
+        inter = torch.einsum("bhvk,blhk->blhv", C, qf) * \
+            inter_scale[..., None]
+
+        Nw = torch.where(mask, dec, 0.0)                         # (B,h,t,s)
+        n_t = torch.einsum("bhts,bshk->bthk", Nw, kf) + \
+            n[:, None] * inter_scale[..., None]
+        qn = torch.einsum("blhk,blhk->blh", qf, n_t)
+        m_t = a + mm                                             # absolute
+        denom = torch.maximum(torch.abs(qn), torch.exp(-m_t))[..., None]
+        ys.append(((inter + intra) / denom).to(q_.dtype))
+
+        mm_L = mm[:, -1]
+        wS = torch.exp(b - mm_L[:, None])                        # (B,L,h)
+        C_out = torch.einsum("blh,blhv,blhk->bhvk", wS, vf, kf) + \
+            torch.exp(m_in - mm_L)[..., None, None] * C
+        n = torch.einsum("blh,blhk->bhk", wS, kf) + \
+            torch.exp(m_in - mm_L)[..., None] * n
+        C, m_in = C_out, a[:, -1] + mm_L
+    y = torch.stack(ys, dim=1).reshape(B, S, nh, dh)
+    return (C, n, m_in), y
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (xLSTM scalar-memory block)
+# ---------------------------------------------------------------------------
+
+def slstm_block(p, x, cfg, *, chunk=128, state=None):
+    """Strictly sequential scalar-memory LSTM with exponential gating and
+    per-head block-diagonal recurrence.  Returns (out, state);
+    state = (c, n, h, m) each (B, D) [(B, nh) for m].
+
+    The recurrent term is head-major, as in the reference: head i's
+    ``h_i . r[i]`` fills columns [4 dh i, 4 dh (i + 1)) of the (B, 4D)
+    gate pre-activations, which are then split into z, i, f, o over the
+    flattened 4D.  With 4 heads each gate's recurrent term comes from one
+    head's state only (z from head 0, i from 1, f from 2, o from 3)."""
+    B, S, D = x.shape
+    nh = cfg.n_heads
+    dh = D // nh
+    di = cfg.d_inner
+    if state is None:
+        z = torch.zeros((B, D), dtype=torch.float32, device=x.device)
+        state = (z, z.clone(), z.clone(),
+                 torch.full((B, nh), -1e30, dtype=torch.float32,
+                            device=x.device))
+    xh = L.rms_norm(x, p["ln"], cfg.norm_eps)
+    wx = L.linear(xh, p["w"]) + p["b"]                     # (B,S,4D)
+    r = p["r"]
+
+    def step(carry, wx_t):
+        c, n, h, m = carry
+        Bt = h.shape[0]
+        hh = h.reshape(Bt, nh, dh)
+        rg = torch.stack([ops.matmul(hh[:, i], r[i].to(hh.dtype))
+                          for i in range(nh)], dim=1).reshape(Bt, 4 * D)
+        g = wx_t.float() + rg
+        zt = torch.tanh(g[..., :D])
+        it = g[..., D:2 * D].reshape(Bt, nh, dh).mean(-1)
+        ft = g[..., 2 * D:3 * D].reshape(Bt, nh, dh).mean(-1)
+        ot = torch.sigmoid(g[..., 3 * D:])
+        logf = -F.softplus(-ft)
+        m_new = torch.maximum(logf + m, it)
+        fe = torch.exp(logf + m - m_new)[..., None].expand(Bt, nh, dh) \
+            .reshape(Bt, D)
+        ie = torch.exp(it - m_new)[..., None].expand(Bt, nh, dh) \
+            .reshape(Bt, D)
+        c_new = fe * c + ie * zt
+        n_new = fe * n + ie
+        h_new = ot * c_new / torch.clamp(n_new, min=1.0)
+        return (c_new, n_new, h_new, m_new), h_new.to(wx_t.dtype)
+
+    state, ys = chunked_scan(step, state, wx.transpose(0, 1), chunk=chunk)
+    h_seq = ys.transpose(0, 1)
+    # per-block projection FFN (d_ff=0 archs carry their own up/down)
+    u = L.linear(h_seq, p["up"])                           # (B,S,2*di) GLU
+    out = L.linear(F.silu(u[..., :di]) * u[..., di:], p["down"])
+    return out, state

@@ -23,7 +23,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from ..models.model import Model, Params
+from ..models.model import Model, Params, map_cache
 
 
 def bucket_length(n: int, buckets: Sequence[int]) -> int:
@@ -108,9 +108,8 @@ class Engine:
                 self.params, batch, self.sc.s_max,
                 logits_at=torch.tensor([n - 1], device=self.device))
             # splice the single-request cache into slot `slot`, in place
-            for big_kv, one_kv in zip(self.cache, cache1):
-                for big, one in zip(big_kv, one_kv):
-                    big[:, slot:slot + 1].copy_(one)
+            map_cache(lambda big, one: big[:, slot:slot + 1].copy_(one),
+                      self.cache, cache1)
             logits = logits.cpu().numpy()
             self.timings["prefill_s"].append(time.perf_counter() - t0)
             tok0 = int(self._sample(logits[0]))

@@ -206,6 +206,12 @@ class LMStudy:
                  reduced: bool = True):
         self.cfg = get_config(arch, reduced=reduced)
         check_supported(self.cfg)
+        ssm = sorted(set(self.cfg.pattern) - set(MIXER_LOSSES))
+        if ssm:
+            raise NotImplementedError(
+                f"{arch}: the study's thunks for {ssm} (mamba_fb, "
+                f"mlstm_fb, slstm_fb: gradients through the scans) come "
+                f"with the next slice; the port serves this family")
         self.device = resolve_device(device)
         self.batch, self.seq = batch, seq
         gen = torch.Generator().manual_seed(seed)

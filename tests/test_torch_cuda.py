@@ -12,7 +12,8 @@ path's full-width ones (smollm-135m: d_model 576, 9/3 heads of 64, the
 of 6400, the untied 32064-wide head; deepseek-v2: flash forward and
 backward at (dk, dv) = (192, 128) over 128 heads and the reduced (24,
 16), with MLA's scale, the absorbed decode's per-head products on strided
-views, tied router logits, the study's mla_fb), at its tolerances.
+views, tied router logits, the study's mla_fb; reduced xlstm-125m and
+jamba on the card against the CPU), at its tolerances.
 """
 
 import ctypes
@@ -1399,5 +1400,51 @@ def test_mla_model_on_the_card_matches_cpu(cuda_device):
         if dev == "cuda":
             torch.cuda.synchronize()
             assert ops.plain_calls == plain0
+        outs.append(torch.stack(seq))
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-125m", "jamba-v0.1-52b"])
+def test_ssm_model_on_the_card_matches_cpu(cuda_device, arch):
+    """Reduced xlstm-125m and jamba on the card against the port's CPU run:
+    prefill and 3 teacher-forced decode steps, logits within the serving
+    tolerance; every kernel of the model's path launched (matmul and
+    RMSNorm; flash attention for jamba's attention position) and no plain
+    call.  The norms are drawn, and jamba's MoE down-projections scaled by
+    0.1 (its MoE reads the un-normalized residual, whose scale each MoE
+    layer roughly squares; ``tests/test_torch_ssm.py``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, init_params
+    cfg = get_config(arch, reduced=True)
+    pc = init_params(cfg, torch.Generator().manual_seed(46), "cpu")
+    gen = torch.Generator().manual_seed(47)
+    for sub in pc.values():
+        for nm in list(sub):
+            if nm.endswith("ln"):
+                sub[nm] = torch.randn(sub[nm].shape, generator=gen) * 0.1
+            elif nm == "ffn_w_down" and "ffn_router" in sub:
+                sub[nm] = sub[nm] * 0.1
+    pg = {g: {k: v.to(cuda_device) for k, v in sub.items()}
+          for g, sub in pc.items()}
+    toks = torch.from_numpy(np.random.default_rng(48).integers(
+        0, cfg.vocab, (2, 14)))
+    on_path = ("matmul", "rmsnorm") + (
+        ("flash_attention",) if "attn" in cfg.pattern else ())
+    outs = []
+    for dev, params in (("cuda", pg), ("cpu", pc)):
+        model = Model(cfg, device=dev)
+        tt = toks.to(dev)
+        plain0, n0 = dict(ops.plain_calls), dict(ops.launches)
+        lg, cache, _ = model.prefill(params, {"tokens": tt[:, :11]}, 32)
+        seq = [lg.cpu()]
+        for t in range(11, 14):
+            lg, cache = model.decode_step(params, cache, t,
+                                          {"tokens": tt[:, t:t + 1]})
+            seq.append(lg.cpu())
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert ops.plain_calls == plain0
+            assert all(ops.launches[k] > n0[k] for k in on_path)
         outs.append(torch.stack(seq))
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-3, atol=1e-4)

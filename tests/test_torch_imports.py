@@ -44,3 +44,26 @@ def test_model_wants_the_card_by_default():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Model(cfg)
     assert Model(cfg, device="cpu").device.type == "cpu"
+
+
+_IMPORT_SCRIPTS = r"""
+import importlib.util, sys
+for path in sys.argv[1:]:
+    spec = importlib.util.spec_from_file_location("m", path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro")))
+"""
+
+
+def test_chip_scripts_import_neither_jax_nor_repro():
+    """``chip_smoke.py`` and the port's chip scripts run where there is no
+    JAX: importing them loads neither JAX nor the JAX package."""
+    root = SRC.parent
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run(
+        [sys.executable, "-c", _IMPORT_SCRIPTS, str(root / "chip_smoke.py"),
+         str(root / "scripts" / "serve_decode_host.py")],
+        env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout

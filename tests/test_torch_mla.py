@@ -134,8 +134,11 @@ def test_config_is_mla_with_moe():
     assert (full.mla.d_nope + full.mla.d_rope, full.mla.d_v) == (192, 128)
     check_supported(cfg)
     Model(cfg, device="cpu")
+    # any period of the port's mixers and FFNs runs (MLA with a dense FFN
+    # too); a frontend stub does not
+    check_supported(replace(cfg, ffn_pattern=("dense",)))
     with pytest.raises(NotImplementedError, match="mla"):
-        check_supported(replace(cfg, ffn_pattern=("dense",)))
+        check_supported(replace(cfg, n_patches=8))
 
 
 def test_mla_project_q_matches_jax(weights):

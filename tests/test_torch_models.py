@@ -233,5 +233,12 @@ def test_params_from_jax_checks_shapes(setup):
 
 @pytest.mark.parametrize("arch", ["xlstm-125m", "jamba", "musicgen-large"])
 def test_non_dense_archs_not_implemented(arch):
-    with pytest.raises(NotImplementedError):
-        Model(get_config(arch, reduced=True), device="cpu")
+    """The SSM families construct since their slice
+    (``tests/test_torch_ssm.py`` holds them against JAX); the frontend
+    stubs (musicgen's codebooks) are still refused."""
+    cfg = get_config(arch, reduced=True)
+    if cfg.n_codebooks or cfg.n_patches:
+        with pytest.raises(NotImplementedError):
+            Model(cfg, device="cpu")
+    else:
+        assert Model(cfg, device="cpu").cfg.family in ("ssm", "hybrid")

@@ -409,8 +409,15 @@ def test_grad_closure_names_the_unread_norm(weights, remat):
 @pytest.mark.parametrize("arch", ["jamba", "xlstm-125m", "musicgen-large",
                                   "internvl2-2b"])
 def test_other_families_still_rejected(arch):
-    with pytest.raises(NotImplementedError):
-        Model(get_config(arch, reduced=True), device="cpu")
+    """The SSM families are served (a ``Model`` constructs) but their
+    study waits for the next slice; the frontend stubs are refused by
+    both."""
+    cfg = get_config(arch, reduced=True)
+    if cfg.n_codebooks or cfg.n_patches:
+        with pytest.raises(NotImplementedError):
+            Model(cfg, device="cpu")
+    else:
+        Model(cfg, device="cpu")
     with pytest.raises(NotImplementedError):
         LMStudy(arch, device="cpu")
 

@@ -91,7 +91,7 @@ def test_study_wants_the_card_and_the_dense_family():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             LMStudy(ARCH)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="next slice"):
         LMStudy("xlstm-125m", device="cpu")
     full = LMStudy.__init__.__kwdefaults__
     assert full["reduced"] is True and full["device"] is None
