@@ -102,8 +102,8 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
 11. moe    -- the MoE family, phi3.5-moe at its published widths (d_model
               4096, 32/8 heads of 128, 16 experts of 6400 with top-2
               routing, vocab 32064) with the depth cut to 4 of 32 layers
-              (21.9 GB of f32 weights, drawn on the CPU from a seed; a
-              copy on the card): (e) first, every kernel at the MoE
+              (21.9 GB of f32 weights, drawn on the card from a seeded
+              CUDA generator; a copy on the host): (e) first, every kernel at the MoE
               shapes against its plain version and timed as [kernels]
               rows (router N 16, experts at M = cap 1/5/10, the untied
               head N 32064, flash at d 128 over 32/8 heads, RMSNorm 4096
@@ -128,8 +128,9 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               heads, kv_lora 512, q_lora 1536, d_rope 64, d_nope 128, d_v
               128; 160 experts of 1536 with top-6 and 2 shared; vocab
               102400, untied head) with the depth cut to 2 of 60 layers
-              (35.97 GB of f32 weights, drawn on the CPU from a seed after
-              phi3.5-moe's are freed; a copy on the card): (e) first, every
+              (35.97 GB of f32 weights, drawn on the card from a seeded
+              CUDA generator after phi3.5-moe's are freed; a copy on the
+              host): (e) first, every
               kernel at its shapes against its plain version and timed as
               [kernels] rows (flash at (dk, dv) = (192, 128) over 128
               heads, f32 and bf16, and the reduced (24, 16); the absorbed
@@ -179,7 +180,39 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               routing of every MoE layer, each layer's output, the
               logits); (c) three decode steps of each model under
               torch.profiler, the scans' plain ops, the causal conv, the
-              sLSTM recurrent products and jamba's experts split out.
+              sLSTM recurrent products and jamba's experts split out;
+14. ssm-study -- the SSM families' study: (a) xlstm-125m's full-width
+              mlstm_fb (layer 0) and slstm_fb (layer 1) and (b) one
+              full-width jamba Mamba layer's mamba_fb (d_model 4096,
+              d_inner 8192, d_state 16; 0.11 B parameters drawn on the
+              card alone), each at mb 2 x S 32, ssm_chunk 8 and 32, remat
+              none and full: one card call with the counters zeroed
+              (matmul, RMSNorm and its backward launched, no other, no
+              plain call; the matmul launches a call, where ssm 8's
+              per-chunk recompute shows) against the port's CPU run, then
+              timed warm (least of 5, host clock) beside its bound; (c)
+              LMStudy("xlstm-125m", reduced=False) as a 24-point
+              conditional session (tolerance 0.25, trials 3), the counters
+              zeroed around it: per point predicted and full ms, the
+              chosen point and its ssm_chunk, the true best, speedup and
+              optimum quality; (d) the reduced jamba study's 48 points,
+              its depth cut to one period (8 of 16 layers), as phase
+              11's (d): every kernel launched (the flash backward at
+              its attention position), no plain call, sort and dense
+              sharing every mamba_fb and attn_fb and no moe_fb;
+15. frontends -- (a) musicgen-large at its published widths, all 48
+              layers (13.0 GB f32, 4 codebooks of 2048), served through
+              launch/serve.py with 4-codebook prompts as phase 13's (a)
+              (4 head launches a step), then held against the CPU; (b)
+              internvl2-2b at its published widths, all 24 layers (7.6 GB
+              f32), served with text prompts, then a prefill of 1024
+              patches and a 16-token prompt through Model.prefill (the
+              flash forward at d 128 over 1040 positions, 16/8 heads) and
+              2 decode steps at P + t, held against the CPU; (c) each
+              family's full-width embed_loss_fb (codebooks; 1024 patches
+              in front of 32 tokens) card against CPU, timed warm beside
+              its bound; (d) both reduced studies (12 points each) as
+              protocol checks.
 
 It prints the kernels as one JSON line, then the last line
 ``{"ok": true, "device": {...}}``.  ``--out PATH`` also writes the full
@@ -902,37 +935,60 @@ def _recording_routing(routes):
 
 
 def _device_of(params):
-    """The device that a parameter tree lies on."""
-    return params["embed"]["tok"].device
+    """The device that a parameter tree (or one layer's dict) lies on."""
+    while isinstance(params, dict):
+        params = next(iter(params.values()))
+    return params.device
 
 
-def logits_vs_cpu(cfg, p_gpu, p_cpu, steps, prompts=(13, 29)):
+def logits_vs_cpu(cfg, p_gpu, p_cpu, steps, prompts=(13, 29), patches=None,
+                  timings=None):
     """Prefill logits of each prompt and ``steps`` teacher-forced decode
     steps through the port on the card (where ``p_gpu`` lies) against its
     CPU run on the same weights (``SERVE_TOL``), each MoE layer's routing
-    compared first.  Returns (max abs err, token-expert pairs, pairs
-    dropped)."""
+    compared first.  Prompts are ``(1, n, ncb)`` tokens with codebooks;
+    ``patches`` (a ``(1, P, D)`` tensor) goes in front of every prompt,
+    and decode then runs at positions P + n + i.  ``timings``: a dict that
+    gets the card's (the first model's) host-clock prefill and decode-step
+    seconds.  Returns (max abs err, token-expert pairs, pairs dropped)."""
     from repro_torch.models.model import Model
     rng = np.random.default_rng(1)
     worst, pairs, dropped = 0.0, 0, 0
     rtol, atol = SERVE_TOL
     models = ((Model(cfg, device=_device_of(p_gpu)), p_gpu),
               (Model(cfg, device="cpu"), p_cpu))
+    trail = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    P = 0 if patches is None else patches.shape[1]
     for n in prompts:
-        toks = rng.integers(0, cfg.vocab, size=(1, n + steps))
+        toks = rng.integers(0, cfg.vocab, size=(1, n + steps) + trail)
         outs, routes = [], []
-        for model, params in models:
+        for side, (model, params) in enumerate(models):
             dev = model.device
             tt = torch.from_numpy(toks).to(dev)
+            batch = {"tokens": tt[:, :n]}
+            if P:
+                batch["patches"] = patches.to(dev)
+            record = side == 0 and timings is not None
             with _recording_routing([]) as r:
-                lg, cache, _ = model.prefill(params, {"tokens": tt[:, :n]},
-                                             64)
+                t0 = time.perf_counter()
+                lg, cache, t = model.prefill(params, batch,
+                                             max(64, P + n + steps))
                 seq = [lg.float().cpu()]
+                if record:
+                    timings.setdefault("prefill_s", []).append(
+                        time.perf_counter() - t0)
+                if t != P + n:
+                    raise AssertionError(f"prefill of {P} patches and {n} "
+                                         f"tokens returned t = {t}")
                 for i in range(steps):
+                    t0 = time.perf_counter()
                     lg, cache = model.decode_step(
-                        params, cache, torch.tensor([n + i], device=dev),
+                        params, cache, torch.tensor([P + n + i], device=dev),
                         {"tokens": tt[:, n + i:n + i + 1]})
                     seq.append(lg.float().cpu())
+                    if record:
+                        timings.setdefault("decode_s", []).append(
+                            time.perf_counter() - t0)
             outs.append(torch.stack(seq))
             routes.append([(i.cpu(), k.cpu()) for i, k in r])
         for j, ((gi, gk), (ci, ck)) in enumerate(zip(*routes)):
@@ -1266,7 +1322,7 @@ def study_grads_vs_cpu(tag, batch, seq, kinds):
     build))) on the card against the port's CPU run on the same weights
     (random norm weights) and inputs: every gradient within ``STUDY_TOL``
     of its largest magnitude."""
-    from repro_torch.tune.lm_study import LMStudy, _flatten
+    from repro_torch.tune.lm_study import LMStudy
     studies = [LMStudy("smollm-135m", reduced=False, device=dv,
                        batch=batch, seq=seq) for dv in ("cuda", "cpu")]
     for st in studies:
@@ -1278,17 +1334,7 @@ def study_grads_vs_cpu(tag, batch, seq, kinds):
         for st in studies:
             fn, args = mk(st)[1]()
             out.append(fn(*args))
-        worst = 0.0
-        for (path, g), (_, c) in zip(_flatten(out[0]), _flatten(out[1])):
-            g = g.cpu()
-            err = (g - c).abs()
-            lim = atol * max(1.0, float(c.abs().max())) + rtol * c.abs()
-            if not torch.isfinite(g).all() or bool((err > lim).any()):
-                raise AssertionError(f"{tag} {kind} {'/'.join(path)}: card "
-                                     f"vs CPU max abs err "
-                                     f"{float(err.max()):.3e}")
-            worst = max(worst, float((err / c.abs().max().clamp(min=1))
-                                     .max()))
+        worst = grads_vs_cpu(f"{tag} {kind}", *out)
         checks.append({"kernel": kind, "batch": batch, "seq": seq,
                        "max_err_over_scale": worst})
         print(f"{tag} full-width {kind} at batch {batch} x seq {seq}: card "
@@ -1298,6 +1344,37 @@ def study_grads_vs_cpu(tag, batch, seq, kinds):
     del studies
     torch.cuda.empty_cache()
     return checks
+
+
+def grads_vs_cpu(what, card, cpu):
+    """Max err / scale of a gradient tree from the card against the port's
+    CPU run on the same weights and inputs; raises where a gradient is not
+    finite or beyond ``STUDY_TOL`` (the absolute part times the CPU
+    tensor's largest magnitude, at least 1)."""
+    from repro_torch.tune.lm_study import _flatten
+    rtol, atol = STUDY_TOL
+    worst = 0.0
+    for (path, g), (_, c) in zip(_flatten(card), _flatten(cpu)):
+        g = g.cpu()
+        err = (g - c).abs()
+        scale = max(1.0, float(c.abs().max()))
+        if not torch.isfinite(g).all() or \
+                bool((err > atol * scale + rtol * c.abs()).any()):
+            raise AssertionError(f"{what} {'/'.join(path)}: card vs CPU max "
+                                 f"abs err {float(err.max()):.3e}")
+        worst = max(worst, float(err.max()) / scale)
+    return worst
+
+
+def warm_ms(fn, reps: int = 5):
+    """Host-clock ms of ``reps`` warm calls of ``fn`` (each ends in a
+    device sync, as the study times a thunk)."""
+    runs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        runs.append(1e3 * (time.perf_counter() - t0))
+    return runs
 
 
 # -- phase 6: the wall-clock tuning loop --------------------------------------
@@ -2143,6 +2220,16 @@ def phase_workers(device="cuda", reduced=False):
 
 # -- phase 11: the MoE family (phi3.5-moe at full width) ---------------------
 
+def draw_on(device, cfg, seed: int = 0):
+    """``cfg``'s seeded weights drawn on ``device`` from its own generator
+    (on the card: a CPU draw takes ~7 s a GB of f32)."""
+    from repro_torch.models.model import init_params
+    p = init_params(cfg, torch.Generator(device=device).manual_seed(seed),
+                    device)
+    torch.cuda.synchronize()
+    return p
+
+
 # phi3.5-moe at its published widths with the depth cut to 4 of 32 layers:
 # 21.9 GB of f32 weights (the 32 layers' 168 GB fit no card)
 MOE_LAYERS = 4
@@ -2491,8 +2578,7 @@ def phase_moe_grads(cfg, p_cpu, p_gpu, reps: int = 5):
     the study times it), beside its bound: the ``moe_dispatch`` knob's
     reading at full width."""
     from repro_torch.models import moe
-    from repro_torch.tune.lm_study import (MOE_UNREAD, _flatten,
-                                           grad_closure, moe_loss)
+    from repro_torch.tune.lm_study import MOE_UNREAD, grad_closure, moe_loss
     rtol, atol = STUDY_TOL
     layer = [{k[4:]: v[0] for k, v in p["pos0"].items()
               if k.startswith("ffn_")} for p in (p_gpu, p_cpu)]
@@ -2519,25 +2605,10 @@ def phase_moe_grads(cfg, p_cpu, p_gpu, reps: int = 5):
             fns = [grad_closure(moe_loss(cfg, dispatch), remat, xx.device,
                                 unread=MOE_UNREAD) for xx in xs]
             out = [fn(p, xx) for fn, p, xx in zip(fns, layer, xs)]
-            worst = 0.0
-            for (path, g), (_, c) in zip(_flatten(out[0]),
-                                         _flatten(out[1])):
-                g = g.cpu()
-                err = (g - c).abs()
-                scale = max(1.0, float(c.abs().max()))
-                if not torch.isfinite(g).all() or \
-                        bool((err > atol * scale + rtol * c.abs()).any()):
-                    raise AssertionError(
-                        f"[moe] moe_fb {dispatch} remat {remat} "
-                        f"{'/'.join(path)}: card vs CPU max abs err "
-                        f"{float(err.max()):.3e}")
-                worst = max(worst, float(err.max()) / scale)
+            worst = grads_vs_cpu(f"[moe] moe_fb {dispatch} remat {remat}",
+                                 *out)
             del out
-            runs = []
-            for _ in range(reps):
-                t0 = time.perf_counter()
-                fns[0](layer[0], xs[0])
-                runs.append(1e3 * (time.perf_counter() - t0))
+            runs = warm_ms(lambda: fns[0](layer[0], xs[0]), reps)
             b_ms, b_by = moe_fb_bound(cfg, dispatch, remat, T, cap)
             rows.append({"dispatch": dispatch, "remat": remat,
                          "max_err_over_scale": worst, "ms": min(runs),
@@ -2559,18 +2630,16 @@ def phase_moe_grads(cfg, p_cpu, p_gpu, reps: int = 5):
             "rows": rows, "dense_over_sort": ratio}
 
 
-def phase_family_study(tag, arch, mixer, bwd_pairs=None):
-    """(d) A reduced family's study on the card, a protocol check: a
-    24-point conditional session with the launch counters zeroed just
-    before and read just after (every kernel launched, no plain call);
-    the sort and dense points share every ``mixer`` kernel and no
-    ``moe_fb``.  At the reduced width (d_model 64, 4 experts of 64) the
-    two dispatches differ by less than the run-to-run noise, so its
-    chosen point and speedup say nothing of the knob: phase (c) times
-    the knob at full width.  ``bwd_pairs``: a list that records the (dk,
-    dv) of every flash backward launch."""
-    from repro_torch.tune.lm_study import LMStudy, lm_config_space
-    study = LMStudy(arch, **STUDY)
+def study_session(tag, study, bwd_pairs=None):
+    """A conditional session (tolerance 0.25, trials 3) over the study's
+    whole space (``lm_config_space``) on the card, the launch counters
+    zeroed just before and read just after: every kernel of the
+    configuration's path launched (the flash kernels where it has
+    attention), no other, no plain call; every point measured.
+    ``bwd_pairs``: a list that records the (dk, dv) of every flash
+    backward launch.  Returns (result, launches, wall s)."""
+    from repro_torch.tune.lm_study import lm_config_space
+    name, n_points = study.cfg.name, len(lm_config_space(study.cfg))
     _zero_counts()
     t0 = time.perf_counter()
     with _recording_flash_pairs(bwd_pairs, "flash_attention_bwd_cuda"):
@@ -2580,36 +2649,66 @@ def phase_family_study(tag, arch, mixer, bwd_pairs=None):
     launches, plain = dict(ops.launches), dict(ops.plain_calls)
     print(f"[{tag}] study launches: {launches}; plain calls: {plain}")
     if any(plain.values()):
-        raise AssertionError(f"the {arch} study called plain versions: "
+        raise AssertionError(f"the {name} study called plain versions: "
                              f"{plain}")
-    missing = [k for k, n in launches.items() if n <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched by the {arch} study: "
-                             f"{missing}")
-    if len(res.records) != 24:
-        raise AssertionError(f"{len(res.records)} configurations, not 24")
+    attention = bool({"attn", "mla"} & set(study.cfg.pattern))
+    path = {k for k in launches if attention or not k.startswith("flash")}
+    launched = {k for k, n in launches.items() if n > 0}
+    if launched != path:
+        raise AssertionError(f"the {name} study launched {sorted(launched)}"
+                             f", not {sorted(path)}")
+    if len(res.records) != n_points:
+        raise AssertionError(f"{len(res.records)} configurations, not "
+                             f"{n_points}")
     for r in res.records:
         if not (math.isfinite(r.predicted) and r.predicted > 0
                 and r.full_time > 0):
             raise AssertionError(f"[{tag}] {r.name}: bad times "
                                  f"{r.to_json()}")
+    return res, launches, wall
+
+
+def phase_family_study(tag, arch, mixers, bwd_pairs=None, periods=None):
+    """(d) A reduced family's study on the card, a protocol check
+    (``study_session``); with MoE layers, the sort and dense points share
+    every kernel of ``mixers`` (names such as ``attn_fb``) and no
+    ``moe_fb``.  At the reduced width (d_model 64, 4 experts of 64) the
+    two dispatches differ by less than the run-to-run noise, so its
+    chosen point and speedup say nothing of the knob: phase (c) times the
+    knob at full width.  ``periods``: a depth cut to that many periods of
+    the configuration's layer pattern (its weights cut to match)."""
+    from repro_torch.tune.lm_study import LMStudy, lm_config_space
+    study = LMStudy(arch, **STUDY)
+    depth = study.cfg.n_layers
+    if periods is not None:
+        study.cfg = replace(study.cfg, n_layers=periods * study.cfg.period)
+        study.params = {g: {k: v[:periods] for k, v in sub.items()}
+                        if g.startswith("pos") else sub
+                        for g, sub in study.params.items()}
+    res, launches, wall = study_session(tag, study, bwd_pairs)
     sigs = {"sort": set(), "dense": set()}
     for kn in lm_config_space(study.cfg):
         sigs[kn.moe_dispatch] |= {str(s) for s, _, _ in
                                   study.kernel_sequence(kn)}
     shared = sigs["sort"] & sigs["dense"]
-    moe_shared = sorted(s for s in shared if "moe_fb" in s)
-    mix = {d: {s for s in v if mixer in s} for d, v in sigs.items()}
-    if moe_shared or not mix["sort"] or mix["sort"] != mix["dense"]:
-        raise AssertionError(f"[{tag}] sort and dense share moe_fb "
-                             f"{moe_shared} or not every {mixer}")
-    print(f"[{tag}] study (reduced {arch}, {len(res.records)} points, "
+    sharing = ""
+    if study.cfg.moe:
+        moe_shared = sorted(s for s in shared if "moe_fb" in s)
+        mix = {d: {s for s in v if any(m in s for m in mixers)}
+               for d, v in sigs.items()}
+        if moe_shared or not mix["sort"] or mix["sort"] != mix["dense"]:
+            raise AssertionError(f"[{tag}] sort and dense share moe_fb "
+                                 f"{moe_shared} or not every {mixers}")
+        sharing = (f"; sort and dense share {len(shared)} signatures: "
+                   f"every {'/'.join(mixers)} ({len(mix['sort'])}), no "
+                   f"moe_fb")
+    print(f"[{tag}] study (reduced {arch}, {study.cfg.n_layers} of {depth} "
+          f"layers, {len(res.records)} points, "
           f"conditional 0.25, trials 3; a protocol check, not a reading of "
           f"the knob): chosen {res.chosen.name} true best "
           f"{res.true_best.name} (optimum quality "
           f"{res.optimum_quality:.4f}); speedup {res.speedup:.3f}x; wall "
-          f"{wall:.1f} s; sort and dense share {len(shared)} signatures: "
-          f"every {mixer} ({len(mix['sort'])}), no moe_fb")
+          f"{wall:.1f} s{sharing}")
     return {"records": [r.to_json() for r in res.records],
             "chosen": res.chosen.name, "true_best": res.true_best.name,
             "speedup": res.speedup, "optimum_quality": res.optimum_quality,
@@ -2621,24 +2720,22 @@ def phase_family_study(tag, arch, mixer, bwd_pairs=None):
 
 def phase_moe():
     """(e) the kernels at the MoE shapes, then the full-width weights
-    (drawn on the CPU once; a copy moved to the card): (a) serve, (b)
-    profile, (c) gradients; then (d) the reduced study."""
+    (drawn on the card from a seeded CUDA generator; a copy on the host):
+    (a) serve, (b) profile, (c) gradients; then (d) the reduced study."""
     from repro_torch.configs import get_config
     from repro_torch.models import moe
-    from repro_torch.models.model import init_params
     cfg = replace(get_config("phi3.5-moe"), n_layers=MOE_LAYERS)
     kernel_rows = phase_moe_kernels(cfg)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    p_cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    p_gpu = draw_on("cuda", cfg)
     draw_s = time.perf_counter() - t0
-    p_gpu = {g: {k: v.to("cuda") for k, v in sub.items()}
-             for g, sub in p_cpu.items()}
-    torch.cuda.synchronize()
+    p_cpu = {g: {k: v.cpu() for k, v in sub.items()}
+             for g, sub in p_gpu.items()}
     n_params = sum(v.numel() for sub in p_cpu.values() for v in sub.values())
     print(f"[moe] phi3.5-moe at full width, {cfg.n_layers} of 32 layers: "
           f"{n_params} f32 parameters ({4 * n_params / 1e9:.1f} GB), drawn "
-          f"in {draw_s:.1f} s and copied to the card in "
+          f"on the card in {draw_s:.1f} s and copied to the host in "
           f"{time.perf_counter() - t0 - draw_s:.1f} s")
     serve_stats = serve_family("moe", "phi3.5-moe", 32, cfg, p_cpu, p_gpu,
                                moe_per_step_launches(cfg))
@@ -2651,7 +2748,7 @@ def phase_moe():
     grads = phase_moe_grads(cfg, p_cpu, p_gpu)
     del p_cpu, p_gpu
     torch.cuda.empty_cache()
-    study = phase_family_study("moe", "phi3.5-moe", "attn_fb")
+    study = phase_family_study("moe", "phi3.5-moe", ("attn_fb",))
     return {"kernels": kernel_rows, "serve": serve_stats, "grads": grads,
             "study": study, "params": n_params}
 
@@ -2777,8 +2874,7 @@ def phase_mla_grads(cfg, p_cpu, reps: int = 5):
     then the card's closure timed warm, the least of ``reps`` calls
     on the host clock (each ends in a device sync, as the study times
     it), beside its bound."""
-    from repro_torch.tune.lm_study import (StepKnobs, _flatten,
-                                           grad_closure, mla_loss)
+    from repro_torch.tune.lm_study import StepKnobs, grad_closure, mla_loss
     rtol, atol = STUDY_TOL
     gen = torch.Generator().manual_seed(13)
     cpu = {k[4:]: (torch.randn(v.shape[1:], generator=gen) * 0.1
@@ -2804,25 +2900,9 @@ def phase_mla_grads(cfg, p_cpu, reps: int = 5):
                     f"{ops.plain_calls} (before {plain0}), flash backward "
                     f"pairs {pairs}")
             out.append(fns[1](layer[1], xs[1]))
-            worst = 0.0
-            for (path, g), (_, c) in zip(_flatten(out[0]),
-                                         _flatten(out[1])):
-                g = g.cpu()
-                err = (g - c).abs()
-                scale = max(1.0, float(c.abs().max()))
-                if not torch.isfinite(g).all() or \
-                        bool((err > atol * scale + rtol * c.abs()).any()):
-                    raise AssertionError(
-                        f"[mla] mla_fb kv{kv} remat {remat} "
-                        f"{'/'.join(path)}: card vs CPU max abs err "
-                        f"{float(err.max()):.3e}")
-                worst = max(worst, float(err.max()) / scale)
+            worst = grads_vs_cpu(f"[mla] mla_fb kv{kv} remat {remat}", *out)
             del out
-            runs = []
-            for _ in range(reps):
-                t0 = time.perf_counter()
-                fns[0](layer[0], xs[0])
-                runs.append(1e3 * (time.perf_counter() - t0))
+            runs = warm_ms(lambda: fns[0](layer[0], xs[0]), reps)
             b_ms, b_by = mla_fb_bound(cfg, remat, B, S)
             rows.append({"kv_chunk": kv, "remat": remat,
                          "max_err_over_scale": worst, "ms": min(runs),
@@ -2849,15 +2929,14 @@ def phase_mla_grads(cfg, p_cpu, reps: int = 5):
 
 def phase_mla():
     """(e) the kernels at deepseek-v2's shapes, forward and backward, then
-    the full-width weights (drawn on the CPU once; a copy moved to the
-    card): (a) serve, with every flash launch's (dk, dv) recorded, and the
+    the full-width weights (drawn on the card; a copy on the host): (a)
+    serve, with every flash launch's (dk, dv) recorded, and the
     CPU comparison; (b) three decode steps under the profiler, the
     absorbed per-head products and the expert products split out; (c)
     layer 0's full-width ``mla_fb`` gradients; then (d) the reduced
     study, every flash backward launch at (24, 16)."""
     from repro_torch.configs import get_config
     from repro_torch.models import layers, moe
-    from repro_torch.models.model import init_params
     cfg = replace(get_config("deepseek-v2"), n_layers=MLA_LAYERS)
     gen = torch.Generator().manual_seed(7)
     rows, worst = [], {}
@@ -2868,11 +2947,10 @@ def phase_mla():
     bwd_rows = phase_mla_bwd_kernels(cfg)
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    p_cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    p_gpu = draw_on("cuda", cfg)
     draw_s = time.perf_counter() - t0
-    p_gpu = {g: {k: v.to("cuda") for k, v in sub.items()}
-             for g, sub in p_cpu.items()}
-    torch.cuda.synchronize()
+    p_cpu = {g: {k: v.cpu() for k, v in sub.items()}
+             for g, sub in p_gpu.items()}
     n_params = sum(v.numel() for sub in p_cpu.values() for v in sub.values())
     # a decode step reads every block weight (each expert runs on its cap
     # rows, at least one), the final norm and the head; the embedding only
@@ -2882,7 +2960,7 @@ def phase_mla():
     step_bound_ms = step_bytes / HBM_BYTES_PER_S * 1e3
     print(f"[mla] deepseek-v2 at full width, {cfg.n_layers} of 60 layers: "
           f"{n_params} f32 parameters ({4 * n_params / 1e9:.2f} GB), drawn "
-          f"in {draw_s:.1f} s and copied to the card in "
+          f"on the card in {draw_s:.1f} s and copied to the host in "
           f"{time.perf_counter() - t0 - draw_s:.1f} s; a decode step reads "
           f"{step_bytes / 1e9:.2f} GB of weights (bound {step_bound_ms:.2f} "
           f"ms at 3.35 TB/s)")
@@ -2911,7 +2989,8 @@ def phase_mla():
     del p_cpu
     torch.cuda.empty_cache()
     bwd_pairs = []
-    study = phase_family_study("mla", "deepseek-v2", "mla_fb", bwd_pairs)
+    study = phase_family_study("mla", "deepseek-v2", ("mla_fb",),
+                               bwd_pairs)
     if not bwd_pairs or set(bwd_pairs) != {(24, 16)}:
         raise AssertionError(f"[mla] the study's flash backward launched at "
                              f"{sorted(set(bwd_pairs))}, not at (24, 16)")
@@ -2989,16 +3068,18 @@ def ssm_kernel_cases(xcfg, jcfg):
     return cases
 
 
-def ssm_per_step_launches(cfg, S: int):
+def stack_launches(cfg, S: int):
     """Kernel launches of a prefill of an S-token prompt and of a decode
     step, from the configuration: per layer its mixer's norm and products
     (Mamba: in_proj, x_proj, dt_w, out_proj; mLSTM: up, wq, wk, wv, wif,
     down; sLSTM: w, up, down and nh recurrent products a step, so nh S a
     prefill; attention: q, k, v, o and one flash launch a prefill), its
     FFN's (dense: a norm and three products; MoE: the router and three
-    products an expert, no norm); the final norm and the head."""
+    products an expert, no norm); the final norm and the head (a launch a
+    codebook)."""
     mm_mix = {"mamba": 4, "mlstm": 6, "slstm": 3, "attn": 4}
-    pre = {"rmsnorm": 1, "matmul": 1, "flash_attention": 0}
+    pre = {"rmsnorm": 1, "matmul": max(cfg.n_codebooks, 1),
+           "flash_attention": 0}
     dec = dict(pre)
     for kind, fk in zip(cfg.pattern * cfg.n_periods,
                         cfg.ffn_pattern * cfg.n_periods):
@@ -3015,48 +3096,51 @@ def ssm_per_step_launches(cfg, S: int):
     return pre, dec
 
 
-def phase_ssm_xlstm(reduced=False, device="cuda"):
-    """(a) xlstm-125m served through ``launch/serve.py`` as phase 3 serves
-    smollm-135m, the launch counters zeroed just before and read just
-    after: matmul and RMSNorm at the counts ``ssm_per_step_launches``
-    gives for the prompts drawn, no flash launch (no attention), no plain
-    call; then the card's prefill and 8 teacher-forced decode steps of two
-    prompts against the port's CPU run."""
+def serve_cli(tag, arch, reduced=False, device="cuda"):
+    """``arch`` served through ``launch/serve.py`` as phase 3 serves
+    smollm-135m (seeded weights drawn on the CPU and moved to ``device``),
+    the launch counters zeroed just before and read just after: the
+    forward kernels at the counts ``stack_launches`` gives for the prompts
+    drawn, no plain call, every request's 16 tokens in range (lists of
+    ``ncb`` with codebooks).  Returns (stats, the drained engine)."""
     from repro_torch.configs import get_config
     from repro_torch.launch import serve
-    argv = ["--arch", "xlstm-125m"] + SERVE_ARGV[2:] + (
+    argv = ["--arch", arch] + SERVE_ARGV[2:] + (
         ["--reduced"] if reduced else []) + ["--device", device]
-    cfg = get_config("xlstm-125m", reduced=reduced)
+    cfg = get_config(arch, reduced=reduced)
     _zero_counts()
     t0 = time.perf_counter()
     eng = serve.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, plain = dict(ops.launches), dict(ops.plain_calls)
-    print(f"[ssm] xlstm serve launches: {launches}; plain calls: {plain}")
+    print(f"[{tag}] {arch} serve launches: {launches}; plain calls: {plain}")
     if any(plain.values()):
-        raise AssertionError(f"the xlstm serve called plain versions: "
+        raise AssertionError(f"the {arch} serve called plain versions: "
                              f"{plain}")
     lens = [len(r.tokens) for r in serve.synthetic_requests(
-        int(argv[argv.index("--requests") + 1]), cfg.vocab, 0)]
+        int(argv[argv.index("--requests") + 1]), cfg.vocab, 0,
+        cfg.n_codebooks)]
     pre, dec = eng.timings["prefill_s"], eng.timings["decode_s"]
-    per_dec = ssm_per_step_launches(cfg, 1)[1]
-    expect = {k: sum(ssm_per_step_launches(cfg, n)[0][k] for n in lens)
+    per_dec = stack_launches(cfg, 1)[1]
+    expect = {k: sum(stack_launches(cfg, n)[0][k] for n in lens)
               + len(dec) * per_dec[k] for k in per_dec}
     if any(launches[k] for k in launches if k not in FORWARD):
         raise AssertionError(f"serving launched a backward kernel: "
                              f"{launches}")
     got = {k: launches[k] for k in FORWARD}
     if got != expect:
-        raise AssertionError(f"xlstm launches {launches} != {len(pre)} "
+        raise AssertionError(f"{arch} launches {launches} != {len(pre)} "
                              f"prefills of {lens} tokens and {len(dec)} "
                              f"decode steps: {expect}")
-    toks = [t for r in eng.results.values() for t in r.tokens]
+    toks = np.array([t for r in eng.results.values() for t in r.tokens])
     if len(eng.results) != len(lens) or any(
             len(r.tokens) != 16 for r in eng.results.values()) \
-            or not all(0 <= t < cfg.vocab for t in toks):
-        raise AssertionError("xlstm serve results have the wrong count or "
-                             "range")
+            or toks.shape[1:] != (() if not cfg.n_codebooks else
+                                  (cfg.n_codebooks,)) \
+            or not ((0 <= toks) & (toks < cfg.vocab)).all():
+        raise AssertionError(f"{arch} serve results have the wrong count, "
+                             f"shape or range")
     n_params = sum(v.numel() for sub in eng.params.values()
                    for v in sub.values())
     stats = {"layers": cfg.n_layers, "params": n_params,
@@ -3068,12 +3152,22 @@ def phase_ssm_xlstm(reduced=False, device="cuda"):
              "decode_steps": len(dec), "prefills": len(pre),
              "launches": got, "launches_per_decode_step": per_dec,
              "prompt_lengths": lens}
-    print(f"[ssm] serve full-width xlstm-125m ({cfg.n_layers} layers, "
+    print(f"[{tag}] serve full-width {arch} ({cfg.n_layers} layers, "
           f"{4 * n_params / 1e9:.2f} GB f32): {len(eng.results)} requests, "
           f"{len(toks)} tokens; prefill {stats['prefill_ms_mean']:.2f} ms a "
           f"request, decode {stats['decode_ms_mean']:.2f} ms a step (median "
           f"{stats['decode_ms_median']:.2f}; host clock); launches a decode "
-          f"step {per_dec}, no flash (no attention)")
+          f"step {per_dec}")
+    return stats, eng
+
+
+def phase_ssm_xlstm(reduced=False, device="cuda"):
+    """(a) xlstm-125m served through ``launch/serve.py`` (``serve_cli``:
+    matmul and RMSNorm at the counts for the prompts drawn, no flash
+    launch, no attention), then the card's prefill and 8 teacher-forced
+    decode steps of two prompts against the port's CPU run."""
+    stats, eng = serve_cli("ssm", "xlstm-125m", reduced, device)
+    cfg = eng.model.cfg
     p_dev = eng.params
     p_cpu = {g: {k: v.cpu() for k, v in sub.items()}
              for g, sub in p_dev.items()}
@@ -3225,11 +3319,8 @@ def phase_ssm_jamba(cfg, device="cuda"):
     zeroed around the first: the launches a prefill and a decode step from
     the configuration, every flash launch at (128, 128), no plain call),
     then held against the CPU layer by layer (``layers_vs_cpu``)."""
-    from repro_torch.models.model import init_params
     t0 = time.perf_counter()
-    p_dev = init_params(cfg, torch.Generator(device=device).manual_seed(0),
-                        device)
-    torch.cuda.synchronize()
+    p_dev = draw_on(device, cfg)
     draw_s = time.perf_counter() - t0
     n_params = sum(v.numel() for sub in p_dev.values() for v in sub.values())
     step_bytes = 4 * sum(v.numel() for g, sub in p_dev.items()
@@ -3243,7 +3334,7 @@ def phase_ssm_jamba(cfg, device="cuda"):
     launched = []
     with _recording_flash_pairs(launched, heads=True):
         stats = serve_runs("ssm", "jamba-v0.1-52b", 32, cfg, p_dev,
-                           ssm_per_step_launches(cfg, 1))
+                           stack_launches(cfg, 1))
     want = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim)
     if len(launched) != 3 * stats["prefills"] * stats["launches_per_prefill"][
             "flash_attention"] or set(launched) != {want}:
@@ -3304,6 +3395,301 @@ def phase_ssm():
     return {"kernels": rows, "xlstm": xlstm, "jamba": jamba}
 
 
+# -- phase 14: the SSM families' study (xlstm-125m, jamba) ---------------------
+
+SSM_KNOBS = tuple((ssm, remat) for ssm in (8, 32) for remat in ("none", "full"))
+# the kernels an SSM mixer's gradient launches (no attention)
+SSM_FB_PATH = ("matmul", "rmsnorm", "rmsnorm_bwd")
+
+
+def ssm_fb_bound(cfg, kind, ssm, remat, B, S):
+    """(bound ms, by) of one layer's ``{kind}_fb`` at f32: the mixer's
+    weights read and their gradients written once, x read and the output
+    written; the operations of its products (each weight 2 T flops
+    forward; sLSTM's recurrent r counts as a weight of nh x dh x 4 dh) and
+    of its scan (Mamba ~6 di N a token; mLSTM's chunkwise contractions at
+    the intra-chunk length L; the causal conv 2 d_conv di a token), the
+    backward twice the forward, remat full one forward more, and where a
+    chunk is shorter than S (Mamba's and sLSTM's scans) the scan's forward
+    once more."""
+    D, di, nh, T, K = cfg.d_model, cfg.d_inner, cfg.n_heads, B * S, \
+        cfg.d_conv
+    conv = 2 * K * di * T
+    if kind == "mamba":
+        N, dtr = cfg.d_state, di // 16
+        mats = D * 2 * di + di * (dtr + 2 * N) + dtr * di + di * D
+        other = K * di + 2 * di + di * N + D
+        scan = 6 * di * N * T
+        fwd = 2 * T * mats + scan + conv
+    elif kind == "mlstm":
+        dh = di // nh
+        mats = D * 2 * di + 3 * di * di + di * 2 * nh + di * D
+        other = K * di + 2 * nh + D
+        L = min(ssm, S)
+        while S % L:
+            L -= 1
+        scan = 0                        # no chunk remat: nothing redone
+        fwd = 2 * T * mats + conv + (S // L) * (
+            6 * B * nh * L * L * dh + 4 * B * L * nh * dh * dh)
+    else:
+        dh = D // nh
+        mats = D * 4 * D + D * 2 * di + di * D
+        other = 5 * D + nh * dh * 4 * dh
+        scan = 2 * T * nh * dh * 4 * dh     # the recurrent products
+        fwd = 2 * T * mats + scan
+    flops = 3 * fwd + (fwd if remat == "full" else 0) + \
+        (scan if S > ssm else 0)
+    return bound(4 * (2 * (mats + other) + 2 * T * D), flops, "float32")
+
+
+def ssm_thunks(tag, cfg, layers, reps: int = 5):
+    """One full-width layer's ``{kind}_fb`` gradients for each (kind, card
+    params, CPU params) of ``layers`` at mb 2 x S 32, ``ssm_chunk`` 8 and
+    32, remat none and full: one card call with the counters zeroed (the
+    matmul, RMSNorm and RMSNorm-backward kernels launched, no other, no
+    plain call; at ssm 8 the backward recomputes each chunk, which shows
+    in sLSTM's matmul launches), against the port's CPU run
+    (``STUDY_TOL``); then the card's closure timed warm, the least of
+    ``reps`` calls on the host clock, beside its bound."""
+    from repro_torch.tune.lm_study import MIXER_LOSSES, StepKnobs, \
+        grad_closure
+    B, S = STUDY["batch"], STUDY["seq"]
+    x = torch.randn((B, S, cfg.d_model),
+                    generator=torch.Generator().manual_seed(14))
+    xs = (x.to(_device_of(layers[0][1])), x)
+    rows = []
+    for kind, p_gpu, p_cpu in layers:
+        for ssm, remat in SSM_KNOBS:
+            knobs = StepKnobs("k", remat=remat, ssm_chunk=ssm)
+            fns = [grad_closure(MIXER_LOSSES[kind](cfg, knobs, None), remat,
+                                xx.device) for xx in xs]
+            _zero_counts()
+            card = fns[0](p_gpu, xs[0])
+            launches = {k: n for k, n in ops.launches.items() if n}
+            if any(ops.plain_calls.values()) or \
+                    set(launches) != set(SSM_FB_PATH):
+                raise AssertionError(
+                    f"[{tag}] {cfg.name} {kind}_fb ssm{ssm} remat {remat} on "
+                    f"the card: launches {launches}, plain calls "
+                    f"{ops.plain_calls}")
+            what = f"[{tag}] {cfg.name} {kind}_fb ssm{ssm} remat {remat}"
+            worst = grads_vs_cpu(what, card, fns[1](p_cpu, xs[1]))
+            del card
+            runs = warm_ms(lambda: fns[0](p_gpu, xs[0]), reps)
+            b_ms, b_by = ssm_fb_bound(cfg, kind, ssm, remat, B, S)
+            rows.append({"arch": cfg.name, "kind": kind, "ssm_chunk": ssm,
+                         "remat": remat, "launches": launches,
+                         "max_err_over_scale": worst, "ms": min(runs),
+                         "ms_runs": runs, "bound_ms": b_ms,
+                         "bound_by": b_by})
+            print(f"{what} at mb {B} x S {S}: card vs CPU within rtol "
+                  f"{STUDY_TOL[0]}, atol {STUDY_TOL[1]} x scale (max err / "
+                  f"scale {worst:.2e}); launches a call {launches}; card "
+                  f"{min(runs):.3f} ms a call (host clock with its sync, "
+                  f"warm, least of {reps}: {[round(m, 3) for m in runs]}); "
+                  f"bound {b_ms:.5f} ms ({b_by})")
+    return rows
+
+
+def _mix(params, pos):
+    """Position ``pos``'s mixer weights at period 0 (views)."""
+    return {k[4:]: v[0] for k, v in params[f"pos{pos}"].items()
+            if k.startswith("mix_")}
+
+
+def phase_ssm_study(reduced=False, device="cuda"):
+    """(a) xlstm-125m's full-width ``mlstm_fb`` (layer 0) and
+    ``slstm_fb`` (layer 1) and (b) one full-width jamba Mamba layer's
+    ``mamba_fb`` (``ssm_thunks``); (c) ``LMStudy("xlstm-125m",
+    reduced=False)`` as a 24-point conditional session on the card; (d)
+    the reduced jamba study's 48 points as a protocol check, its depth
+    cut to one period (8 of its 16 layers)."""
+    from repro_torch.configs import get_config
+    from repro_torch.tune.lm_study import LMStudy, lm_config_space
+    study = LMStudy("xlstm-125m", reduced=reduced, device=device, **STUDY)
+    _random_norms(study, 11)
+    xcfg = study.cfg
+    layers = [(k, _mix(study.params, i)) for i, k in enumerate(xcfg.pattern)]
+    rows = ssm_thunks("ssm-study", xcfg, [
+        (k, p, {n: t.cpu() for n, t in p.items()}) for k, p in layers])
+    # one Mamba layer of jamba at its published widths, drawn on the card
+    # alone (with its one-layer model's embedding and head, then dropped)
+    jcfg = replace(get_config("jamba-v0.1-52b", reduced=reduced),
+                   pattern=("mamba",), ffn_pattern=("none",), n_layers=1)
+    p = _mix(draw_on(device, jcfg, seed=3), 0)
+    p["ln"] = (torch.randn(p["ln"].shape, generator=torch.Generator()
+                           .manual_seed(15)) * 0.1).to(device)
+    n_mamba = sum(t.numel() for t in p.values())
+    print(f"[ssm-study] jamba's Mamba layer at its published widths "
+          f"(d_model {jcfg.d_model}, d_inner {jcfg.d_inner}, d_state "
+          f"{jcfg.d_state}): {n_mamba} f32 parameters drawn on the "
+          f"{device}")
+    torch.cuda.empty_cache()
+    rows += ssm_thunks("ssm-study", jcfg, [
+        ("mamba", p, {n: t.cpu() for n, t in p.items()})])
+    del p
+    torch.cuda.empty_cache()
+    # (c) the full-width xlstm-125m study
+    res, launches, wall = study_session("ssm-study", study)
+    knobs = {k.name: k for k in lm_config_space(xcfg)}
+    for r in res.records:
+        print(f"[ssm-study] {r.name:26s} predicted {1e3 * r.predicted:9.3f} "
+              f"ms full reference {1e3 * r.full_time:9.3f} ms (rel err "
+              f"{r.rel_error:+.3f}) executed {r.executed:5d} skipped "
+              f"{r.skipped:5d}")
+    chunk = {w: knobs[getattr(res, w).name].ssm_chunk
+             for w in ("chosen", "true_best")}
+    print(f"[ssm-study] study (full-width xlstm-125m, {len(res.records)} "
+          f"points, conditional 0.25, trials 3): chosen {res.chosen.name} "
+          f"(ssm_chunk {chunk['chosen']}) true best {res.true_best.name} "
+          f"(ssm_chunk {chunk['true_best']}); optimum quality "
+          f"{res.optimum_quality:.4f}; speedup {res.speedup:.3f}x (full "
+          f"{res.full_tuning_time:.3f} s, selective "
+          f"{res.selective_tuning_time:.3f} s); wall {wall:.1f} s")
+    session = {"records": [r.to_json() for r in res.records],
+               "chosen": res.chosen.name, "true_best": res.true_best.name,
+               "chosen_ssm_chunk": chunk["chosen"],
+               "true_best_ssm_chunk": chunk["true_best"],
+               "speedup": res.speedup, "optimum_quality": res.optimum_quality,
+               "full_tuning_time_s": res.full_tuning_time,
+               "selective_tuning_time_s": res.selective_tuning_time,
+               "wall_s": wall, "launches": launches}
+    del study
+    torch.cuda.empty_cache()
+    # reduced jamba cut to one period (8 of its 16 layers): the same 48
+    # points and signatures, half the thunks a step
+    jamba = phase_family_study("ssm-study", "jamba-v0.1-52b",
+                               ("mamba_fb", "attn_fb"), periods=1)
+    return {"thunks": rows, "session": session, "jamba_study": jamba}
+
+
+# -- phase 15: the frontends (musicgen-large, internvl2-2b at full width) ------
+
+FRONTEND_PATH = ("matmul", "rmsnorm", "rmsnorm_bwd")   # embed_loss_fb's
+
+
+def embed_fb_bound(cfg, T):
+    """(bound ms, by) of ``embed_loss_fb`` over T positions at f32: the
+    embedding, final norm and head read and their gradients written once
+    (the embedding's gradient in full), the positions' activations read
+    and written; the head's products (2 T D V a codebook forward, twice
+    that backward)."""
+    D, V, ncb = cfg.d_model, cfg.vocab, max(cfg.n_codebooks, 1)
+    params = 2 * ncb * V * D + D
+    return bound(4 * (2 * params + 2 * T * D), 6 * T * D * V * ncb,
+                 "float32")
+
+
+def embed_fb_vs_cpu(tag, cfg, p_gpu, p_cpu, reps: int = 5):
+    """The study's ``embed_loss_fb`` at full width (mb 2 x S 32 tokens,
+    ``(2, 32, ncb)`` with codebooks, N(0, 1) patches in front with a
+    patch prefix; the final norm's weight drawn): one card call with the
+    counters zeroed (matmul, RMSNorm and its backward, no plain call)
+    against the port's CPU run, then timed warm beside its bound."""
+    from repro_torch.models.model import Model
+    from repro_torch.tune.lm_study import embed_loss, grad_closure
+    B, S = STUDY["batch"], STUDY["seq"]
+    gen = torch.Generator().manual_seed(16)
+    trail = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    data = {"tokens": torch.randint(0, cfg.vocab, (B, S) + trail,
+                                    generator=gen)}
+    if cfg.n_patches:
+        data["patches"] = torch.randn((B, cfg.n_patches, cfg.d_model),
+                                      generator=gen)
+    ln = torch.randn((cfg.d_model,), generator=gen) * 0.1
+    fns, subs = [], []
+    for dev, p in ((_device_of(p_gpu), p_gpu), ("cpu", p_cpu)):
+        model = Model(cfg, device=dev)
+        d = {k: v.to(dev) for k, v in data.items()}
+        fns.append(grad_closure(embed_loss(model, d), "none", model.device))
+        subs.append({"embed": p["embed"], "head": p["head"],
+                     "final": {"ln": ln.to(dev)}})
+    _zero_counts()
+    card = fns[0](subs[0])
+    launches = {k: n for k, n in ops.launches.items() if n}
+    if any(ops.plain_calls.values()) or set(launches) != set(FRONTEND_PATH):
+        raise AssertionError(f"[{tag}] {cfg.name} embed_loss_fb on the card: "
+                             f"launches {launches}, plain calls "
+                             f"{ops.plain_calls}")
+    what = f"[{tag}] full-width {cfg.name} embed_loss_fb"
+    worst = grads_vs_cpu(what, card, fns[1](subs[1]))
+    del card
+    runs = warm_ms(lambda: fns[0](subs[0]), reps)
+    T = B * (S + cfg.n_patches)
+    b_ms, b_by = embed_fb_bound(cfg, T)
+    prefix = f" after {cfg.n_patches} patches" if cfg.n_patches else ""
+    print(f"{what} at mb {B} x S {S}{prefix} ({T} positions): card vs CPU "
+          f"within rtol {STUDY_TOL[0]}, atol "
+          f"{STUDY_TOL[1]} x scale (max err / scale {worst:.2e}); launches "
+          f"a call {launches}; card {min(runs):.3f} ms a call (host clock "
+          f"with its sync, warm, least of {reps}: "
+          f"{[round(m, 3) for m in runs]}); bound {b_ms:.5f} ms ({b_by})")
+    return {"positions": T, "launches": launches,
+            "max_err_over_scale": worst, "ms": min(runs), "ms_runs": runs,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_frontends(reduced=False, device="cuda"):
+    """(a) musicgen-large (all 48 layers, 13 GB f32) served through
+    ``launch/serve.py`` with 4-codebook prompts (``serve_cli``: 4 head
+    launches a step), then held against the CPU; (b) internvl2-2b (all 24
+    layers) served with text prompts, then a prefill of 1024 N(0, 1)
+    patches and a 16-token prompt through ``Model.prefill`` (every flash
+    launch at 16/8 heads of 128 over 1040 positions) and 2 decode steps
+    at P + t, held against the CPU; (c) each family's full-width
+    ``embed_loss_fb``; (d) both reduced studies (12 points each) as
+    protocol checks."""
+    out = {}
+    for arch in ("musicgen-large", "internvl2-2b"):
+        stats, eng = serve_cli("frontends", arch, reduced, device)
+        cfg, p_gpu = eng.model.cfg, eng.params
+        del eng
+        p_cpu = {g: {k: v.cpu() for k, v in sub.items()}
+                 for g, sub in p_gpu.items()}
+        t0 = time.perf_counter()
+        worst, _, _ = logits_vs_cpu(cfg, p_gpu, p_cpu, 4)
+        stats["cpu_max_abs_err"] = worst
+        per_dec = stats["launches_per_decode_step"]
+        print(f"[frontends] {arch} CUDA vs CPU logits (prefill + 4 decode "
+              f"steps, prompts (13, 29)): max abs err {worst:.3e} (rtol "
+              f"{SERVE_TOL[0]}, atol {SERVE_TOL[1]}); "
+              f"{time.perf_counter() - t0:.1f} s; a decode step launches "
+              f"{per_dec}, "
+              f"{max(cfg.n_codebooks, 1)} of its matmuls the head's")
+        if cfg.n_patches:
+            patches = torch.randn((1, cfg.n_patches, cfg.d_model),
+                                  generator=torch.Generator().manual_seed(17))
+            flash, timings = [], {}
+            t0 = time.perf_counter()
+            with _recording_flash_pairs(flash, heads=True):
+                worst, _, _ = logits_vs_cpu(cfg, p_gpu, p_cpu, 2, (16,),
+                                            patches, timings)
+            want = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim)
+            if len(flash) != cfg.n_layers or set(flash) != {want}:
+                raise AssertionError(f"[frontends] the patch prefill's flash "
+                                     f"launches {flash}, not {cfg.n_layers} "
+                                     f"at {want}")
+            stats["patch_prefill"] = {
+                "positions": cfg.n_patches + 16, "cpu_max_abs_err": worst,
+                "card_prefill_ms": 1e3 * timings["prefill_s"][0],
+                "card_decode_ms": [1e3 * t for t in timings["decode_s"]],
+                "flash_launches": len(flash)}
+            print(f"[frontends] {arch} prefill of {cfg.n_patches} patches + "
+                  f"16 tokens ({cfg.n_patches + 16} positions; {len(flash)} "
+                  f"flash launches at (H, KVH, dk, dv) {want}) and 2 decode "
+                  f"steps at P + t, CUDA vs CPU: max abs err {worst:.3e}; "
+                  f"card prefill {1e3 * timings['prefill_s'][0]:.2f} ms, "
+                  f"decode {[round(1e3 * t, 2) for t in timings['decode_s']]}"
+                  f" ms (host clock); {time.perf_counter() - t0:.1f} s")
+        stats["embed_loss_fb"] = embed_fb_vs_cpu("frontends", cfg, p_gpu,
+                                                 p_cpu)
+        del p_gpu, p_cpu
+        torch.cuda.empty_cache()
+        stats["study"] = phase_family_study("frontends", arch, ("attn_fb",))
+        out[arch] = stats
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -3315,33 +3701,39 @@ def main(argv=None) -> int:
     cfg = get_config("smollm-135m")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on "
           f"{torch.cuda.get_device_name(0)}")
-    card, ptxas = phase_build()
-    rows, floor = phase_kernels(cfg)
-    variants = phase_rms_variants()
-    bwd_variants = phase_rms_bwd_variants()
-    crossover = phase_crossover()
-    serve_stats, params = phase_serve(cfg)
-    serve_stats["profile"] = phase_profile(cfg, params)
+    phase_s = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.empty_cache()
+        phase_s[name] = time.perf_counter() - t0
+        print(f"[time] {name}: {phase_s[name]:.1f} s")
+        return out
+
+    card, ptxas = timed("build", phase_build)
+    rows, floor = timed("kernels", phase_kernels, cfg)
+    variants = timed("variants", phase_rms_variants)
+    bwd_variants = timed("bwd variants", phase_rms_bwd_variants)
+    crossover = timed("crossover", phase_crossover)
+    serve_stats, params = timed("serve", phase_serve, cfg)
+    serve_stats["profile"] = timed("profile", phase_profile, cfg, params)
     del params
-    torch.cuda.empty_cache()
-    grad_rows, grad_checks = phase_grads(cfg)
-    tune = phase_tune(cfg)
-    torch.cuda.empty_cache()
-    daemon = {"shapes": phase_daemon_shapes(),
-              "parity": phase_daemon_parity(),
-              "full_width": phase_daemon_full(),
-              "wall_clock": phase_daemon_wallclock()}
-    torch.cuda.empty_cache()
-    sim = phase_sim()
-    measured = phase_measured()
-    torch.cuda.empty_cache()
-    workers = phase_workers()
-    torch.cuda.empty_cache()
-    moe = phase_moe()
-    torch.cuda.empty_cache()
-    mla = phase_mla()
-    torch.cuda.empty_cache()
-    ssm = phase_ssm()
+    grad_rows, grad_checks = timed("grads", phase_grads, cfg)
+    tune = timed("tune", phase_tune, cfg)
+    daemon = {"shapes": timed("daemon shapes", phase_daemon_shapes),
+              "parity": timed("daemon parity", phase_daemon_parity),
+              "full_width": timed("daemon full width", phase_daemon_full),
+              "wall_clock": timed("daemon wall clock",
+                                  phase_daemon_wallclock)}
+    sim = timed("sim", phase_sim)
+    measured = timed("measured", phase_measured)
+    workers = timed("workers", phase_workers)
+    moe = timed("moe", phase_moe)
+    mla = timed("mla", phase_mla)
+    ssm = timed("ssm", phase_ssm)
+    ssm_study = timed("ssm-study", phase_ssm_study)
+    frontends = timed("frontends", phase_frontends)
 
     # one entry per kernel: its largest main-path shape at f32 (forward:
     # the serving path's, launches counted there; backward: the tuning
@@ -3376,6 +3768,14 @@ def main(argv=None) -> int:
             "launches_ssm": {
                 "xlstm serve": ssm["xlstm"]["launches"].get(name, 0),
                 "jamba serve": ssm["jamba"]["launches"].get(name, 0)},
+            "launches_ssm_study": {
+                "xlstm-125m session": ssm_study["session"]["launches"][name],
+                "reduced jamba study":
+                    ssm_study["jamba_study"]["launches"][name]},
+            "launches_frontends": {
+                f"{arch} {what}": n for arch, st in frontends.items()
+                for what, n in (("serve", st["launches"].get(name, 0)),
+                                ("study", st["study"]["launches"][name]))},
             "max_abs_err": max(r["max_abs_err"] for r in table
                                if r["kernel"] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -3409,7 +3809,10 @@ def main(argv=None) -> int:
                                         "tune": tune, "daemon": daemon,
                                         "sim": sim, "measured": measured,
                                         "workers": workers, "moe": moe,
-                                        "mla": mla, "ssm": ssm},
+                                        "mla": mla, "ssm": ssm,
+                                        "ssm_study": ssm_study,
+                                        "frontends": frontends,
+                                        "phase_s": phase_s},
                                        indent=1))
     print(f"[time] chip_smoke.py took {time.perf_counter() - T_START:.1f} s "
           f"from its start, the kernels' build included")

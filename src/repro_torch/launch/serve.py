@@ -65,7 +65,8 @@ def main(argv=None):
         batch_size=args.batch, s_max=args.s_max,
         max_new_tokens=args.max_new, temperature=args.temperature,
         seed=args.seed))
-    for req in synthetic_requests(args.requests, cfg.vocab, args.seed):
+    for req in synthetic_requests(args.requests, cfg.vocab, args.seed,
+                                  cfg.n_codebooks):
         eng.submit(req)
     t0 = time.perf_counter()
     steps = 0
@@ -84,14 +85,16 @@ def main(argv=None):
     return eng
 
 
-def synthetic_requests(n: int, vocab: int, seed: int):
-    """The CLI's prompts: ``n`` requests of 4-31 tokens drawn from
-    ``seed``, as the JAX package's ``launch/serve.py`` draws them."""
+def synthetic_requests(n: int, vocab: int, seed: int, n_codebooks: int = 0):
+    """The CLI's prompts: ``n`` requests of 4-31 tokens (each ``(k,
+    n_codebooks)`` with codebooks) drawn from ``seed``, as the JAX
+    package's ``launch/serve.py`` draws them."""
     rng = np.random.default_rng(seed)
     out = []
     for uid in range(n):
         k = int(rng.integers(4, 32))
-        out.append(Request(uid, rng.integers(0, vocab, size=(k,))
+        shape = (k, n_codebooks) if n_codebooks else (k,)
+        out.append(Request(uid, rng.integers(0, vocab, size=shape)
                            .astype(np.int32)))
     return out
 

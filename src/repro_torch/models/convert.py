@@ -6,6 +6,8 @@ against the configuration, and the 3-D/4-D projection weights are reshaped
 to the port's 2-D layout, so both packages compute the same function.
 Block groups are ``pos0``-``pos{period-1}``, each stacked over periods; a
 position's mixer kind decides its reshapes (the SSM weights need none).
+The codebook tables ``(ncb, V, D)`` and head ``(ncb, D, V)`` keep the JAX
+layout.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Model assembly for every family without a frontend stub: parameters,
-forward, prefill, decode (port of ``repro.models.model``).
+"""Model assembly for every family: parameters, forward, prefill, decode
+(port of ``repro.models.model``).
 
 A configuration's ``pattern`` and ``ffn_pattern`` are one period of layer
 kinds (mixers ``attn``, ``mla``, ``mamba``, ``mlstm``, ``slstm``; FFNs
@@ -14,6 +14,14 @@ updated in place: ``(k, v)`` of shape ``(P, B, s_max, KVH, dh)`` under
 attention; MLA's latent ``(c_kv, k_rope)``; Mamba's ``(conv, ssm)``;
 mLSTM's ``(conv, (C, n, m))``; sLSTM's ``(c, n, h, m)``.  Conv states are
 in the compute dtype, SSM states in f32.
+
+The two frontend stubs are the reference's.  With ``n_codebooks`` (musicgen)
+tokens are ``(B, S, ncb)``, the embedding ``(ncb, V, D)`` sums one gather a
+codebook, and the head ``(ncb, D, V)`` gives ``(B, S, ncb, V)`` logits, one
+matmul launch a codebook on its contiguous ``(D, V)`` block.  With
+``n_patches`` (internvl2) a batch may carry ``"patches"`` ``(B, P, D)``,
+which go in front of the token embeddings: positions run over P + S, and
+the cache and ``prefill``'s t count the prefix.
 """
 
 from __future__ import annotations
@@ -56,13 +64,10 @@ ATTENTION = ("attn", "mla")
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    if (set(cfg.pattern) - set(MIXERS) or set(cfg.ffn_pattern) - set(FFNS)
-            or cfg.n_codebooks or cfg.n_patches):
+    if set(cfg.pattern) - set(MIXERS) or set(cfg.ffn_pattern) - set(FFNS):
         raise NotImplementedError(
             f"{cfg.name}: the port runs periods of the mixers {MIXERS} with "
-            f"the FFNs {FFNS} and no frontend stub; got "
-            f"{cfg.pattern}/{cfg.ffn_pattern}, n_codebooks "
-            f"{cfg.n_codebooks}, n_patches {cfg.n_patches}")
+            f"the FFNs {FFNS}; got {cfg.pattern}/{cfg.ffn_pattern}")
 
 
 def _kind_spec(cfg: ArchConfig, kind: str) -> Dict[str, Tuple[tuple, float]]:
@@ -148,8 +153,10 @@ def spec_tree(cfg: ArchConfig) -> Dict[str, Dict[str, Tuple[tuple, float]]]:
     ``i``'s mixer (``mix_*``) and FFN (``ffn_*``) weights with a leading
     ``n_periods`` dim."""
     check_supported(cfg)
-    D, V, P = cfg.d_model, cfg.vocab, cfg.n_periods
-    tree = {"embed": {"tok": ((V, D), -1)}, "final": {"ln": ((D,), 0.0)}}
+    D, V, P, ncb = cfg.d_model, cfg.vocab, cfg.n_periods, cfg.n_codebooks
+    books = (ncb,) if ncb else ()
+    tree = {"embed": {"tok": (books + (V, D), -1)},
+            "final": {"ln": ((D,), 0.0)}}
     for i, (kind, fk) in enumerate(zip(cfg.pattern, cfg.ffn_pattern)):
         pos = {}
         for pre, spec in (("mix_", _kind_spec(cfg, kind)),
@@ -158,7 +165,7 @@ def spec_tree(cfg: ArchConfig) -> Dict[str, Dict[str, Tuple[tuple, float]]]:
                 pos[pre + nm] = ((P,) + shape, fan)
         tree[f"pos{i}"] = pos
     if not cfg.tie_embeddings:
-        tree["head"] = {"w": ((D, V), D)}
+        tree["head"] = {"w": (books + (D, V), D)}
     return tree
 
 
@@ -216,12 +223,26 @@ class Model:
     # -- embedding / head -----------------------------------------------------
 
     def _embed(self, params, batch):
-        table = params["embed"]["tok"].to(self.knobs.compute_dtype)
-        return table[batch["tokens"].long()]
+        cd = self.knobs.compute_dtype
+        table = params["embed"]["tok"].to(cd)
+        tok = batch["tokens"].long()
+        if self.cfg.n_codebooks:
+            # (B, S, ncb) tokens: the sum of the per-codebook embeddings
+            x = sum(table[c][tok[..., c]]
+                    for c in range(self.cfg.n_codebooks))
+        else:
+            x = table[tok]
+        if self.cfg.n_patches and "patches" in batch:
+            x = torch.cat([batch["patches"].to(cd), x], dim=1)
+        return x
 
     def _head(self, params, x):
         if self.knobs.logits_f32:
             x = x.float()
+        if self.cfg.n_codebooks:   # bsd,cdv->bscv: a launch a codebook
+            w = params["head"]["w"].to(x.dtype)
+            return torch.stack([L.linear(x, w[c])
+                                for c in range(w.shape[0])], dim=2)
         if "head" in params:
             w = params["head"]["w"].to(x.dtype)
         else:   # tied: a transposed view, read in place by the kernel
@@ -347,8 +368,10 @@ class Model:
         """Run the full prompt, build an s_max-capacity cache.
 
         ``logits_at``: optional (B,) positions of each row's true prompt end
-        (right-padded batches); default = last position.  Returns
-        (logits (B, V) at those positions, cache, t=prompt_len).  The pad
+        (right-padded batches) in the sequence the layers see, a patch
+        prefix's P positions included; default = last position.  Returns
+        (logits (B, V) [(B, ncb, V) with codebooks] at those positions,
+        cache, t = P + prompt_len).  The pad
         positions' K/V (MLA: latents) stay in the cache, and decode masks
         them; an SSM's state is the one after the whole padded prompt, as
         in the reference."""
@@ -385,8 +408,9 @@ class Model:
 
     def decode_step(self, params, cache, t, batch):
         """One new token per row.  t: int, 0-d or (B,) positions (ragged
-        rows); batch['tokens']: (B, 1).  Writes the cache in place and
-        returns (logits (B, V), cache)."""
+        rows; after a patch prefix, P + the text position);
+        batch['tokens']: (B, 1) [(B, 1, ncb)].  Writes the cache in place
+        and returns (logits (B, V) [(B, ncb, V)], cache)."""
         cfg = self.cfg
         x = self._embed(params, batch)
         t = torch.as_tensor(t, device=x.device).long()

@@ -14,12 +14,16 @@ in the reference: the scans' contractions between activations (Mamba's
 products and state updates), the elementwise gates, and the depthwise
 causal conv.  A kernel for the scans is later work.
 
-``chunked_scan`` keeps the reference's refusal of a length that is longer
-than one chunk of ``chunk`` steps and not a multiple of it, and runs the
-steps in one loop.  The reference rematerializes each chunk's body in its
-backward (``jax.checkpoint``); that matters only under autograd, which the
-port's serving path does not record.  The reference's ``_manual_scan`` and the
-sharding annotations are no-ops without rules and are dropped.
+``chunked_scan`` keeps the reference's cost structure: a length longer
+than one chunk of ``chunk`` steps runs chunk by chunk, and where autograd
+records the scan each chunk runs under ``torch.utils.checkpoint``, so the
+backward saves only the carries at chunk boundaries and recomputes each
+chunk's steps (the reference's ``jax.checkpoint`` of the chunk body with
+``nothing_saveable``).  A length within one chunk, or a scan that records
+no graph (the serving path), runs one plain loop.  A length longer than one
+chunk and not a multiple of it is refused, as in the reference.  The
+reference's ``_manual_scan`` and the sharding annotations are no-ops
+without rules and are dropped.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
 from . import layers as L
@@ -37,25 +42,53 @@ def _steps(xs):
     return xs.shape[0] if isinstance(xs, torch.Tensor) else xs[0].shape[0]
 
 
-def _at(xs, t):
-    return xs[t] if isinstance(xs, torch.Tensor) else tuple(a[t] for a in xs)
+def _slice(xs, a, b):
+    return xs[a:b] if isinstance(xs, torch.Tensor) else \
+        tuple(x[a:b] for x in xs)
+
+
+def _tensors(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for sub in tree for t in _tensors(sub)]
+
+
+def _loop(step_fn, carry, xs):
+    """The steps of ``xs`` in order: (final carry, ys stacked)."""
+    ys = []
+    for t in range(_steps(xs)):
+        carry, y = step_fn(carry, xs[t] if isinstance(xs, torch.Tensor)
+                           else tuple(a[t] for a in xs))
+        ys.append(y)
+    return carry, torch.stack(ys)
 
 
 def chunked_scan(step_fn, carry, xs, *, chunk: int):
     """scan(step_fn, carry, xs) over xs's leading (S,) dim (a tensor or a
     tuple of tensors); ``step_fn(carry, x_t) -> (carry, y_t)`` with ``y_t``
-    a tensor.  Returns (final carry, ys (S, ...)).  Refuses S > chunk where
-    chunk does not divide S, as the reference does; the steps run in
-    order, so without remat the chunks need no loop of their own."""
+    a tensor and ``carry`` a tensor or a tuple of them.  Returns (final
+    carry, ys (S, ...)).  S > chunk runs S / chunk chunks, each under
+    ``checkpoint`` when autograd records the scan (its carry or inputs
+    require grad); S <= chunk, or no graph, one loop.  Refuses S > chunk
+    where chunk does not divide S, as the reference does."""
     S = _steps(xs)
     if S > chunk and S % chunk:
         raise ValueError(f"chunked_scan: {S} steps are not a whole number "
                          f"of chunks of {chunk}")
+    recording = torch.is_grad_enabled() and any(
+        t.requires_grad for t in _tensors((carry, xs)))
+    if S <= chunk or not recording:
+        return _loop(step_fn, carry, xs)
     ys = []
-    for t in range(S):
-        carry, y = step_fn(carry, _at(xs, t))
+    for c0 in range(0, S, chunk):
+        # the steps draw no random numbers and the recompute runs the same
+        # ops on the same inputs: no RNG state to stash, nothing to check
+        carry, y = checkpoint(_loop, step_fn, carry,
+                              _slice(xs, c0, c0 + chunk),
+                              use_reentrant=False, preserve_rng_state=False,
+                              determinism_check="none")
         ys.append(y)
-    return carry, torch.stack(ys)
+    return carry, torch.cat(ys)
 
 
 # ---------------------------------------------------------------------------

@@ -9,6 +9,11 @@ Slot-based continuous batching over a fixed-capacity decode batch:
   too, at their stale position, as in JAX: the batch shape never changes);
 - finished slots (eos or max tokens) are retired and refilled.
 
+With codebooks (musicgen) a prompt is ``(n, ncb)``, each step samples one
+token a codebook over the last axis, a result's tokens are lists of
+``ncb``, and there is no EOS stop, as in JAX.  No patches are passed: a
+patch prefix goes through ``Model.prefill``.
+
 Sampling stays on the host with numpy: greedy or temperature.  The engine
 records the host time of each prefill (cache splice and the logits' copy
 to the host included) and of each decode step in ``timings``.
@@ -53,7 +58,7 @@ class ServeConfig:
 @dataclass
 class Request:
     uid: int
-    tokens: np.ndarray              # (S_prompt,) prompt token ids
+    tokens: np.ndarray              # (S_prompt[, ncb]) prompt token ids
     max_new_tokens: Optional[int] = None
 
 
@@ -79,10 +84,19 @@ class Engine:
         self.slot_uid = np.full(B, -1, np.int64)
         self.results: Dict[int, Result] = {}
         self.queue: List[Request] = []
-        self.last_token = np.zeros(B, np.int64)
+        self.last_token = np.zeros((B,) + self._tok_trailing(), np.int64)
         self.timings: Dict[str, List[float]] = {"prefill_s": [],
                                                 "decode_s": []}
         self._rng = np.random.default_rng(sc.seed)
+
+    def _tok_trailing(self):
+        ncb = self.model.cfg.n_codebooks
+        return (ncb,) if ncb else ()
+
+    def _token(self, tok):
+        """A sampled token as a result holds it: an int, or one a codebook."""
+        return list(map(int, tok)) if self.model.cfg.n_codebooks \
+            else int(tok)
 
     # -- public API -----------------------------------------------------------
 
@@ -100,7 +114,8 @@ class Engine:
                 break
             req = self.queue.pop(0)
             n = len(req.tokens)
-            toks = np.zeros((1, self._bucket(n)), np.int64)
+            toks = np.zeros((1, self._bucket(n)) + self._tok_trailing(),
+                            np.int64)
             toks[0, :n] = req.tokens
             t0 = time.perf_counter()
             batch = {"tokens": torch.from_numpy(toks).to(self.device)}
@@ -112,7 +127,7 @@ class Engine:
                       self.cache, cache1)
             logits = logits.cpu().numpy()
             self.timings["prefill_s"].append(time.perf_counter() - t0)
-            tok0 = int(self._sample(logits[0]))
+            tok0 = self._sample(logits[0])
             self.last_token[slot] = tok0
             self.lengths[slot] = n
             # the prefill-sampled token is the first generated token
@@ -120,7 +135,7 @@ class Engine:
                                  or self.sc.max_new_tokens) - 1
             self.active[slot] = True
             self.slot_uid[slot] = req.uid
-            self.results[req.uid].tokens.append(tok0)
+            self.results[req.uid].tokens.append(self._token(tok0))
 
     def _sample(self, logits):
         if self.sc.temperature <= 0:
@@ -148,13 +163,16 @@ class Engine:
         logits = logits.cpu().numpy()
         self.timings["decode_s"].append(time.perf_counter() - t0)
         for slot in np.nonzero(self.active)[0]:
-            val = int(self._sample(logits[slot]))
-            self.last_token[slot] = val
+            nxt = self._sample(logits[slot])
+            self.last_token[slot] = nxt
             self.lengths[slot] += 1
             self.budget[slot] -= 1
             uid = int(self.slot_uid[slot])
+            val = self._token(nxt)
             self.results[uid].tokens.append(val)
-            eos = self.sc.eos_id is not None and val == self.sc.eos_id
+            eos = (self.sc.eos_id is not None
+                   and not self.model.cfg.n_codebooks
+                   and val == self.sc.eos_id)
             if eos or self.budget[slot] <= 0 \
                     or self.lengths[slot] >= self.sc.s_max - 1:
                 self.active[slot] = False

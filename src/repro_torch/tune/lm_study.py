@@ -3,14 +3,19 @@
 real wall clock).
 
 A *configuration* is a ``StepKnobs`` point (grad accumulation x remat x
-attention chunking x MoE dispatch; the SSM knob stays at its one value,
-the port running no SSM family yet).  A configuration's step is
+attention/ssm chunking x MoE dispatch).  A configuration's step is
 decomposed into recurring kernels:
 
     embed+loss closure        once per microbatch
-    attn or mla fwd+bwd       n_periods x microbatches
-    dense or moe fwd+bwd      likewise
+    <mixer kind> fwd+bwd      n_periods x period-positions x microbatches
+    <ffn kind>  fwd+bwd       likewise (the FFN kind ``none``: no kernel)
     optimizer update          once per step
+
+The SSM mixers (``mamba_fb``, ``mlstm_fb``, ``slstm_fb``) run at
+``ssm_chunk``: Mamba's and sLSTM's scans rematerialize each chunk in the
+backward where the sequence is longer than one chunk
+(``models/ssm.py:chunked_scan``), and mLSTM's chunkwise form takes it as
+its intra-chunk length.
 
 Each kernel is a closure keyed by a ``Signature`` carrying the knob subset
 that affects it, the same signatures and occurrence counts as the JAX
@@ -43,6 +48,7 @@ from repro_torch.core.signatures import Signature, comp_sig
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import ssm
 from repro_torch.models.model import (Model, ModelKnobs, check_supported,
                                       init_params)
 from .selective import SelectiveTimer
@@ -158,8 +164,26 @@ def mla_loss(cfg: ArchConfig, knobs: StepKnobs, positions):
     return loss
 
 
-# the mixer kinds the port's study runs (``check_supported``), by loss
-MIXER_LOSSES = {"attn": attn_loss, "mla": mla_loss}
+def _ssm_loss(kind: str):
+    """The loss factory of an SSM mixer: sum(h^2) of ``ssm.{kind}_block``
+    at ``ssm_chunk``, as the JAX study's (mLSTM in its chunkwise form,
+    where the knob is the intra-chunk length)."""
+
+    def make(cfg: ArchConfig, knobs: StepKnobs, positions):
+        def loss(mix, x):
+            h, _ = getattr(ssm, f"{kind}_block")(mix, x, cfg,
+                                                 chunk=knobs.ssm_chunk)
+            return torch.sum(h * h)
+        return loss
+    return make
+
+
+mamba_loss, mlstm_loss, slstm_loss = (_ssm_loss(k) for k in
+                                      ("mamba", "mlstm", "slstm"))
+
+# every mixer kind's loss (``check_supported``'s ``MIXERS``)
+MIXER_LOSSES = {"attn": attn_loss, "mla": mla_loss, "mamba": mamba_loss,
+                "mlstm": mlstm_loss, "slstm": slstm_loss}
 
 
 def dense_loss(cfg: ArchConfig):
@@ -187,7 +211,8 @@ def moe_loss(cfg: ArchConfig, dispatch: str):
 
 
 def embed_loss(model: Model, data):
-    """mean(logits^2) of embed -> final norm -> head, as the JAX study's."""
+    """mean(logits^2) of embed -> final norm -> head, as the JAX study's:
+    over every position, a patch prefix's included, and every codebook."""
     cfg = model.cfg
 
     def loss(params):
@@ -206,20 +231,21 @@ class LMStudy:
                  reduced: bool = True):
         self.cfg = get_config(arch, reduced=reduced)
         check_supported(self.cfg)
-        ssm = sorted(set(self.cfg.pattern) - set(MIXER_LOSSES))
-        if ssm:
-            raise NotImplementedError(
-                f"{arch}: the study's thunks for {ssm} (mamba_fb, "
-                f"mlstm_fb, slstm_fb: gradients through the scans) come "
-                f"with the next slice; the port serves this family")
         self.device = resolve_device(device)
         self.batch, self.seq = batch, seq
         gen = torch.Generator().manual_seed(seed)
         self.params = init_params(self.cfg, gen, self.device)
+        cfg = self.cfg
+        tshape = ((batch, seq, cfg.n_codebooks) if cfg.n_codebooks
+                  else (batch, seq))
         self.batch_data = {
-            k: torch.randint(0, self.cfg.vocab, (batch, seq),
+            k: torch.randint(0, cfg.vocab, tshape,
                              generator=gen).to(self.device)
             for k in ("tokens", "labels")}
+        if cfg.n_patches:
+            self.batch_data["patches"] = torch.randn(
+                (batch, cfg.n_patches, cfg.d_model), generator=gen
+            ).to(self.device)
         self._fns: Dict[Signature, callable] = {}
         self._args: Dict[Signature, tuple] = {}
         # one build per signature when two threads (a daemon's serve loop
@@ -287,7 +313,8 @@ class LMStudy:
         sig = comp_sig("embed_loss_fb", mb, self.seq, cfg.vocab)
 
         def build():
-            model = Model(cfg, ModelKnobs(kv_chunk=knobs.kv_chunk),
+            model = Model(cfg, ModelKnobs(kv_chunk=knobs.kv_chunk,
+                                          ssm_chunk=knobs.ssm_chunk),
                           device=self.device)
             data = {k: v[:mb] for k, v in self.batch_data.items()}
             fn = grad_closure(embed_loss(model, data), "none", self.device)

@@ -1448,3 +1448,54 @@ def test_ssm_model_on_the_card_matches_cpu(cuda_device, arch):
             assert all(ops.launches[k] > n0[k] for k in on_path)
         outs.append(torch.stack(seq))
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-3, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["musicgen-large", "internvl2-2b"])
+def test_frontend_model_on_the_card_matches_cpu(cuda_device, arch):
+    """Reduced musicgen-large (4 codebooks: (B, S, 4) tokens, (B, 4, V)
+    logits, a head launch a codebook) and internvl2-2b (a prefill of 8
+    patches in front of the prompt, decode at P + t) on the card against
+    the port's CPU run: prefill and 3 teacher-forced decode steps, logits
+    within the serving tolerance; matmul, RMSNorm and flash attention
+    launched, no plain call."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, init_params
+    cfg = get_config(arch, reduced=True)
+    pc = init_params(cfg, torch.Generator().manual_seed(49), "cpu")
+    gen = torch.Generator().manual_seed(50)
+    for sub in pc.values():
+        for nm in list(sub):
+            if nm.endswith("ln"):
+                sub[nm] = torch.randn(sub[nm].shape, generator=gen) * 0.1
+    pg = {g: {k: v.to(cuda_device) for k, v in sub.items()}
+          for g, sub in pc.items()}
+    rng = np.random.default_rng(51)
+    trail = (cfg.n_codebooks,) if cfg.n_codebooks else ()
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 14) + trail))
+    patches = torch.from_numpy(rng.standard_normal(
+        (2, cfg.n_patches, cfg.d_model)).astype(np.float32) * 0.1)
+    P = cfg.n_patches
+    outs = []
+    for dev, params in (("cuda", pg), ("cpu", pc)):
+        model = Model(cfg, device=dev)
+        tt = toks.to(dev)
+        batch = {"tokens": tt[:, :11]}
+        if P:
+            batch["patches"] = patches.to(dev)
+        plain0, n0 = dict(ops.plain_calls), dict(ops.launches)
+        lg, cache, t0 = model.prefill(params, batch, 64)
+        assert t0 == P + 11
+        seq = [lg.cpu()]
+        for t in range(11, 14):
+            lg, cache = model.decode_step(params, cache, P + t,
+                                          {"tokens": tt[:, t:t + 1]})
+            seq.append(lg.cpu())
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert ops.plain_calls == plain0
+            assert all(ops.launches[k] > n0[k]
+                       for k in ("matmul", "rmsnorm", "flash_attention"))
+        outs.append(torch.stack(seq))
+    assert outs[0].shape == ((4, 2, 4, 256) if trail else (4, 2, 256))
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-3, atol=1e-4)

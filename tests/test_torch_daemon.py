@@ -10,8 +10,9 @@
     (``tests/test_daemon.py``'s offline pattern);
 (c) the daemon buckets request shapes with the engine's own
     ``bucket_length``;
-(d) the CLI's ``--daemon`` runs on the CPU when asked, and the provider
-    wants the card by default;
+(d) the CLI's ``--daemon`` runs on the CPU when asked (reduced
+    xlstm-125m's studies too), and the provider wants the card by
+    default;
 (e) the lazy state that two threads share (an ``LMStudy``'s kernel
     closures, the kernel libraries, the cached workspace) is built once.
 """
@@ -124,6 +125,21 @@ def test_cli_daemon_on_the_cpu(capsys):
     assert summary["steady_state_counters"]["cold_banked_exec"] == 0
     out = capsys.readouterr().out
     assert "hit ratio" in out and "2nd tuned serve" in out
+
+
+def test_cli_daemon_tunes_the_ssm_family_on_the_cpu(capsys):
+    """The daemon's per-shape studies construct for reduced xlstm-125m
+    (mLSTM and sLSTM thunks at ssm_chunk 8 and 32) and land a winner for
+    every shape."""
+    from repro_torch.launch.serve import main
+    summary = main(["--arch", "xlstm-125m", "--reduced", "--device", "cpu",
+                    "--daemon", "--rounds", "2"])
+    winners = [v["winner"] for v in summary["second_tuned_serves"].values()]
+    assert len(winners) == 3 and all(
+        w and w.endswith(("-ssm8", "-ssm32")) for w in winners)
+    assert summary["steady_state_counters"]["cold_banked_exec"] == 0
+    assert "study_failed" not in {e["event"] for e in summary["events"]}
+    assert "hit ratio" in capsys.readouterr().out
 
 
 def test_provider_wants_the_card_by_default():

@@ -135,10 +135,12 @@ def test_config_is_mla_with_moe():
     check_supported(cfg)
     Model(cfg, device="cpu")
     # any period of the port's mixers and FFNs runs (MLA with a dense FFN
-    # too); a frontend stub does not
+    # too, and under a frontend stub); a kind outside them does not
     check_supported(replace(cfg, ffn_pattern=("dense",)))
+    check_supported(replace(cfg, n_patches=8))
     with pytest.raises(NotImplementedError, match="mla"):
-        check_supported(replace(cfg, n_patches=8))
+        check_supported(replace(cfg, pattern=("mla", "rwkv"),
+                                ffn_pattern=("moe", "moe")))
 
 
 def test_mla_project_q_matches_jax(weights):

@@ -233,12 +233,13 @@ def test_params_from_jax_checks_shapes(setup):
 
 @pytest.mark.parametrize("arch", ["xlstm-125m", "jamba", "musicgen-large"])
 def test_non_dense_archs_not_implemented(arch):
-    """The SSM families construct since their slice
-    (``tests/test_torch_ssm.py`` holds them against JAX); the frontend
-    stubs (musicgen's codebooks) are still refused."""
+    """Every family constructs: the SSM families since their slice
+    (``tests/test_torch_ssm.py`` holds them against JAX) and the frontend
+    stubs since theirs (``tests/test_torch_frontends.py``); musicgen's
+    model takes codebook tables."""
     cfg = get_config(arch, reduced=True)
-    if cfg.n_codebooks or cfg.n_patches:
-        with pytest.raises(NotImplementedError):
-            Model(cfg, device="cpu")
-    else:
-        assert Model(cfg, device="cpu").cfg.family in ("ssm", "hybrid")
+    model = Model(cfg, device="cpu")
+    assert model.cfg.family in ("ssm", "hybrid", "audio")
+    shape = tuple(model.init(torch.Generator().manual_seed(0))["embed"]
+                  ["tok"].shape)
+    assert shape == ((4, 256, 64) if cfg.n_codebooks else (256, 64))

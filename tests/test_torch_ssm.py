@@ -24,8 +24,8 @@ and given to both sides.
   decode steps at ragged positions; the engines' greedy tokens, with and
   without ``prompt_buckets`` (under buckets an SSM's state has run over
   the pad tokens, in both packages); ``params_from_jax`` over
-  ``pos0``-``pos7``; the SSM init values; the serve CLI; and
-  ``LMStudy``'s refusal of the SSM kinds.
+  ``pos0``-``pos7``; the SSM init values; and the serve CLI (the study:
+  ``tests/test_torch_ssm_study.py``).
 
 Tolerances as ``tests/test_torch_models.py``: rtol 1e-4, atol 1e-5 (the
 same f32 arithmetic in another order).
@@ -52,7 +52,6 @@ from repro_torch.models.convert import params_from_jax
 from repro_torch.models.model import (Model, ModelKnobs, init_params,
                                       spec_tree)
 from repro_torch.serve.engine import Engine, Request, ServeConfig
-from repro_torch.tune import LMStudy
 
 RTOL, ATOL = 1e-4, 1e-5
 XLSTM, JAMBA = "xlstm-125m", "jamba-v0.1-52b"
@@ -548,11 +547,3 @@ def test_serve_cli_reduced(arch):
     assert len(eng.results) == 3
     assert all(len(r.tokens) == 4 for r in eng.results.values())
 
-
-@pytest.mark.parametrize("arch", [XLSTM, JAMBA])
-def test_study_refuses_the_ssm_kinds(arch):
-    """The study's SSM thunks come with the next slice: ``LMStudy`` names
-    it rather than fail on a missing loss."""
-    Model(get_config(arch, reduced=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="next slice"):
-        LMStudy(arch, device="cpu")

@@ -19,6 +19,7 @@ import torch
 
 from repro.tune.lm_study import LMStudy as JaxStudy
 from repro.tune.lm_study import lm_config_space as jax_space
+from repro_torch.configs import get_config
 from repro_torch.core.signatures import Signature
 from repro_torch.tune import LMStudy, lm_config_space
 
@@ -88,10 +89,15 @@ def test_race_picks_jax_winner_under_tick_clock(studies):
 
 
 def test_study_wants_the_card_and_the_dense_family():
+    """The study wants the card unless asked for the CPU, and runs every
+    family: the SSM ones (``tests/test_torch_ssm_study.py``) and the
+    frontend stubs (``tests/test_torch_frontends.py``) too."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             LMStudy(ARCH)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        LMStudy("xlstm-125m", device="cpu")
+    names = {s.name for s, _, _ in LMStudy("xlstm-125m", device="cpu")
+             .kernel_sequence(lm_config_space(get_config(
+                 "xlstm-125m", reduced=True))[0])}
+    assert names == {"mlstm_fb", "slstm_fb", "embed_loss_fb", "adamw"}
     full = LMStudy.__init__.__kwdefaults__
     assert full["reduced"] is True and full["device"] is None
