@@ -101,8 +101,8 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               (`golden_space`, `lm_space`) from this file;
 11. moe    -- the MoE family, phi3.5-moe at its published widths (d_model
               4096, 32/8 heads of 128, 16 experts of 6400 with top-2
-              routing, vocab 32064) with the depth cut to 4 of 32 layers
-              (21.9 GB of f32 weights, drawn on the card from a seeded
+              routing, vocab 32064) with the depth cut to 2 of 32 layers
+              (11.5 GB of f32 weights, drawn on the card from a seeded
               CUDA generator; a copy on the host): (e) first, every kernel at the MoE
               shapes against its plain version and timed as [kernels]
               rows (router N 16, experts at M = cap 1/5/10, the untied
@@ -127,8 +127,8 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
 12. mla    -- MLA, deepseek-v2 at its published widths (d_model 5120, 128
               heads, kv_lora 512, q_lora 1536, d_rope 64, d_nope 128, d_v
               128; 160 experts of 1536 with top-6 and 2 shared; vocab
-              102400, untied head) with the depth cut to 2 of 60 layers
-              (35.97 GB of f32 weights, drawn on the card from a seeded
+              102400, untied head) with the depth cut to 1 of 60 layers
+              (20.08 GB of f32 weights, drawn on the card from a seeded
               CUDA generator after phi3.5-moe's are freed; a copy on the
               host): (e) first, every
               kernel at its shapes against its plain version and timed as
@@ -212,7 +212,24 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               family's full-width embed_loss_fb (codebooks; 1024 patches
               in front of 32 tokens) card against CPU, timed warm beside
               its bound; (d) both reduced studies (12 points each) as
-              protocol checks.
+              protocol checks;
+16. train  -- (a) smollm-135m at its published widths trained through
+              launch/train.py (8 steps of 8 x 128 tokens in 2
+              microbatches, remat full, a checkpoint every 4 steps;
+              seeded random f32 weights, the synthetic stream), the launch
+              counters zeroed just before and read just after: every
+              kernel, forward and backward, at the count the
+              configuration gives, no plain call; each step's host ms and
+              loss; (b) the same command after the step-8 checkpoint is
+              deleted resumes from step 4, and its losses for steps 5-8,
+              its parameters and its AdamW state equal the straight run's
+              bit for bit; (c) one microbatch's loss and gradients on the
+              card against the port's CPU run on the same weights; (d)
+              one step under torch.profiler beside its bound (operations
+              at the f32 peak); (e) the peak memory and host ms of a
+              microbatch's loss and gradient under remat none, full and
+              dots, with the per-layer views unbound once (the model's)
+              and taken a view at a time.
 
 It prints the kernels as one JSON line, then the last line
 ``{"ok": true, "device": {...}}``.  ``--out PATH`` also writes the full
@@ -1346,18 +1363,18 @@ def study_grads_vs_cpu(tag, batch, seq, kinds):
     return checks
 
 
-def grads_vs_cpu(what, card, cpu):
+def grads_vs_cpu(what, card, cpu, floor: float = 1.0):
     """Max err / scale of a gradient tree from the card against the port's
     CPU run on the same weights and inputs; raises where a gradient is not
     finite or beyond ``STUDY_TOL`` (the absolute part times the CPU
-    tensor's largest magnitude, at least 1)."""
+    tensor's largest magnitude, at least ``floor``)."""
     from repro_torch.tune.lm_study import _flatten
     rtol, atol = STUDY_TOL
     worst = 0.0
     for (path, g), (_, c) in zip(_flatten(card), _flatten(cpu)):
         g = g.cpu()
         err = (g - c).abs()
-        scale = max(1.0, float(c.abs().max()))
+        scale = max(floor, float(c.abs().max()))
         if not torch.isfinite(g).all() or \
                 bool((err > atol * scale + rtol * c.abs()).any()):
             raise AssertionError(f"{what} {'/'.join(path)}: card vs CPU max "
@@ -2230,9 +2247,10 @@ def draw_on(device, cfg, seed: int = 0):
     return p
 
 
-# phi3.5-moe at its published widths with the depth cut to 4 of 32 layers:
-# 21.9 GB of f32 weights (the 32 layers' 168 GB fit no card)
-MOE_LAYERS = 4
+# phi3.5-moe at its published widths with the depth cut to 2 of 32 layers:
+# 11.5 GB of f32 weights (the 32 layers' 168 GB fit no card; 4 layers,
+# 21.9 GB, until the training phase needed the script's time)
+MOE_LAYERS = 2
 MOE_SERVE = dict(batch_size=4, s_max=256, max_new_tokens=16, seed=0)
 MOE_REQUESTS = 8                # launch/serve.py's draw: 4-31 tokens each
 MOE_COMPARE = ((13, 29), 4)     # CPU comparison: prompt lengths, steps
@@ -2755,10 +2773,11 @@ def phase_moe():
 
 # -- phase 12: MLA (deepseek-v2 at full width) -------------------------------
 
-# deepseek-v2 at its published widths with the depth cut to 2 of 60 layers:
-# 35.97 GB of f32 weights (a layer is 15.89 GB: MLA 0.60, MoE 15.29; the
-# embedding and the untied head 4.19; 3 layers would be 51.86 GB)
-MLA_LAYERS = 2
+# deepseek-v2 at its published widths with the depth cut to 1 of 60 layers:
+# 20.08 GB of f32 weights (a layer is 15.89 GB: MLA 0.60, MoE 15.29; the
+# embedding and the untied head 4.19; 2 layers, 35.97 GB, until the
+# training phase needed the script's time)
+MLA_LAYERS = 1
 
 
 def mla_kernel_cases(cfg):
@@ -3690,6 +3709,250 @@ def phase_frontends(reduced=False, device="cuda"):
     return out
 
 
+# -- phase 16: training ---------------------------------------------------
+
+# the training launcher's command (launch/train.py): smollm-135m at its
+# published widths, 8 steps of 8 x 128 tokens in 2 microbatches of 4 x 128,
+# a checkpoint every 4 steps; its ``--ckpt-dir`` and ``--device`` added
+TRAIN_ARGV = ["--arch", "smollm-135m", "--steps", "8", "--batch", "8",
+              "--seq", "128", "--grad-accum", "2", "--ckpt-every", "4",
+              "--log-every", "1"]
+TRAIN_REMATS = ("none", "full", "dots")
+
+
+def train_launches(cfg, microbatches: int):
+    """Kernel launches of ``microbatches`` loss-and-gradient passes of a
+    dense attention stack under remat full (the launcher's default): per
+    layer 7 projections (q, k, v, o, gate, up, down), each a launch forward,
+    two backward (dA, dB) and one more in the period's recompute; the tied
+    head's three; the two norms a layer forward and again in the
+    recompute, the final norm once, and each norm's backward; attention
+    forward twice (the recompute) and its backward once."""
+    L = cfg.n_layers
+    per = {"matmul": 3 * (7 * L + 1) + 7 * L,
+           "rmsnorm": (2 * L + 1) + 2 * L, "rmsnorm_bwd": 2 * L + 1,
+           "flash_attention": 2 * L, "flash_attention_bwd": L}
+    return {k: microbatches * n for k, n in per.items()}
+
+
+def train_bound(cfg, params, tokens: int, mb: int, seq: int):
+    """(bound ms, by, flops, bytes) of one training step of ``tokens``
+    tokens in microbatches of ``mb`` x ``seq`` under remat full, f32.
+    Operations: each layer's projections 2 x tokens x weights forward, 4
+    backward and 2 in the recompute; the tied head's 6; causal attention's
+    two products over the causal pairs forward, again in the recompute,
+    and 2.5x that backward (four products and the scores' recompute).
+    Bytes: the parameters and both moments read and written once, the
+    batch read once."""
+    proj = sum(v.numel() // cfg.n_layers for g, sub in params.items()
+               if g.startswith("pos") for k, v in sub.items()
+               if v.dim() == 3)
+    head = cfg.vocab * cfg.d_model
+    attn = 4 * (tokens // seq) * cfg.n_heads * causal_pairs(seq, seq) \
+        * cfg.head_dim                              # both products, forward
+    flops = (8 * proj * cfg.n_layers + 6 * head) * tokens \
+        + cfg.n_layers * attn * (2 + 2.5)
+    n = sum(v.numel() for sub in params.values() for v in sub.values())
+    nbytes = 6 * 4 * n + 2 * 4 * tokens
+    ms, by = bound(nbytes, flops, "float32")
+    return ms, by, flops, nbytes
+
+
+def _layers_a_view_at_a_time(self, params):
+    """``Model._layers`` as the model took its per-layer views before it
+    unbound each stack once: a view of each stack a layer at a time, whose
+    backward fills a zero tensor the size of the whole stack for each
+    layer (kept here to measure that against the unbound views)."""
+    for j in range(self.cfg.n_periods):
+        for i in range(self.cfg.period):
+            stack = params[f"pos{i}"]
+            yield (j, i,
+                   {k[4:]: v[j] for k, v in stack.items()
+                    if k.startswith("mix_")},
+                   {k[4:]: v[j] for k, v in stack.items()
+                    if k.startswith("ffn_")})
+
+
+def train_memory(model, params, mb, reps: int = 3):
+    """Peak device memory above the resident tensors, and the least host
+    ms, of one microbatch's loss and gradient under each remat, with the
+    per-layer views unbound once (the model's) and taken a view at a
+    time."""
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import loss_and_grads
+    out = {}
+    for views in ("unbound", "a view at a time"):
+        for remat in TRAIN_REMATS:
+            m = Model(model.cfg, replace(model.knobs, remat=remat),
+                      device=model.device)
+            if views != "unbound":
+                m._layers = _layers_a_view_at_a_time.__get__(m)
+            peaks, times = [], []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                loss_and_grads(m, params, mb)
+                torch.cuda.synchronize()
+                times.append(1e3 * (time.perf_counter() - t0))
+                peaks.append(torch.cuda.max_memory_allocated() - base)
+            out[f"{views}, remat {remat}"] = {
+                "peak_bytes": max(peaks), "host_ms": min(times)}
+            print(f"[train] one microbatch's loss and gradient "
+                  f"({views}, remat {remat}): peak {max(peaks) / 2**20:.1f} "
+                  f"MiB above the resident tensors, {min(times):.2f} ms "
+                  f"(host clock with its sync, least of {reps})")
+    return out
+
+
+def trees_equal(a, b) -> bool:
+    """The same paths, and at each the same dtype and bits."""
+    from repro_torch.train.checkpoint import _flatten    # sorted paths
+    fa, fb = _flatten(a), _flatten(b)
+    return [p for p, _ in fa] == [p for p, _ in fb] and all(
+        x.dtype == y.dtype and torch.equal(x, y)
+        for (_, x), (_, y) in zip(fa, fb))
+
+
+def phase_train(reduced=False, device="cuda"):
+    """(a) smollm-135m at its published widths trained through
+    ``launch/train.py`` (8 steps of 8 x 128 tokens, grad_accum 2, a
+    checkpoint every 4 steps; seeded random f32 weights, the synthetic
+    stream), the launch counters zeroed just before and read just after:
+    every kernel, forward and backward, at the count ``train_launches``
+    gives, no plain call; each step's host ms and loss; (b) the same
+    command after the step-8 checkpoint is deleted: it resumes from step 4
+    and its losses for steps 5-8, its parameters and its AdamW state equal
+    the straight run's bit for bit; (c) one microbatch's loss and
+    gradients (4 x 128, the launcher's weights and first batch) on the card
+    against the port's CPU run; (d) one step under the profiler beside
+    its bound; (e) the peak memory of a microbatch's loss and gradient
+    under each remat, with the per-layer views unbound once and taken a
+    layer at a time."""
+    import shutil
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch import train as train_cli
+    from repro_torch.models.model import Model
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    from repro_torch.train.optim import adamw_init
+    from repro_torch.train.step import loss_and_grads
+    argv = TRAIN_ARGV + ["--device", device] + (["--reduced"] if reduced
+                                                else [])
+    args = train_cli.parse(argv)
+    cfg, shape, model, step_fn = train_cli.build(args)
+    steps, n_mb = args.steps, args.grad_accum
+    out = {"argv": argv}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = str(Path(tmp) / "ck")
+        _zero_counts()
+        t0 = time.perf_counter()
+        straight = train_cli.main(argv + ["--ckpt-dir", ck])
+        wall = time.perf_counter() - t0
+        launches, plain = dict(ops.launches), dict(ops.plain_calls)
+        want = train_launches(cfg, n_mb * steps)
+        print(f"[train] {cfg.name} ({cfg.n_layers} layers, d_model "
+              f"{cfg.d_model}, f32) through launch/train.py "
+              f"{' '.join(argv)}: {steps} steps in {wall:.1f} s; launches "
+              f"{launches} (expected {want}); plain calls {plain}")
+        if any(plain.values()):
+            raise AssertionError(f"training called plain versions: {plain}")
+        if launches != want:
+            raise AssertionError(f"training launched {launches}, not {want}")
+        for h in straight["history"]:
+            if not math.isfinite(h["loss"]):
+                raise AssertionError(f"[train] step {h['step']}: loss "
+                                     f"{h['loss']}")
+            print(f"[train] step {h['step']}: loss {h['loss']!r} grad norm "
+                  f"{h['grad_norm']:.4f} lr {h['lr']:.3e}; "
+                  f"{h['host_ms']:.2f} ms (host clock, batch to loss)")
+        resume_at = steps - args.ckpt_every     # the checkpoint left
+        shutil.rmtree(Path(ck) / f"step_{steps:010d}")
+        t0 = time.perf_counter()
+        resumed = train_cli.main(argv + ["--ckpt-dir", ck])
+        resume_wall = time.perf_counter() - t0
+        tail = [h["loss"] for h in straight["history"][resume_at:]]
+        got = [h["loss"] for h in resumed["history"]]
+        same = (resumed["start"] == resume_at and got == tail
+                and trees_equal(resumed["params"], straight["params"])
+                and trees_equal(resumed["opt"], straight["opt"]))
+        print(f"[train] resumed from step {resumed['start']} after the step-"
+              f"{steps} checkpoint was deleted: losses of steps "
+              f"{resume_at + 1}-"
+              f"{steps} {got} against {tail}; parameters and AdamW state "
+              f"{'equal' if same else 'NOT equal'} bit for bit; "
+              f"{resume_wall:.1f} s")
+        if not same:
+            raise AssertionError("[train] the resumed run differs from the "
+                                 "straight run")
+    out.update(launches=launches, launches_per_step={
+        k: n // steps for k, n in launches.items()}, wall_s=wall,
+        resume_wall_s=resume_wall, history=straight["history"],
+        resumed_history=resumed["history"])
+    del straight, resumed
+
+    # (c) one microbatch, card against CPU, on the launcher's step-0 weights
+    params = model.init(torch.Generator().manual_seed(args.seed))
+    host = synthetic_batch(cfg, shape, 0, DataConfig(seed=args.seed))
+    mb = {k: torch.from_numpy(v[:args.batch // n_mb]) for k, v in
+          host.items()}
+    cpu = Model(cfg, model.knobs, device="cpu")
+    p_cpu = cpu.init(torch.Generator().manual_seed(args.seed))
+    t0 = time.perf_counter()
+    loss_c, g_c = loss_and_grads(cpu, p_cpu, mb)
+    cpu_s = time.perf_counter() - t0
+    mb_dev = {k: v.to(model.device) for k, v in mb.items()}
+    loss_d, g_d = loss_and_grads(model, params, mb_dev)
+    rtol, atol = STUDY_TOL
+    loss_err = abs(float(loss_d) - float(loss_c)) / abs(float(loss_c))
+    # the stated tolerance: atol x each tensor's own largest magnitude
+    worst = grads_vs_cpu("[train]", g_d, g_c, floor=1e-30)
+    print(f"[train] one microbatch ({args.batch // n_mb} x {args.seq}) on "
+          f"the card vs the port's CPU run ({cpu_s:.1f} s): loss "
+          f"{float(loss_d)!r} vs {float(loss_c)!r} (rel err "
+          f"{loss_err:.2e}, rtol {rtol}); every gradient within rtol "
+          f"{rtol} and atol {atol} x its largest magnitude (max err / scale "
+          f"{worst:.2e})")
+    if loss_err > rtol:
+        raise AssertionError(f"[train] loss {float(loss_d)} vs CPU "
+                             f"{float(loss_c)}")
+    out["cpu"] = {"loss": float(loss_d), "cpu_loss": float(loss_c),
+                  "loss_rel_err": loss_err, "grad_err_over_scale": worst}
+    del cpu, p_cpu, g_c, g_d
+
+    # (d) one step under the profiler, after one warm step
+    tokens = args.batch * args.seq
+    bound_ms, by, flops, nbytes = train_bound(cfg, params, tokens,
+                                              args.batch // n_mb, args.seq)
+    opt = adamw_init(params)
+    batch = {k: torch.from_numpy(v).to(model.device)
+             for k, v in host.items()}
+    params, opt, _ = step_fn(params, opt, batch)
+    out["bound"] = {"ms": bound_ms, "by": by, "flops": flops,
+                    "bytes": nbytes}
+    if device == "cuda":
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch)
+            float(m["loss"])
+            prof_ms = 1e3 * (time.perf_counter() - t0)
+        out["profile"] = device_summary(
+            "train", f"one step ({tokens} tokens, 2 microbatches) under the "
+            f"profiler {prof_ms:.2f} ms", prof)
+        out["profile"]["step_ms_profiled"] = prof_ms
+        print(f"[train] the step's bound {bound_ms:.3f} ms ({by}: "
+              f"{flops / 1e12:.4f} TFLOP at 67 TFLOP/s, the H100 SXM's f32 "
+              f"peak outside the tensor cores; {nbytes / 1e9:.3f} GB at "
+              f"3.35 TB/s)")
+        # (e) peak memory by remat and by how the views are taken
+        out["memory"] = train_memory(model, params, {
+            k: v.to(model.device) for k, v in mb.items()})
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -3734,6 +3997,7 @@ def main(argv=None) -> int:
     ssm = timed("ssm", phase_ssm)
     ssm_study = timed("ssm-study", phase_ssm_study)
     frontends = timed("frontends", phase_frontends)
+    train = timed("train", phase_train)
 
     # one entry per kernel: its largest main-path shape at f32 (forward:
     # the serving path's, launches counted there; backward: the tuning
@@ -3776,6 +4040,7 @@ def main(argv=None) -> int:
                 f"{arch} {what}": n for arch, st in frontends.items()
                 for what, n in (("serve", st["launches"].get(name, 0)),
                                 ("study", st["study"]["launches"][name]))},
+            "launches_train": train["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in table
                                if r["kernel"] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -3812,6 +4077,7 @@ def main(argv=None) -> int:
                                         "mla": mla, "ssm": ssm,
                                         "ssm_study": ssm_study,
                                         "frontends": frontends,
+                                        "train": train,
                                         "phase_s": phase_s},
                                        indent=1))
     print(f"[time] chip_smoke.py took {time.perf_counter() - T_START:.1f} s "

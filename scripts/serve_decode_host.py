@@ -13,9 +13,9 @@ Another commit is read the same way from its own unpacked tree
 served deepseek-v2.  Run the two trees in turns (parent, change, change,
 parent) and compare the least of each.
 
-Each family is served at its published widths, cut in depth as
-``chip_smoke.py`` cuts it (smollm-135m all 30 layers, phi3.5-moe 4 of 32,
-deepseek-v2 2 of 60), with f32 weights drawn on the card from a seeded
+Each family is served at its published widths, cut in depth
+(smollm-135m all 30 layers, phi3.5-moe 4 of 32, deepseek-v2 2 of 60;
+``chip_smoke.py`` now cuts the last two to 2 and 1), with f32 weights drawn on the card from a seeded
 CUDA generator by the tree's own ``spec_tree`` (the same draw in both
 trees, whose specs agree for these families): 8 requests of 4-31 tokens,
 4 slots, s_max 256, 16 new tokens, greedy.  It prints one line a family

@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from . import remat
 
 _NEG_INF = -1e30
 # attn_block's KV chunk where the caller names none (JAX layers.py's
@@ -38,8 +39,10 @@ def rms_norm(x, w, eps: float = 1e-5):
 
 
 def linear(x, w):
-    """x (..., K) @ w (K, N) through the matmul kernel."""
-    y = ops.matmul(x.reshape(-1, x.shape[-1]), w)
+    """x (..., K) @ w (K, N) through the matmul kernel: a projection, a
+    product with no batch dimension, whose output remat "dots" keeps
+    (``remat.product``)."""
+    y = remat.product(x.reshape(-1, x.shape[-1]), w)
     return y.reshape(*x.shape[:-1], w.shape[-1])
 
 

@@ -26,16 +26,19 @@ the cache and ``prefill``'s t count the prefix.
 
 from __future__ import annotations
 
+import itertools
 import math
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterator, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike, resolve_device
 from . import layers as L
 from . import moe as M
+from . import remat as R
 from . import ssm as S
 
 Params = Dict[str, Dict[str, torch.Tensor]]
@@ -44,13 +47,14 @@ Params = Dict[str, Dict[str, torch.Tensor]]
 @dataclass(frozen=True)
 class ModelKnobs:
     """Step-function choices (the JAX ``ModelKnobs`` fields that the port's
-    paths read, with JAX's defaults; ``remat`` is read by the tuning loop,
-    ``tune/lm_study.py``)."""
+    paths read, with JAX's defaults).  ``remat`` checkpoints each period
+    of the stack where autograd records it (``remat.py``); the tuning
+    loop reads it too, ``tune/lm_study.py``."""
 
     kv_chunk: int = 1024          # flash-attention KV chunk
     moe_dispatch: str = "a2a"     # 'a2a' (one device: 'sort'), 'sort', 'dense'
     ssm_chunk: int = 256          # mamba/xlstm chunk length
-    remat: str = "full"           # 'none' | 'full'
+    remat: str = "full"           # 'none' | 'full' | 'dots'
     param_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.float32
     logits_f32: bool = True
@@ -223,15 +227,18 @@ class Model:
     # -- embedding / head -----------------------------------------------------
 
     def _embed(self, params, batch):
+        """The token gather (``F.embedding``, whose backward sums each
+        row's gradients in a fixed order on the CPU and the card alike),
+        codebooks summed, a patch prefix in front."""
         cd = self.knobs.compute_dtype
         table = params["embed"]["tok"].to(cd)
         tok = batch["tokens"].long()
         if self.cfg.n_codebooks:
             # (B, S, ncb) tokens: the sum of the per-codebook embeddings
-            x = sum(table[c][tok[..., c]]
-                    for c in range(self.cfg.n_codebooks))
+            x = sum(F.embedding(tok[..., c], t)
+                    for c, t in enumerate(table.unbind(0)))
         else:
-            x = table[tok]
+            x = F.embedding(tok, table)
         if self.cfg.n_patches and "patches" in batch:
             x = torch.cat([batch["patches"].to(cd), x], dim=1)
         return x
@@ -253,10 +260,15 @@ class Model:
 
     def _layers(self, params) -> Iterator[Tuple[int, int, dict, dict]]:
         """Per layer, periods then positions: (period j, position i, mixer
-        params, ffn params), views of position i's stacks at period j."""
+        params, ffn params), views of position i's stacks at period j.
+        Each stack is unbound once, so that a backward stacks its
+        per-layer gradients in one pass (a view taken a layer at a time
+        would fill and add a zero tensor the size of the whole stack for
+        each layer)."""
+        views = [{k: v.unbind(0) for k, v in params[f"pos{i}"].items()}
+                 for i in range(self.cfg.period)]
         for j in range(self.cfg.n_periods):
-            for i in range(self.cfg.period):
-                stack = params[f"pos{i}"]
+            for i, stack in enumerate(views):
                 yield (j, i,
                        {k[4:]: v[j] for k, v in stack.items()
                         if k.startswith("mix_")},
@@ -313,15 +325,31 @@ class Model:
             map_cache(lambda old, nw: old.copy_(nw), c, new)
         return self._ffn(i, pf, x + h)
 
+    def _period(self, x, layers, positions, caches=None):
+        """One period's layers, (position, mixer params, ffn params) each,
+        over the whole sequence; their cache entries go to ``caches``."""
+        for i, p, pf in layers:
+            x, c = self._block(i, p, pf, x, positions)
+            if caches is not None:
+                caches.append(c)
+        return x
+
     def _backbone(self, params, batch, *, with_cache=False):
+        """Embedding, the periods, the final norm.  Without a cache each
+        period runs under ``knobs.remat`` (``remat.run``: checkpointed
+        only where autograd records it)."""
         cfg = self.cfg
         x = self._embed(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
-        caches = []
-        for _, i, p, pf in self._layers(params):
-            x, c = self._block(i, p, pf, x, positions)
+        caches = [] if with_cache else None
+        for _, period in itertools.groupby(self._layers(params),
+                                           key=lambda layer: layer[0]):
+            layers = [(i, p, pf) for _, i, p, pf in period]
             if with_cache:
-                caches.append(c)
+                x = self._period(x, layers, positions, caches)
+            else:
+                x = R.run(self.knobs.remat, self._period, x, layers,
+                          positions)
         x = L.rms_norm(x, params["final"]["ln"], cfg.norm_eps)
         return x, caches
 
@@ -329,6 +357,21 @@ class Model:
         x, caches = self._backbone(params, batch, with_cache=with_cache)
         logits = self._head(params, x)
         return (logits, caches) if with_cache else logits
+
+    def loss(self, params, batch):
+        """The mean over positions of logsumexp(logits) - logits[label]
+        (f32 logits with ``logits_f32``); with a patch prefix only the
+        text tail ``logits[:, -S_labels:]``; with codebooks logits (B, S,
+        ncb, V) against labels (B, S, ncb).  A gather takes the
+        reference's one-hot product."""
+        logits = self.forward(params, batch)
+        labels = batch["labels"].long()
+        if self.cfg.n_patches:
+            # labels align with the text tail of the concatenated sequence
+            logits = logits[:, -labels.shape[1]:]
+        lse = torch.logsumexp(logits, dim=-1)
+        tgt = torch.gather(logits, -1, labels[..., None])[..., 0]
+        return torch.mean(lse - tgt)
 
     # -- prefill / decode -----------------------------------------------------
 

@@ -37,6 +37,7 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 
+from ..kernels import ops
 from . import layers as L
 
 DISPATCHES = ("a2a", "sort", "dense")
@@ -68,13 +69,16 @@ def _expert_ffn(p, x):
     """x: (E, C, D) -> (E, C, D), each expert's gated MLP on its rows:
     three matmul launches an expert.  The stacks are unbound once, so the
     backward stacks each weight's E gradients in one pass (a gradient per
-    indexed expert would fill and add a whole (E, D, F) tensor E times)."""
+    indexed expert would fill and add a whole (E, D, F) tensor E times).
+    The products are the reference's ``ecd,edf->ecf``, which have a batch
+    dimension: they call ``ops.matmul`` itself, not ``layers.linear``, so
+    remat "dots" recomputes them."""
     out = []
     for xe, wg, wu, wd in zip(*(t.unbind(0) for t in (
             x, p["w_gate"], p["w_up"], p["w_down"]))):
-        g = L.linear(xe, wg)
-        u = L.linear(xe, wu)
-        out.append(L.linear(F.silu(g) * u, wd))
+        g = ops.matmul(xe, wg)
+        u = ops.matmul(xe, wu)
+        out.append(ops.matmul(F.silu(g) * u, wd))
     return torch.stack(out)
 
 

@@ -1499,3 +1499,88 @@ def test_frontend_model_on_the_card_matches_cpu(cuda_device, arch):
         outs.append(torch.stack(seq))
     assert outs[0].shape == ((4, 2, 4, 256) if trail else (4, 2, 256))
     torch.testing.assert_close(outs[0], outs[1], rtol=1e-3, atol=1e-4)
+
+
+TRAIN_FAMILIES = ["smollm-135m", "phi3.5-moe", "deepseek-v2", "xlstm-125m",
+                  "jamba-v0.1-52b", "musicgen-large", "internvl2-2b"]
+
+
+def _train_inputs(arch, seed):
+    """Reduced ``arch``'s seeded weights on the CPU, the norms drawn and
+    MoE down-projections scaled by 0.1 (as above), and the training
+    launcher's first batch of 2 x 16 tokens (a patch prefix in front)."""
+    from repro_torch.configs import Shape, get_config
+    from repro_torch.models.model import init_params
+    from repro_torch.train.data import synthetic_batch
+    cfg = get_config(arch, reduced=True)
+    pc = init_params(cfg, torch.Generator().manual_seed(seed), "cpu")
+    gen = torch.Generator().manual_seed(seed + 1)
+    for sub in pc.values():
+        for nm in list(sub):
+            if nm.endswith("ln"):
+                sub[nm] = torch.randn(sub[nm].shape, generator=gen) * 0.1
+            elif nm == "ffn_w_down" and "ffn_router" in sub:
+                sub[nm] = sub[nm] * 0.1
+    batch = synthetic_batch(cfg, Shape("t", 16 + cfg.n_patches, 2, "train"),
+                            0)
+    return cfg, pc, {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("remat", ["full", "dots"])
+@pytest.mark.parametrize("arch", TRAIN_FAMILIES)
+def test_train_loss_and_grads_on_the_card_match_cpu(cuda_device, arch,
+                                                    remat):
+    """One reduced microbatch's ``Model.loss`` and its gradients on the
+    card against the port's CPU run: the loss within rtol 1e-4, every
+    gradient within atol 1e-5 x its largest magnitude (rtol 1e-4); the
+    backward kernels launched (flash attention's where the family has
+    attention), no plain call."""
+    from repro_torch.models.model import Model, ModelKnobs
+    from repro_torch.train.step import loss_and_grads
+    from repro_torch.tune.lm_study import _flatten
+    cfg, pc, batch = _train_inputs(arch, 52)
+    knobs = ModelKnobs(kv_chunk=16, ssm_chunk=8, moe_dispatch="sort",
+                       remat=remat)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        params = {g: {k: v.to(dev) for k, v in sub.items()}
+                  for g, sub in pc.items()}
+        plain0, n0 = dict(ops.plain_calls), dict(ops.launches)
+        out[dev] = loss_and_grads(Model(cfg, knobs, device=dev), params,
+                                  {k: v.to(dev) for k, v in batch.items()})
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert ops.plain_calls == plain0
+            attention = bool({"attn", "mla"} & set(cfg.pattern))
+            for k in ("matmul", "rmsnorm", "rmsnorm_bwd") + (
+                    ("flash_attention", "flash_attention_bwd")
+                    if attention else ()):
+                assert ops.launches[k] > n0[k], k
+    (lg, gg), (lc, gc) = out["cuda"], out["cpu"]
+    np.testing.assert_allclose(float(lg), float(lc), rtol=1e-4)
+    for (path, a), (_, b) in zip(_flatten(gg), _flatten(gc)):
+        b = b.numpy()
+        np.testing.assert_allclose(a.cpu().numpy(), b, rtol=1e-4,
+                                   atol=1e-5 * float(np.abs(b).max()),
+                                   err_msg="/".join(path))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-135m", "phi3.5-moe"])
+def test_train_runs_on_the_card_are_bitwise_equal(cuda_device, arch):
+    """Two straight runs of the training launcher on the card (reduced, 3
+    steps of 4 x 16 in 2 microbatches) end on the same losses, parameters
+    and AdamW state, bit for bit (the MoE's sort dispatch and its index
+    writes included)."""
+    from repro_torch.launch import train as train_cli
+    from repro_torch.train.checkpoint import _flatten
+    runs = [train_cli.main(["--arch", arch, "--reduced", "--steps", "3",
+                            "--batch", "4", "--seq", "16", "--grad-accum",
+                            "2", "--log-every", "1"]) for _ in range(2)]
+    assert [h["loss"] for h in runs[0]["history"]] == \
+        [h["loss"] for h in runs[1]["history"]]
+    for key in ("params", "opt"):
+        for (p, a), (_, b) in zip(_flatten(runs[0][key]),
+                                  _flatten(runs[1][key])):
+            assert a.device.type == "cuda" and torch.equal(a, b), p
