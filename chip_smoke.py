@@ -229,9 +229,24 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               at the f32 peak); (e) the peak memory and host ms of a
               microbatch's loss and gradient under remat none, full and
               dots, with the per-layer views unbound once (the model's)
-              and taken a view at a time.
+              and taken a view at a time;
+17. sharded -- (a) smollm-135m at its published widths through
+              launch/train.py --model-axis 1 --variant cp under a world-1
+              NCCL group (made and destroyed by the phase), 2 steps of 8 x
+              128 tokens in 2 microbatches, remat full: the sharded train
+              step on DTensors, each kernel under its placement rule; its
+              losses, parameters and AdamW moments equal the one-device
+              launcher's bit for bit, with the same launches per kernel and
+              no plain call; the host ms a step with and without the group;
+              (b) the reduced model under dp, tp and cp_fsdp, each equal to
+              its one-device run bit for bit; (c) where the machine shows
+              several cards, the full-width cp run on a (1, n) mesh over n
+              = min(count, 4) of them, one process a card, its losses
+              against (a)'s; otherwise a line saying it was not run.
 
-It prints the kernels as one JSON line, then the last line
+The kernels line gives each kernel's launches in every phase, the sharded
+run's as ``launches_sharded``.  It prints the kernels as one JSON line, then
+the last line
 ``{"ok": true, "device": {...}}``.  ``--out PATH`` also writes the full
 tables (every case, the serve and profile numbers) as JSON.  It exits
 non-zero without a result where there is no CUDA device or no checkout of
@@ -3953,6 +3968,166 @@ def phase_train(reduced=False, device="cuda"):
     return out
 
 
+# -- phase 17: sharded training ----------------------------------------------
+
+# the sharded phase's command: [train]'s widths and batch (8 x 128 tokens in
+# 2 microbatches, remat full), 2 steps, no checkpoint
+SHARDED_ARGV = ["--arch", "smollm-135m", "--steps", "2", "--batch", "8",
+                "--seq", "128", "--grad-accum", "2", "--log-every", "1"]
+# the variants held on the reduced model (cp at full width)
+SHARDED_VARIANTS = ("dp", "tp", "cp_fsdp")
+# the loss's tolerance across several cards: the CPU tests' (the sharded
+# step against the JAX one, tests/test_torch_sharded.py)
+SHARDED_LOSS_RTOL = 1e-5
+# one rank of the several-card run: the launcher under torchrun's
+# environment; rank 0 writes the loss history
+_SHARDED_RANK = r"""
+import json, os, sys
+from repro_torch.launch import train as train_cli
+run = train_cli.main(json.loads(sys.argv[1]))
+if os.environ["RANK"] == "0":
+    with open(sys.argv[2], "w") as f:
+        json.dump(run["history"], f)
+"""
+
+
+def _launched(argv):
+    """(the launcher's result, its launches, its plain calls, wall s), the
+    counters zeroed just before."""
+    from repro_torch.launch import train as train_cli
+    _zero_counts()
+    t0 = time.perf_counter()
+    run = train_cli.main(argv)
+    return run, dict(ops.launches), dict(ops.plain_calls), \
+        time.perf_counter() - t0
+
+
+def _same_run(tag, got, want, launches, want_launches, plain, device):
+    """Fail unless the sharded run's losses, parameters and AdamW state
+    equal the one-device run's bit for bit and it launched what that run
+    did, with no plain call on the card."""
+    same = ([h["loss"] for h in got["history"]]
+            == [h["loss"] for h in want["history"]]
+            and trees_equal(got["params"], want["params"])
+            and trees_equal(got["opt"], want["opt"]))
+    print(f"[sharded] {tag}: losses {[h['loss'] for h in got['history']]} "
+          f"against {[h['loss'] for h in want['history']]}; parameters and "
+          f"AdamW state {'equal' if same else 'NOT equal'} bit for bit; "
+          f"launches {launches} (one device: {want_launches}); plain calls "
+          f"{plain}")
+    if not same:
+        raise AssertionError(f"[sharded] {tag} differs from one device")
+    if launches != want_launches:
+        raise AssertionError(f"[sharded] {tag} launched {launches}, one "
+                             f"device {want_launches}")
+    if any(plain.values()) and device == "cuda":
+        raise AssertionError(f"[sharded] {tag} called plain versions: "
+                             f"{plain}")
+
+
+def several_cards(argv, want, cards: int, device="cuda"):
+    """The full-width cp run on a (1, n) mesh over n = min(cards, 4)
+    ranks, one card each (processes under torchrun's environment), its
+    losses against the one-rank run's within SHARDED_LOSS_RTOL."""
+    import os
+    import socket
+    import tempfile
+    n = min(cards, 4)
+    with socket.socket() as s_:
+        s_.bind(("localhost", 0))
+        port = s_.getsockname()[1]
+    argv = argv + ["--model-axis", str(n), "--variant", "cp"]
+    with tempfile.TemporaryDirectory() as tmp:
+        hist = Path(tmp) / "history.json"
+        procs = []
+        for r in range(n):
+            env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                       MASTER_ADDR="localhost", MASTER_PORT=str(port),
+                       RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(n))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-c", _SHARDED_RANK, json.dumps(argv),
+                 str(hist)], env=env))
+        try:
+            rcs = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        if any(rcs):
+            raise AssertionError(f"[sharded] the {n}-rank run exited {rcs}")
+        got = [h["loss"] for h in json.loads(hist.read_text())]
+    ref_ = [h["loss"] for h in want["history"]]
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got, ref_))
+    print(f"[sharded] (1, {n}) cp mesh over {n} {device} ranks: losses {got} "
+          f"against one rank's {ref_} (max rel err {worst:.2e}, rtol "
+          f"{SHARDED_LOSS_RTOL})")
+    if worst > SHARDED_LOSS_RTOL:
+        raise AssertionError(f"[sharded] the {n}-rank run's losses {got} "
+                             f"against {ref_}")
+    return {"ranks": n, "losses": got, "max_rel_err": worst}
+
+
+def phase_sharded(reduced=False, device="cuda", cards=None):
+    """(a) smollm-135m at its published widths through ``launch/train.py
+    --model-axis 1 --variant cp`` under a world-1 process group (NCCL on
+    the card; made here, destroyed at the end), 2 steps of 8 x 128 tokens in
+    2 microbatches: its losses, parameters and both AdamW moments equal the
+    one-device launcher's bit for bit, with the same launches and no plain
+    call; the host ms a step of each (the DTensor dispatch's cost); (b) the
+    reduced model under dp, tp and cp_fsdp, each bit-equal to its
+    one-device run; (c) where the machine shows several cards, the
+    full-width cp run on a (1, n) mesh over n = min(cards, 4) of them
+    against (a)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    cfg = get_config("smollm-135m", reduced=reduced)
+    argv = SHARDED_ARGV + ["--device", device] + (["--reduced"] if reduced
+                                                  else [])
+    rargv = SHARDED_ARGV + ["--device", device, "--reduced"]
+    one, l_one, _, w_one = _launched(argv)
+    want = train_launches(cfg, 2 * 2)
+    if l_one != want and device == "cuda":
+        raise AssertionError(f"[sharded] one device launched {l_one}, not "
+                             f"{want}")
+    r_one, rl_one, _, _ = _launched(rargv)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        sh, l_sh, p_sh, w_sh = _launched(
+            argv + ["--model-axis", "1", "--variant", "cp"])
+        _same_run(f"{cfg.name} ({cfg.n_layers} layers, d_model "
+                  f"{cfg.d_model}) cp on a (1, 1) mesh, world-1 "
+                  f"{dist.get_backend()} group", sh, one, l_sh, l_one, p_sh,
+                  device)
+        variants = {}
+        for v in SHARDED_VARIANTS:
+            run, lv, pv, _ = _launched(
+                rargv + ["--model-axis", "1", "--variant", v])
+            _same_run(f"reduced smollm-135m {v}", run, r_one, lv, rl_one, pv,
+                      device)
+            variants[v] = {"losses": [h["loss"] for h in run["history"]],
+                           "launches": lv}
+    finally:
+        dist.destroy_process_group()
+    host = {"one_device": [h["host_ms"] for h in one["history"]],
+            "sharded": [h["host_ms"] for h in sh["history"]]}
+    print(f"[sharded] host ms a step (batch to loss; step 1, step 2): one "
+          f"device {[round(t, 2) for t in host['one_device']]}, world-1 "
+          f"group with DTensors {[round(t, 2) for t in host['sharded']]}; "
+          f"runs {w_one:.1f} s and {w_sh:.1f} s")
+    out = {"launches": l_sh, "launches_per_step": {
+        k: n // 2 for k, n in l_sh.items()}, "plain_calls": p_sh,
+        "losses": [h["loss"] for h in sh["history"]], "host_ms": host,
+        "variants": variants}
+    cards = torch.cuda.device_count() if cards is None else cards
+    if cards >= 2:
+        out["several_cards"] = several_cards(argv, sh, cards, device)
+    else:
+        print(f"[sharded] several cards: not run; this machine shows "
+              f"{cards} CUDA device and NCCL puts no two ranks on one card")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -3998,6 +4173,7 @@ def main(argv=None) -> int:
     ssm_study = timed("ssm-study", phase_ssm_study)
     frontends = timed("frontends", phase_frontends)
     train = timed("train", phase_train)
+    sharded = timed("sharded", phase_sharded)
 
     # one entry per kernel: its largest main-path shape at f32 (forward:
     # the serving path's, launches counted there; backward: the tuning
@@ -4041,6 +4217,7 @@ def main(argv=None) -> int:
                 for what, n in (("serve", st["launches"].get(name, 0)),
                                 ("study", st["study"]["launches"][name]))},
             "launches_train": train["launches"][name],
+            "launches_sharded": sharded["launches"][name],
             "max_abs_err": max(r["max_abs_err"] for r in table
                                if r["kernel"] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -4078,6 +4255,7 @@ def main(argv=None) -> int:
                                         "ssm_study": ssm_study,
                                         "frontends": frontends,
                                         "train": train,
+                                        "sharded": sharded,
                                         "phase_s": phase_s},
                                        indent=1))
     print(f"[time] chip_smoke.py took {time.perf_counter() - T_START:.1f} s "

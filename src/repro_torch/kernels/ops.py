@@ -17,14 +17,26 @@ attention's are ``rmsnorm_bwd_cuda`` and ``flash_attention_bwd_cuda``
 serving path, under ``torch.no_grad()`` or with no input that requires
 grad, calls the forward directly, as before.  Flash attention records at
 every (dk, dv) pair the forward takes, MLA's too, on either device.
+
+DTensors (the sharded train step, ``parallel/sharding.py``): each op has a
+placement rule (``matmul_rule``, ``rmsnorm_rule``, ``flash_rule``) that
+names, mesh dim by mesh dim, the placements its inputs are redistributed
+to, its output's, and its inputs' gradients'.  The op then runs the same
+per-device dispatch on the local tensors (``parallel.sharding.on_shards``,
+through ``local_map``), so a CUDA DTensor launches the kernels and a CPU one runs
+the plain versions, as plain tensors do.  DTensor's own sharding
+propagation cannot see into a ctypes launch; the rules stand in for it.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from ..parallel.sharding import on_shards
 from . import ref
 from ._build import launches
 from .flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
@@ -128,18 +140,37 @@ class _FlashAttention(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
-def matmul(a, b):
-    """(M, K) x (K, N) -> (M, N) in a's dtype, f32 accumulation."""
+def _matmul_local(a, b):
     if _records_grad(a, b):
         return _Matmul.apply(a, b)
     return _matmul_fwd(a, b)
 
 
-def rmsnorm(x, w, *, eps: float = 1e-5):
-    """x: (..., D); w: (D,); scale by (1 + w)."""
+def _rmsnorm_local(x, w, eps):
     if _records_grad(x, w):
         return _RMSNorm.apply(x, w, eps)
     return _rmsnorm_fwd(x, w, eps)
+
+
+def _flash_local(q, k, v, causal, bk, scale):
+    if _records_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, causal, bk, scale)
+    return _flash_fwd(q, k, v, causal, bk, scale)
+
+
+def matmul(a, b):
+    """(M, K) x (K, N) -> (M, N) in a's dtype, f32 accumulation."""
+    if is_distributed(a, b):
+        return on_shards(_matmul_local, matmul_rule, a, b)
+    return _matmul_local(a, b)
+
+
+def rmsnorm(x, w, *, eps: float = 1e-5):
+    """x: (..., D); w: (D,); scale by (1 + w)."""
+    if is_distributed(x, w):
+        return on_shards(lambda x_, w_: _rmsnorm_local(x_, w_, eps),
+                         rmsnorm_rule, x, w)
+    return _rmsnorm_local(x, w, eps)
 
 
 def flash_attention(q, k, v, *, causal: bool = True, bk=None, scale=None):
@@ -148,6 +179,87 @@ def flash_attention(q, k, v, *, causal: bool = True, bk=None, scale=None):
     None: the serving default tile).  The plain version's result does not
     depend on it.  ``scale``: the scores' scale (None: 1/sqrt(dk), as the
     reference's ``softmax_scale``)."""
-    if _records_grad(q, k, v):
-        return _FlashAttention.apply(q, k, v, causal, bk, scale)
-    return _flash_fwd(q, k, v, causal, bk, scale)
+    if is_distributed(q, k, v):
+        return on_shards(
+            lambda q_, k_, v_: _flash_local(q_, k_, v_, causal, bk, scale),
+            flash_rule, q, k, v)
+    return _flash_local(q, k, v, causal, bk, scale)
+
+
+# ---------------------------------------------------------------------------
+# DTensors: per-op placement rules
+# ---------------------------------------------------------------------------
+
+_R = Replicate()
+
+
+def is_distributed(*tensors) -> bool:
+    return any(isinstance(t, DTensor) for t in tensors)
+
+
+def _ranks_on(t, d: int) -> int:
+    """The number of ranks that split dim ``d`` of DTensor ``t``."""
+    return math.prod(t.device_mesh.size(i)
+                     for i, p in enumerate(t.placements) if p.is_shard(d))
+
+
+def _dim_ok(t, p) -> bool:
+    """``p`` is a shard of a dim of ``t`` that its ranks split evenly."""
+    return p.is_shard() and t.shape[p.dim] % _ranks_on(t, p.dim) == 0
+
+
+def matmul_rule(a, b):
+    """Placements for a (..., K) @ b (K, N), mesh dim by mesh dim, as an
+    einsum's SPMD rule: A's rows (any dim but its last) sharded and B
+    replicated give C's rows; A replicated and B's columns sharded give C's
+    columns; both sharded on K give a ``Partial`` sum; both replicated give
+    C replicated.  Anything else is gathered first (A's rows win over a
+    sharded B, B's columns over a K-sharded A).  The gradient of an operand
+    that is replicated on a mesh dim where the other is sharded is a
+    partial sum over that dim (``Partial``); every other gradient has its
+    operand's placement.  Returns (input placements, output placements,
+    input gradient placements)."""
+    ka = a.ndim - 1
+    in_a, in_b, out, g_a, g_b = [], [], [], [], []
+    for pa, pb in zip(a.placements, b.placements):
+        if _dim_ok(a, pa) and pa.dim < ka:                # A's rows
+            x = (pa, _R, Shard(pa.dim), pa, Partial())
+        elif _dim_ok(b, pb) and pb.dim == 1:              # B's columns
+            x = (_R, pb, Shard(ka), Partial(), pb)
+        elif (_dim_ok(a, pa) and pa.dim == ka and _dim_ok(b, pb)
+              and pb.dim == 0):                           # K on both
+            x = (pa, pb, Partial(), pa, pb)
+        else:
+            x = (_R, _R, _R, _R, _R)
+        for lst, p in zip((in_a, in_b, out, g_a, g_b), x):
+            lst.append(p)
+    return ((tuple(in_a), tuple(in_b)), tuple(out),
+            (tuple(g_a), tuple(g_b)))
+
+
+def rmsnorm_rule(x, w):
+    """Rows (any dim of x but its last) stay as they are and the norm's
+    dim is gathered; w is replicated, and its gradient is a partial sum
+    over the mesh dims that shard x's rows."""
+    D = x.ndim - 1
+    in_x, g_w = [], []
+    for px in x.placements:
+        px = px if _dim_ok(x, px) and px.dim < D else _R
+        in_x.append(px)
+        g_w.append(Partial() if px.is_shard() else _R)
+    in_x, rep = tuple(in_x), (_R,) * len(in_x)
+    return (in_x, rep), in_x, (in_x, tuple(g_w))
+
+
+def flash_rule(q, k, v):
+    """Batch and heads may stay sharded; q, k and v are gathered on the
+    sequence (the kernel has no query offset).  Heads stay sharded on a
+    mesh dim only where it splits both q's H and k's KVH heads evenly, so
+    that each rank holds whole GQA groups (H / m query heads over their
+    KVH / m KV heads); otherwise they are gathered.  Every gradient has its
+    input's placement."""
+    heads = _ranks_on(q, 2)
+    ps = tuple(pq if (pq.is_shard(0) and _dim_ok(q, pq)) or (
+        pq.is_shard(2) and q.shape[2] % heads == 0
+        and k.shape[2] % heads == 0) else _R for pq in q.placements)
+    return (ps, ps, ps), ps, (ps, ps, ps)

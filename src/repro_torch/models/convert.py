@@ -7,8 +7,8 @@ writes it (``train/checkpoint.py``: the parameters and both AdamW
 moments).  Every shape is checked against the configuration, and the
 3-D/4-D projection weights are reshaped between the JAX layout and the
 port's 2-D one, so both packages compute the same function.  Block groups
-are ``pos0``-``pos{period-1}``, each stacked over periods; a position's
-mixer kind decides its reshapes (the SSM weights need none).  The codebook
+are ``pos0``-``pos{period-1}``, each stacked over periods; the JAX shapes
+are ``model.jax_axes_tree``'s (the SSM weights need no reshape).  The codebook
 tables ``(ncb, V, D)`` and head ``(ncb, D, V)`` keep the JAX layout.  A
 reshape moves no element, so a round trip returns the same bits.
 """
@@ -22,47 +22,21 @@ import torch
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike, resolve_device
-from .model import Params, spec_tree
-
-
-def _jax_shape(cfg: ArchConfig, kind, name: str, shape: tuple) -> tuple:
-    """The JAX shape of port parameter ``name`` (port shape ``shape``) at a
-    position whose mixer is ``kind`` (None outside the block groups)."""
-    P, D, dh, H = cfg.n_periods, cfg.d_model, cfg.head_dim, cfg.n_heads
-    if kind == "mla":
-        # MLA's (r, H, d) up-projections and (H, d_v, D) output; the port
-        # keeps them 2-D, (r, H*d) and (H*d_v, D): the prefill expands K/V
-        # with one product on the whole stack, and the absorbed decode
-        # takes each head's (r, d) block as a strided view
-        m = cfg.mla
-        mla = {"mix_wq_b": (P, m.q_lora, H, m.d_nope + m.d_rope),
-               "mix_wk_b": (P, m.kv_lora, H, m.d_nope),
-               "mix_wv_b": (P, m.kv_lora, H, m.d_v),
-               "mix_wo": (P, H, m.d_v, D)}
-        return mla.get(name, shape)
-    if kind == "attn":
-        attn = {"mix_wq": (P, D, H, dh),
-                "mix_wk": (P, D, cfg.n_kv_heads, dh),
-                "mix_wv": (P, D, cfg.n_kv_heads, dh),
-                "mix_wo": (P, H, dh, D)}
-        return attn.get(name, shape)
-    # the SSM kinds, the FFNs and the embedding, norm and head: as in JAX
-    return shape
+from .model import Params, jax_axes_tree, spec_tree
 
 
 def _walk(tree: Mapping, cfg: ArchConfig):
     """(group, name, port shape, JAX shape, leaf) for every parameter of
     ``cfg``, after checking that ``tree`` has exactly its groups and
     names."""
-    spec = spec_tree(cfg)
+    spec, jax = spec_tree(cfg), jax_axes_tree(cfg)
     if set(tree) != set(spec):
         raise ValueError(f"groups {sorted(tree)} != {sorted(spec)}")
     for g, sub in spec.items():
-        kind = cfg.pattern[int(g[3:])] if g.startswith("pos") else None
         if set(tree[g]) != set(sub):
             raise ValueError(f"{g}: {sorted(tree[g])} != {sorted(sub)}")
         for nm, (shape, _) in sub.items():
-            yield g, nm, shape, _jax_shape(cfg, kind, nm, shape), tree[g][nm]
+            yield g, nm, shape, jax[g][nm][0], tree[g][nm]
 
 
 def params_from_jax(tree: Mapping[str, Mapping[str, np.ndarray]],

@@ -13,9 +13,12 @@ and the causal conv); the weight products inside the scans (sLSTM's
 recurrent ``r``) go through ``ops.matmul``.  Projection weights are
 2-D, ``(D, H*dh)`` for q/k/v and ``(H*dh, D)`` for o; MLA's ``wq_b``,
 ``wk_b`` and ``wv_b`` are ``(r, H*d)`` (``models/convert.py`` reshapes
-the JAX ``(D, H, dh)``/``(H, dh, D)``/``(r, H, d)`` tensors).  The
-sharding annotations of the JAX layers are no-ops without rules and are
-dropped.
+the JAX ``(D, H, dh)``/``(H, dh, D)``/``(r, H, d)`` tensors).
+
+The dense family's sharding annotations are the reference's
+(``parallel.sharding.annotate``): no-ops on plain tensors or without
+rules, a redistribute of a DTensor under rules.  The MLA, SSM and MoE
+sites wait for their multi-GPU slices.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops
+from ..parallel.sharding import annotate, replicate_like
 from . import remat
 
 _NEG_INF = -1e30
@@ -38,12 +42,19 @@ def rms_norm(x, w, eps: float = 1e-5):
     return ops.rmsnorm(x, w, eps=eps)
 
 
+def _linear_local(x, w):
+    y = remat.product(x.reshape(-1, x.shape[-1]), w)
+    return y.reshape(*x.shape[:-1], w.shape[-1])
+
+
 def linear(x, w):
     """x (..., K) @ w (K, N) through the matmul kernel: a projection, a
     product with no batch dimension, whose output remat "dots" keeps
-    (``remat.product``)."""
-    y = remat.product(x.reshape(-1, x.shape[-1]), w)
-    return y.reshape(*x.shape[:-1], w.shape[-1])
+    (``remat.product``).  On DTensors under ``ops.matmul_rule`` with x's
+    leading dims as its rows, each rank's local product as on one device."""
+    if ops.is_distributed(x, w):
+        return ops.on_shards(_linear_local, ops.matmul_rule, x, w)
+    return _linear_local(x, w)
 
 
 def rope_tables(positions, dim: int, theta: float):
@@ -102,8 +113,12 @@ def gqa_project_qkv(p, x, cfg, positions):
     q = linear(x, p["wq"]).view(B, S, cfg.n_heads, dh)
     k = linear(x, p["wk"]).view(B, S, cfg.n_kv_heads, dh)
     v = linear(x, p["wv"]).view(B, S, cfg.n_kv_heads, dh)
-    cos, sin = rope_tables(positions, dh, cfg.rope_theta)
-    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+    cos, sin = (replicate_like(t, q)
+                for t in rope_tables(positions, dh, cfg.rope_theta))
+    q = annotate(apply_rope(q, cos, sin), "batch", "seq", "heads", None)
+    k = annotate(apply_rope(k, cos, sin), "batch", "seq", "kv_heads", None)
+    v = annotate(v, "batch", "seq", "kv_heads", None)
+    return q, k, v
 
 
 def attn_block(p, x, cfg, *, positions, kv_chunk=DEFAULT_KV_CHUNK):
@@ -115,8 +130,9 @@ def attn_block(p, x, cfg, *, positions, kv_chunk=DEFAULT_KV_CHUNK):
     q, k, v = gqa_project_qkv(p, h, cfg, positions)
     bk = None if kv_chunk == DEFAULT_KV_CHUNK else kv_chunk
     o = ops.flash_attention(q, k, v, causal=True, bk=bk)
+    o = annotate(o, "batch", "seq", "heads", None)
     out = linear(o.reshape(B, S, -1), p["wo"])
-    return out, (k, v)
+    return annotate(out, "batch", "seq", "embed"), (k, v)
 
 
 def attn_decode(p, x, cache_kv, cfg, *, t, kv_positions):
@@ -137,7 +153,7 @@ def attn_decode(p, x, cache_kv, cfg, *, t, kv_positions):
     cache_update(v, v1, t)
     o = decode_attention(q, k, v, t=t, kv_positions=kv_positions)
     out = linear(o.reshape(B, 1, -1), p["wo"])
-    return out, (k, v)
+    return annotate(out, "batch", None, "embed"), (k, v)
 
 
 def cache_update(cache, new, t):
@@ -255,6 +271,7 @@ def mla_decode(p, x, cache, cfg, *, t, kv_positions):
 
 def ffn_block(p, x, cfg):
     h = rms_norm(x, p["ln"], cfg.norm_eps)
-    g = linear(h, p["w_gate"])
-    u = linear(h, p["w_up"])
-    return linear(F.silu(g) * u, p["w_down"])
+    g = annotate(linear(h, p["w_gate"]), "batch", "seq", "ffn")
+    u = annotate(linear(h, p["w_up"]), "batch", "seq", "ffn")
+    y = linear(F.silu(g) * u, p["w_down"])
+    return annotate(y, "batch", "seq", "embed")

@@ -33,9 +33,11 @@ from typing import Callable, Dict, Iterator, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike, resolve_device
+from ..parallel.sharding import annotate, on_shards, pick_rule, take_rule
 from . import layers as L
 from . import moe as M
 from . import remat as R
@@ -173,6 +175,128 @@ def spec_tree(cfg: ArchConfig) -> Dict[str, Dict[str, Tuple[tuple, float]]]:
     return tree
 
 
+def _kind_axes(cfg: ArchConfig, kind: str) -> Dict[str, Tuple[tuple, tuple]]:
+    """One mixer's (JAX shape, logical axes) per parameter, unstacked: the
+    reference's ``_kind_params``, whose attention and MLA projections are
+    3-D where the port's are 2-D."""
+    D, dh = cfg.d_model, cfg.head_dim
+    H, KV = cfg.n_heads, cfg.n_kv_heads
+    di = cfg.d_inner
+    out = {"ln": ((D,), ("embed",))}
+    if kind == "attn":
+        out.update({
+            "wq": ((D, H, dh), ("fsdp_embed", "heads_w", None)),
+            "wk": ((D, KV, dh), ("fsdp_embed", "heads_w", None)),
+            "wv": ((D, KV, dh), ("fsdp_embed", "heads_w", None)),
+            "wo": ((H, dh, D), ("heads_w", None, "fsdp_embed")),
+        })
+    elif kind == "mla":
+        m = cfg.mla
+        out.update({
+            "wq_a": ((D, m.q_lora), ("fsdp_embed", "lora")),
+            "q_ln": ((m.q_lora,), ("lora",)),
+            "wq_b": ((m.q_lora, H, m.d_nope + m.d_rope),
+                     ("lora", "heads_w", None)),
+            "wkv_a": ((D, m.kv_lora + m.d_rope), ("fsdp_embed", "lora")),
+            "kv_ln": ((m.kv_lora,), ("lora",)),
+            "wk_b": ((m.kv_lora, H, m.d_nope), ("lora", "heads_w", None)),
+            "wv_b": ((m.kv_lora, H, m.d_v), ("lora", "heads_w", None)),
+            "wo": ((H, m.d_v, D), ("heads_w", None, "fsdp_embed")),
+        })
+    elif kind == "mamba":
+        N, dtr = cfg.d_state, di // 16
+        out.update({
+            "in_proj": ((D, 2 * di), ("fsdp_embed", "inner")),
+            "conv_w": ((cfg.d_conv, di), (None, "inner")),
+            "x_proj": ((di, dtr + 2 * N), ("inner", None)),
+            "dt_w": ((dtr, di), (None, "inner")),
+            "dt_b": ((di,), ("inner",)),
+            "a_log": ((di, N), ("inner", "state")),
+            "d": ((di,), ("inner",)),
+            "out_proj": ((di, D), ("inner", "fsdp_embed")),
+        })
+    elif kind == "mlstm":
+        out.update({
+            "up": ((D, 2 * di), ("fsdp_embed", "inner")),
+            "conv_w": ((cfg.d_conv, di), (None, "inner")),
+            "wq": ((di, di), ("inner", None)),
+            "wk": ((di, di), ("inner", None)),
+            "wv": ((di, di), ("inner", None)),
+            "wif": ((di, 2 * H), ("inner", None)),
+            "b_if": ((2 * H,), (None,)),
+            "down": ((di, D), ("inner", "fsdp_embed")),
+        })
+    else:   # slstm
+        dh_s = D // H
+        out.update({
+            "w": ((D, 4 * D), ("fsdp_embed", None)),
+            "r": ((H, dh_s, 4 * dh_s), (None, None, None)),
+            "b": ((4 * D,), (None,)),
+            "up": ((D, 2 * di), ("fsdp_embed", "inner")),
+            "down": ((di, D), ("inner", "fsdp_embed")),
+        })
+    return out
+
+
+def _ffn_axes(cfg: ArchConfig, fk: str) -> Dict[str, Tuple[tuple, tuple]]:
+    """One FFN's (JAX shape, logical axes) per parameter (the reference's
+    ``_ffn_params``)."""
+    D = cfg.d_model
+    if fk == "none":
+        return {}
+    out = {"ln": ((D,), ("embed",))}
+    if fk == "dense":
+        F_ = cfg.d_ff
+        out.update({"w_gate": ((D, F_), ("fsdp_embed", "ffn")),
+                    "w_up": ((D, F_), ("fsdp_embed", "ffn")),
+                    "w_down": ((F_, D), ("ffn", "fsdp_embed"))})
+        return out
+    e = cfg.moe
+    E, Fe = e.n_experts, e.d_ff_expert
+    out.update({"router": ((D, E), ("fsdp_embed", None)),
+                "w_gate": ((E, D, Fe), ("expert", "fsdp_embed", "ffn")),
+                "w_up": ((E, D, Fe), ("expert", "fsdp_embed", "ffn")),
+                "w_down": ((E, Fe, D), ("expert", "ffn", "fsdp_embed"))})
+    if e.n_shared:
+        Fs = e.n_shared * Fe
+        out.update({"sh_gate": ((D, Fs), ("fsdp_embed", "ffn")),
+                    "sh_up": ((D, Fs), ("fsdp_embed", "ffn")),
+                    "sh_down": ((Fs, D), ("ffn", "fsdp_embed"))})
+    return out
+
+
+def jax_axes_tree(cfg: ArchConfig) -> Dict[str, Dict[str, Tuple[tuple,
+                                                                tuple]]]:
+    """(JAX shape, logical axes) per port parameter: the reference's
+    ``_spec_tree`` without the fan-ins.  Block weights carry the leading
+    ``n_periods`` dim, logical axis ``"layers"`` (in no rule table: always
+    replicated)."""
+    check_supported(cfg)
+    D, V, P, ncb = cfg.d_model, cfg.vocab, cfg.n_periods, cfg.n_codebooks
+    books, book_ax = ((ncb,), (None,)) if ncb else ((), ())
+    tree = {"embed": {"tok": (books + (V, D),
+                              book_ax + ("vocab", "fsdp_embed"))},
+            "final": {"ln": ((D,), ("embed",))}}
+    for i, (kind, fk) in enumerate(zip(cfg.pattern, cfg.ffn_pattern)):
+        pos = {}
+        for pre, spec in (("mix_", _kind_axes(cfg, kind)),
+                          ("ffn_", _ffn_axes(cfg, fk))):
+            for nm, (shape, axes) in spec.items():
+                pos[pre + nm] = ((P,) + shape, ("layers",) + axes)
+        tree[f"pos{i}"] = pos
+    if not cfg.tie_embeddings:
+        tree["head"] = {"w": (books + (D, V),
+                              book_ax + ("fsdp_embed", "vocab"))}
+    return tree
+
+
+def param_axes(cfg: ArchConfig) -> Dict[str, Dict[str, tuple]]:
+    """The reference's logical axes of every weight, one per dim of its
+    JAX tensor (``Model.param_shapes``)."""
+    return {g: {nm: axes for nm, (_, axes) in sub.items()}
+            for g, sub in jax_axes_tree(cfg).items()}
+
+
 def init_params(cfg: ArchConfig, generator: torch.Generator,
                 device: DeviceLike = None,
                 dtype: torch.dtype = torch.float32) -> Params:
@@ -204,6 +328,25 @@ def init_params(cfg: ArchConfig, generator: torch.Generator,
     return params
 
 
+def _take(tok, table):
+    """``F.embedding``; on DTensors under ``parallel.sharding.take_rule``."""
+    if isinstance(tok, DTensor) or isinstance(table, DTensor):
+        return on_shards(F.embedding, take_rule, tok, table)
+    return F.embedding(tok, table)
+
+
+def _pick_local(x, idx):
+    return torch.gather(x, -1, idx[..., None])[..., 0]
+
+
+def _pick(x, idx):
+    """x's entry at ``idx`` along its last dim, row by row; on DTensors under
+    ``parallel.sharding.pick_rule``."""
+    if isinstance(x, DTensor):
+        return on_shards(_pick_local, pick_rule, x, idx)
+    return _pick_local(x, idx)
+
+
 def map_cache(fn: Callable, *trees):
     """``fn`` over the leaves of cache trees of one structure (nested
     tuples of tensors); returns the results in that structure."""
@@ -224,6 +367,15 @@ class Model:
         return init_params(self.cfg, generator, self.device,
                            self.knobs.param_dtype)
 
+    def param_axes(self):
+        return param_axes(self.cfg)
+
+    def param_shapes(self):
+        """The JAX shape of every weight, which ``param_axes`` describes
+        (the port's own shapes: ``spec_tree``)."""
+        return {g: {nm: torch.Size(shape) for nm, (shape, _) in sub.items()}
+                for g, sub in jax_axes_tree(self.cfg).items()}
+
     # -- embedding / head -----------------------------------------------------
 
     def _embed(self, params, batch):
@@ -235,26 +387,27 @@ class Model:
         tok = batch["tokens"].long()
         if self.cfg.n_codebooks:
             # (B, S, ncb) tokens: the sum of the per-codebook embeddings
-            x = sum(F.embedding(tok[..., c], t)
+            x = sum(_take(tok[..., c], t)
                     for c, t in enumerate(table.unbind(0)))
         else:
-            x = F.embedding(tok, table)
+            x = _take(tok, table)
         if self.cfg.n_patches and "patches" in batch:
             x = torch.cat([batch["patches"].to(cd), x], dim=1)
-        return x
+        return annotate(x, "batch", "seq", "embed")
 
     def _head(self, params, x):
         if self.knobs.logits_f32:
             x = x.float()
         if self.cfg.n_codebooks:   # bsd,cdv->bscv: a launch a codebook
             w = params["head"]["w"].to(x.dtype)
-            return torch.stack([L.linear(x, w[c])
-                                for c in range(w.shape[0])], dim=2)
+            logits = torch.stack([L.linear(x, w[c])
+                                  for c in range(w.shape[0])], dim=2)
+            return annotate(logits, "batch", "seq", None, "vocab")
         if "head" in params:
             w = params["head"]["w"].to(x.dtype)
         else:   # tied: a transposed view, read in place by the kernel
             w = params["embed"]["tok"].to(x.dtype).T
-        return L.linear(x, w)
+        return annotate(L.linear(x, w), "batch", "seq", "vocab")
 
     # -- layers ---------------------------------------------------------------
 
@@ -330,6 +483,7 @@ class Model:
         over the whole sequence; their cache entries go to ``caches``."""
         for i, p, pf in layers:
             x, c = self._block(i, p, pf, x, positions)
+            x = annotate(x, "batch", "seq", "embed")
             if caches is not None:
                 caches.append(c)
         return x
@@ -370,8 +524,7 @@ class Model:
             # labels align with the text tail of the concatenated sequence
             logits = logits[:, -labels.shape[1]:]
         lse = torch.logsumexp(logits, dim=-1)
-        tgt = torch.gather(logits, -1, labels[..., None])[..., 0]
-        return torch.mean(lse - tgt)
+        return torch.mean(lse - _pick(logits, labels))
 
     # -- prefill / decode -----------------------------------------------------
 
@@ -455,7 +608,7 @@ class Model:
         batch['tokens']: (B, 1) [(B, 1, ncb)].  Writes the cache in place
         and returns (logits (B, V) [(B, ncb, V)], cache)."""
         cfg = self.cfg
-        x = self._embed(params, batch)
+        x = annotate(self._embed(params, batch), "batch", None, "embed")
         t = torch.as_tensor(t, device=x.device).long()
         kv_positions = torch.arange(self._cache_smax(cache), device=x.device)
         for j, i, p, pf in self._layers(params):

@@ -30,6 +30,13 @@ A period is checkpointed only where autograd records it (grad enabled and
 an input that requires grad), as ``ssm.chunked_scan`` does: the serving
 path runs as it did.  ``chunked_scan``'s per-chunk checkpoints nest inside
 a period's (non-reentrant checkpoints nest).
+
+Under sharding rules (``parallel.sharding.axis_rules``, thread-local) the
+recompute runs where autograd runs the backward, which for CUDA tensors is
+its own device thread: the rules active at the checkpoint are entered
+around the recompute too, so that it redistributes as the forward did.
+The stash and the kept outputs then hold each rank's local tensors
+(``layers.linear`` runs ``product`` on them).
 """
 
 from __future__ import annotations
@@ -42,6 +49,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
+from ..parallel.sharding import axis_rules, current_rules
 
 REMATS = ("none", "full", "dots")
 
@@ -120,12 +128,22 @@ def run(remat: str, fn: Callable, *args):
         raise ValueError(f"unknown remat {remat!r}; one of {REMATS}")
     if remat == "none" or not (torch.is_grad_enabled() and _records(args)):
         return fn(*args)
-    # the layers draw no random numbers: no RNG state to stash
+    rules = current_rules()
     if remat == "full":
-        return checkpoint(fn, *args, use_reentrant=False,
-                          preserve_rng_state=False)
-    stash = _Stash()
+        def contexts():
+            return axis_rules(rules), axis_rules(rules)
+    else:
+        stash = _Stash()
+
+        def contexts():
+            return (_both(axis_rules(rules), stash.recording()),
+                    _both(axis_rules(rules), stash.replaying()))
+    # the layers draw no random numbers: no RNG state to stash
     return checkpoint(fn, *args, use_reentrant=False,
-                      preserve_rng_state=False,
-                      context_fn=lambda: (stash.recording(),
-                                          stash.replaying()))
+                      preserve_rng_state=False, context_fn=contexts)
+
+
+@contextmanager
+def _both(a, b):
+    with a, b:
+        yield

@@ -1,3 +1,8 @@
-"""parallel -- so far the int8 gradient round trip of ``compression.py``
-(the mesh rules, the pipeline option and the compressed ring wait for the
-multi-GPU port)."""
+"""parallel -- mesh/sharding rules and the int8 gradient round trip (the
+pipeline option and the compressed ring wait for the multi-GPU port)."""
+
+from .sharding import (RULE_VARIANTS, ShardingRules, annotate, axis_rules,
+                       current_rules, logical_spec, make_rules)
+
+__all__ = ["ShardingRules", "axis_rules", "annotate", "logical_spec",
+           "current_rules", "RULE_VARIANTS", "make_rules"]

@@ -1,8 +1,7 @@
-"""train -- optimizer, step function, data pipeline, checkpointing (the
-reference's ``shard_params`` waits for the multi-GPU port)."""
+"""train -- optimizer, step function, data pipeline, checkpointing."""
 
 from .optim import AdamWConfig, adamw_init, adamw_update
-from .step import TrainConfig, make_train_step
+from .step import TrainConfig, make_train_step, shard_params
 
 __all__ = ["AdamWConfig", "adamw_init", "adamw_update",
-           "TrainConfig", "make_train_step"]
+           "TrainConfig", "make_train_step", "shard_params"]

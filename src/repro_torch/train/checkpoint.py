@@ -1,5 +1,5 @@
-"""Checkpoint/restart in the JAX package's on-disk format (port of
-``repro.train.checkpoint`` on one device).
+"""Checkpoint/restart with elastic resharding, in the JAX package's on-disk
+format (port of ``repro.train.checkpoint``).
 
 A checkpoint is ``step_%010d/`` holding ``arrays.npz`` and
 ``manifest.json`` (step, keys, shapes, dtypes, extra), each array keyed by
@@ -15,7 +15,14 @@ back through ``params_from_jax``.  So a checkpoint that either package
 writes restores in the other.  ``restore`` takes a ``like`` tree of the
 port's tensors (``meta`` tensors will do), checks every shape, and
 places the result on ``device`` (default: each ``like`` leaf's own;
-``meta`` tensors need ``device``).
+``meta`` tensors need ``device``), or, with ``shardings`` (a
+same-structure tree of ``parallel.sharding.NamedSharding``), onto the
+current mesh: a run saved on one mesh restores onto any other (elastic
+scaling).
+
+A tree of DTensors is saved whole: every rank gathers each leaf (a
+collective, so every rank calls ``save``), rank 0 alone writes, and a
+barrier follows, so that no rank reads ``latest_step`` before the write.
 """
 
 from __future__ import annotations
@@ -28,11 +35,13 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike
 from ..models.convert import params_from_jax, params_to_jax
 from ..models.model import spec_tree
+from ..parallel.sharding import gather, place
 
 
 def _is_params(tree, cfg: Optional[ArchConfig]) -> bool:
@@ -60,9 +69,26 @@ def _to_jax(tree, cfg):
     return np.asarray(tree)
 
 
+def _multi_rank() -> bool:
+    return dist.is_initialized() and dist.get_world_size() > 1
+
+
 def save(ckpt_dir: str, step: int, tree, *, cfg: Optional[ArchConfig] = None,
          keep: int = 3, extra: Optional[Dict] = None) -> str:
-    """Atomically write checkpoint ``step``; prune to ``keep`` newest."""
+    """Atomically write checkpoint ``step``; prune to ``keep`` newest.  In a
+    process group of several ranks every rank calls it and rank 0
+    writes."""
+    final = os.path.join(ckpt_dir, f"step_{step:010d}")
+    tree = gather(tree)
+    if _multi_rank():
+        if dist.get_rank() == 0:
+            _write(ckpt_dir, step, tree, cfg, keep, extra)
+        dist.barrier()
+        return final
+    return _write(ckpt_dir, step, tree, cfg, keep, extra)
+
+
+def _write(ckpt_dir, step, tree, cfg, keep, extra) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     flat = _flatten(_to_jax(tree, cfg))
     arrays = {k: np.asarray(v) for k, v in flat}
@@ -140,12 +166,19 @@ def _place(t: torch.Tensor, like: torch.Tensor, path, device):
 
 
 def restore(ckpt_dir: str, step: int, like, *,
-            cfg: Optional[ArchConfig] = None, device: DeviceLike = None):
+            cfg: Optional[ArchConfig] = None, device: DeviceLike = None,
+            shardings=None):
     """Restore into the structure of ``like`` (a tree of tensors, whose
-    shapes and dtypes are the port's).  Returns (tree, manifest)."""
+    shapes and dtypes are the port's).  ``shardings``: a same-structure
+    tree of NamedSharding for elastic placement onto the current mesh
+    (every rank reads the checkpoint and keeps its slices); None = tensors
+    on ``device``.  Returns (tree, manifest)."""
     path = os.path.join(ckpt_dir, f"step_{step:010d}")
     with open(os.path.join(path, "manifest.json")) as f:
         manifest = json.load(f)
     with np.load(os.path.join(path, "arrays.npz")) as npz:
-        tree = _read(npz, like, (), cfg, device)
+        tree = _read(npz, like, (), cfg,
+                     "cpu" if shardings is not None else device)
+    if shardings is not None:
+        tree = place(tree, shardings)
     return tree, manifest

@@ -1,9 +1,10 @@
 """Data pipeline: deterministic synthetic corpus + memmap-backed corpus
 (port of ``repro.train.data``, numpy code as there).
 
-Both sources yield host numpy batches; the trainer moves each batch to
-its device itself (the reference's ``make_global_batch`` is mesh
-placement, which waits for the multi-GPU port).
+Both sources yield host numpy batches; the one-device trainer moves each
+batch to its device itself, and ``make_global_batch`` places a host batch
+on the mesh with the batch sharding: every rank draws the same seeded
+batch and keeps its slice (no collective).
 
 The synthetic stream is Zipf-distributed tokens with a per-step PRNG keyed
 on (seed, step) so restarts resume bit-identically (checkpoint/restart test
@@ -17,8 +18,10 @@ from dataclasses import dataclass
 from typing import Dict, Iterator, Optional
 
 import numpy as np
+import torch
 
 from ..configs.base import ArchConfig, Shape
+from ..parallel.sharding import distribute
 
 
 @dataclass
@@ -82,3 +85,21 @@ def batch_iterator(cfg: ArchConfig, shape: Shape, dc: DataConfig,
         else:
             yield synthetic_batch(cfg, shape, step, dc)
         step += 1
+
+
+def batch_axes(cfg: ArchConfig) -> Dict[str, tuple]:
+    """The logical axes of a training batch's entries (the reference's
+    ``launch/cells.py`` ``batch_specs``): tokens and labels over (batch,
+    seq), codebooks replicated, a patch prefix over batch only."""
+    if cfg.n_codebooks:
+        return {"tokens": ("batch", "seq", None),
+                "labels": ("batch", "seq", None)}
+    return {"tokens": ("batch", "seq"), "labels": ("batch", "seq"),
+            "patches": ("batch", None, None)}
+
+
+def make_global_batch(host_batch, shardings):
+    """Place host arrays on the mesh (name -> NamedSharding): each rank
+    keeps its slice of the batch it holds whole."""
+    return {k: distribute(torch.as_tensor(v), shardings[k])
+            for k, v in host_batch.items()}

@@ -5,6 +5,11 @@ global-norm clipping (the norm in f32), the warmup-cosine schedule, bias
 correction and decoupled weight decay.  Plain tensor code, as the JAX
 version is plain ``jnp``.  Functional like the JAX version: it returns new
 parameters and state and leaves its inputs as they were.
+
+The same code runs on the sharded step's DTensors: the update is
+elementwise on each rank's shards, and each leaf's sum of squares in
+``global_norm`` is a partial sum that DTensor reduces over the mesh, so the
+norm is the global one.
 """
 
 from __future__ import annotations

@@ -14,7 +14,9 @@
 - ``params_to_jax`` round-trips every configuration bit for bit;
 - ``repro_torch.launch.train`` on the CPU: a rerun after the last
   checkpoint is lost resumes and ends bit for bit where the straight run
-  did; ``--model-axis`` is refused.
+  did; ``--model-axis 1`` in a group of one rank gives the same bits, and a
+  model axis that does not divide the world is refused (the 8-rank runs:
+  ``tests/test_torch_sharded.py``).
 """
 
 import json
@@ -346,11 +348,32 @@ def test_cli_resumes_bit_for_bit(tmp_path, capsys):
 
 
 def test_cli_refuses_a_model_axis(capsys):
-    with pytest.raises(SystemExit) as e:
+    """A model axis that does not divide the world (here one rank, the
+    launcher's own group) is refused, and the group it made is gone."""
+    with pytest.raises(SystemExit, match="does not divide the world of 1"):
         train_cli.main(["--arch", ARCH, "--reduced", "--device", "cpu",
                         "--model-axis", "2"])
-    assert e.value.code != 0
-    assert "multi-GPU" in capsys.readouterr().err
+    assert not torch.distributed.is_initialized()
+
+
+def test_cli_model_axis_1_is_the_one_device_run(tmp_path):
+    """``--model-axis 1`` under a group of one rank (gloo, made and
+    destroyed by the launcher): the sharded step on a (1, 1) mesh gives
+    the one-device run's losses, parameters and AdamW state bit for bit,
+    and its checkpoints resume it."""
+    one = cli(str(tmp_path / "a"))
+    sharded = cli(str(tmp_path / "b"), "--model-axis", "1", "--variant",
+                  "cp")
+    assert not torch.distributed.is_initialized()
+    assert [h["loss"] for h in sharded["history"]] == \
+        [h["loss"] for h in one["history"]]
+    assert_trees_equal({"p": sharded["params"], "o": sharded["opt"]},
+                       {"p": one["params"], "o": one["opt"]})
+    shutil.rmtree(tmp_path / "b" / "step_0000000006")
+    resumed = cli(str(tmp_path / "b"), "--model-axis", "1")
+    assert resumed["start"] == 3
+    assert_trees_equal({"p": resumed["params"], "o": resumed["opt"]},
+                       {"p": one["params"], "o": one["opt"]})
 
 
 def test_cli_wants_the_card_by_default():

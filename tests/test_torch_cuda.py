@@ -1584,3 +1584,107 @@ def test_train_runs_on_the_card_are_bitwise_equal(cuda_device, arch):
         for (p, a), (_, b) in zip(_flatten(runs[0][key]),
                                   _flatten(runs[1][key])):
             assert a.device.type == "cuda" and torch.equal(a, b), p
+
+
+@pytest.fixture
+def world1_mesh(cuda_device):
+    """A (1, 1) (data, model) mesh of a world-1 NCCL group, destroyed
+    after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield make_host_mesh(1, device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _counted(fn):
+    """(fn(), the launches it made, the plain calls it made)."""
+    l0, p0 = dict(ops.launches), dict(ops.plain_calls)
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, {k: ops.launches[k] - l0[k] for k in l0},
+            {k: ops.plain_calls[k] - p0[k] for k in p0})
+
+
+@pytest.mark.cuda
+def test_sharded_step_on_a_world1_nccl_mesh_is_the_unsharded_step(
+        world1_mesh):
+    """The sharded train step under cp on a (1, 1) NCCL mesh (reduced
+    smollm-135m, ga 2, 4 x 32) gives the unsharded step's loss,
+    parameters and AdamW state bit for bit, with the same launches and no
+    plain call."""
+    from repro_torch.models.model import Model, ModelKnobs
+    from repro_torch.parallel.sharding import gather, make_rules, place
+    from repro_torch.train.checkpoint import _flatten
+    from repro_torch.train.optim import AdamWConfig, adamw_init
+    from repro_torch.train.step import (TrainConfig, make_train_step,
+                                        opt_shardings, placed_train_step,
+                                        shard_params)
+    cfg, pc, _ = _train_inputs("smollm-135m", 61)
+    model = Model(cfg, ModelKnobs(kv_chunk=16), device="cuda")
+    params = {g: {k: v.cuda() for k, v in sub.items()}
+              for g, sub in pc.items()}
+    gen = torch.Generator().manual_seed(62)
+    batch = {k: torch.randint(0, cfg.vocab, (4, 32), generator=gen)
+             for k in ("tokens", "labels")}
+    tc = TrainConfig(grad_accum=2, optimizer=AdamWConfig(lr=1e-3, warmup=1))
+    (p1, o1, m1), l1, pl1 = _counted(lambda: make_train_step(model, tc)(
+        params, adamw_init(params), {k: v.cuda() for k, v in batch.items()}))
+    rules = make_rules("cp").with_mesh(world1_mesh)
+    step = placed_train_step(model, rules, tc)
+    (p2, o2, m2), l2, pl2 = _counted(lambda: step(
+        shard_params(model, params, rules),
+        place(adamw_init(params), opt_shardings(model, rules)), batch))
+    assert l2 == l1 and l1["matmul"] > 0 and not any(pl1.values()) \
+        and not any(pl2.values())
+    assert float(m2["loss"]) == float(m1["loss"])
+    for (p, a), (_, b) in zip(_flatten({"p": gather(p2), "o": gather(o2)}),
+                              _flatten({"p": p1, "o": o1})):
+        assert a.is_cuda and torch.equal(a, b), p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["matmul", "linear", "rmsnorm", "flash"])
+def test_op_rule_on_the_card_is_the_kernel(world1_mesh, op):
+    """Each op's placement rule on the card (a (1, 1) NCCL mesh, every
+    input sharded where the rule keeps it): the kernel's own output and
+    gradients bit for bit, the same launches, no plain call."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.models import layers
+    S0, S1, S2, R = Shard(0), Shard(1), Shard(2), Replicate()
+    fn, shapes, places = {
+        "matmul": (ops.matmul, [(64, 576), (576, 1536)], [(S0, R), (R, S1)]),
+        "linear": (layers.linear, [(2, 32, 576), (576, 1536)],
+                   [(S0, S1), (S0, R)]),
+        "rmsnorm": (lambda x, w: ops.rmsnorm(x, w, eps=1e-5),
+                    [(2, 32, 576), (576,)], [(S0, S1), (R, R)]),
+        "flash": (lambda q, k, v: ops.flash_attention(q, k, v, causal=True),
+                  [(2, 32, 9, 64), (2, 32, 3, 64), (2, 32, 3, 64)],
+                  [(S0, S2), (S0, S2), (S0, S2)]),
+    }[op]
+    gen = torch.Generator().manual_seed(63)
+    whole = [torch.randn(s, generator=gen).cuda() for s in shapes]
+    g_out = None
+
+    def run(inputs):
+        nonlocal g_out
+        out = fn(*inputs)
+        full = out.full_tensor() if hasattr(out, "full_tensor") else out
+        if g_out is None:
+            g_out = torch.randn(full.shape, generator=gen).cuda()
+        (full * g_out).sum().backward()
+        return [full.detach()] + [
+            t.grad.full_tensor() if hasattr(t.grad, "full_tensor")
+            else t.grad for t in inputs]
+
+    want, l1, p1 = _counted(lambda: run(
+        [t.clone().requires_grad_(True) for t in whole]))
+    got, l2, p2 = _counted(lambda: run(
+        [distribute_tensor(t, world1_mesh, p, src_data_rank=None)
+         .requires_grad_(True) for t, p in zip(whole, places)]))
+    assert l2 == l1 and not any(p1.values()) and not any(p2.values())
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
