@@ -242,10 +242,22 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               its one-device run bit for bit; (c) where the machine shows
               several cards, the full-width cp run on a (1, n) mesh over n
               = min(count, 4) of them, one process a card, its losses
-              against (a)'s; otherwise a line saying it was not run.
+              against (a)'s; (d) (in the moe phase, on its weights)
+              full-width phi3.5-moe, 2 of 32 layers, at capacity factor
+              E / top_k: one microbatch of 2 x 64 tokens through the
+              sharded loss_and_grads under cp (all_to_all), tp (local
+              experts, summed) and dp on a (1, 1) mesh of a world-1
+              group, loss and gradients against one device's, the same
+              launches, no plain call, host ms of each; (e) reduced
+              phi3.5-moe and deepseek-v2 through launch/train.py
+              --model-axis 1 under cp, tp and dp, their losses against
+              the same commands on the CPU (world-1 gloo); (f) with
+              several cards, the int8 ring and phi3.5-moe's cp
+              all_to_all over a (1, n) mesh; otherwise a line saying (c)
+              and (f) were not run.
 
 The kernels line gives each kernel's launches in every phase, the sharded
-run's as ``launches_sharded``.  It prints the kernels as one JSON line, then
+runs' as ``launches_sharded``.  It prints the kernels as one JSON line, then
 the last line
 ``{"ok": true, "device": {...}}``.  ``--out PATH`` also writes the full
 tables (every case, the serve and profile numbers) as JSON.  It exits
@@ -2779,11 +2791,14 @@ def phase_moe():
          3 * cfg.moe.n_experts * cfg.n_layers),
         (moe, "moe_ffn", "router products", "dispatch's plain ops", None)])
     grads = phase_moe_grads(cfg, p_cpu, p_gpu)
-    del p_cpu, p_gpu
+    del p_cpu
+    # [sharded] (d) on these weights: three 11.5 GB trees fit the card
+    sharded = sharded_moe(cfg, p_gpu)
+    del p_gpu
     torch.cuda.empty_cache()
     study = phase_family_study("moe", "phi3.5-moe", ("attn_fb",))
     return {"kernels": kernel_rows, "serve": serve_stats, "grads": grads,
-            "study": study, "params": n_params}
+            "study": study, "params": n_params, "sharded": sharded}
 
 
 # -- phase 12: MLA (deepseek-v2 at full width) -------------------------------
@@ -4029,33 +4044,9 @@ def several_cards(argv, want, cards: int, device="cuda"):
     """The full-width cp run on a (1, n) mesh over n = min(cards, 4)
     ranks, one card each (processes under torchrun's environment), its
     losses against the one-rank run's within SHARDED_LOSS_RTOL."""
-    import os
-    import socket
-    import tempfile
     n = min(cards, 4)
-    with socket.socket() as s_:
-        s_.bind(("localhost", 0))
-        port = s_.getsockname()[1]
     argv = argv + ["--model-axis", str(n), "--variant", "cp"]
-    with tempfile.TemporaryDirectory() as tmp:
-        hist = Path(tmp) / "history.json"
-        procs = []
-        for r in range(n):
-            env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
-                       MASTER_ADDR="localhost", MASTER_PORT=str(port),
-                       RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE=str(n))
-            procs.append(subprocess.Popen(
-                [sys.executable, "-c", _SHARDED_RANK, json.dumps(argv),
-                 str(hist)], env=env))
-        try:
-            rcs = [p.wait(timeout=600) for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-        if any(rcs):
-            raise AssertionError(f"[sharded] the {n}-rank run exited {rcs}")
-        got = [h["loss"] for h in json.loads(hist.read_text())]
+    got = [h["loss"] for h in _run_ranks(_SHARDED_RANK, argv, n, "cp run")]
     ref_ = [h["loss"] for h in want["history"]]
     worst = max(abs(a - b) / abs(b) for a, b in zip(got, ref_))
     print(f"[sharded] (1, {n}) cp mesh over {n} {device} ranks: losses {got} "
@@ -4065,6 +4056,271 @@ def several_cards(argv, want, cards: int, device="cuda"):
         raise AssertionError(f"[sharded] the {n}-rank run's losses {got} "
                              f"against {ref_}")
     return {"ranks": n, "losses": got, "max_rel_err": worst}
+
+
+# (d): one microbatch of full-width phi3.5-moe (the [moe] phase's weights)
+# through the sharded loss_and_grads under each expert-parallel regime
+SHARDED_MOE = dict(batch=2, seq=64)
+SHARDED_REGIMES = ("cp", "tp", "dp")
+# the sharded MoE's tolerance against one device: x scale for a gradient
+SHARDED_MOE_TOL = 1e-5
+# (e): the reduced MoE and MLA configurations through the launcher
+SHARDED_EP_ARCHS = ("phi3.5-moe", "deepseek-v2")
+
+
+def _no_drop(cfg):
+    """``cfg`` at capacity factor E / top_k: every expert holds every token
+    of a shard, so neither dispatch drops a pair."""
+    m = cfg.moe
+    return replace(cfg, moe=replace(m, capacity_factor=m.n_experts
+                                    / m.top_k))
+
+
+def _timed_grads(fn):
+    """(loss, gradients, host ms, launches, plain calls) of ``fn()`` after
+    one warm call, the counters zeroed just before the timed one."""
+    fn()
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    loss, g = fn()
+    torch.cuda.synchronize()
+    return (loss, g, 1e3 * (time.perf_counter() - t0), dict(ops.launches),
+            dict(ops.plain_calls))
+
+
+def sharded_moe(cfg, params):
+    """[sharded] (d): full-width phi3.5-moe (``params``: the [moe] phase's
+    weights on the card) at capacity factor E / top_k, one microbatch of
+    SHARDED_MOE's tokens through ``loss_and_grads`` on one device, then
+    under cp (all_to_all), tp (local experts, summed) and dp (experts
+    local) on a (1, 1) mesh of a world-1 process group: the loss and every
+    gradient within SHARDED_MOE_TOL x scale of one device's, the same
+    launches, no plain call on the card; the host ms of each (warm)."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.sharding import axis_rules, gather, make_rules
+    from repro_torch.train.data import batch_axes, make_global_batch
+    from repro_torch.train.step import (batch_shardings, loss_and_grads,
+                                        shard_params)
+    from repro_torch.tune.lm_study import _flatten
+    cfg = _no_drop(cfg)
+    device = _device_of(params)
+    model = Model(cfg, device=device)
+    gen = torch.Generator().manual_seed(17)
+    shape = (SHARDED_MOE["batch"], SHARDED_MOE["seq"])
+    mb = {k: torch.randint(cfg.vocab, shape, generator=gen,
+                           dtype=torch.int32) for k in ("tokens", "labels")}
+    loss1, g1, ms1, l1, _ = _timed_grads(lambda: loss_and_grads(
+        model, params, {k: v.to(device) for k, v in mb.items()}))
+    one = _flatten(g1)
+    specs = {k: (tuple(t.shape), batch_axes(cfg)[k]) for k, t in mb.items()}
+    tag = (f"[sharded] (d) phi3.5-moe ({cfg.n_layers} of 32 layers, "
+           f"d_model {cfg.d_model}, capacity factor "
+           f"{cfg.moe.capacity_factor:g}), {shape[0]} x {shape[1]} tokens")
+    print(f"{tag}: one device: loss {float(loss1):.7f}, {ms1:.2f} host ms "
+          f"(warm), matmul launches a microbatch {l1['matmul']}")
+    out = {"one_device": {"loss": float(loss1), "host_ms": ms1,
+                          "launches": l1}}
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_host_mesh(1, device_type=device.type)
+        for v in SHARDED_REGIMES:
+            rules = make_rules(v).with_mesh(mesh)
+            sp = shard_params(model, params, rules)
+
+            def run():
+                b = make_global_batch(mb, batch_shardings(rules, specs))
+                with axis_rules(rules):
+                    return loss_and_grads(model, sp, b)
+            loss, g, ms, lv, pv = _timed_grads(run)
+            loss = float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                         else loss)
+            worst = 0.0
+            for (path, a), (_, b) in zip(_flatten(gather(g)), one):
+                scale = max(float(b.abs().max()), 1e-30)
+                if not torch.isfinite(a).all():
+                    raise AssertionError(f"{tag} {v}: {'/'.join(path)} not "
+                                         f"finite")
+                worst = max(worst, float((a - b).abs().max()) / scale)
+            del g, sp
+            rel = abs(loss - float(loss1)) / abs(float(loss1))
+            print(f"{tag} under {v} on a (1, 1) mesh, world-1 "
+                  f"{dist.get_backend()} group: loss {loss:.7f} (rel err "
+                  f"{rel:.2e}), gradients max err / scale {worst:.2e} (tol "
+                  f"{SHARDED_MOE_TOL:g}); {ms:.2f} host ms (warm; one device "
+                  f"{ms1:.2f}); matmul launches a microbatch {lv['matmul']}"
+                  f" (one device {l1['matmul']}); plain calls {pv}")
+            if rel > SHARDED_MOE_TOL or worst > SHARDED_MOE_TOL:
+                raise AssertionError(f"{tag} {v} differs from one device")
+            if lv != l1:
+                raise AssertionError(f"{tag} {v} launched {lv}, one device "
+                                     f"{l1}")
+            if any(pv.values()) and device.type == "cuda":
+                raise AssertionError(f"{tag} {v} called plain versions: "
+                                     f"{pv}")
+            out[v] = {"loss": loss, "loss_rel_err": rel,
+                      "grad_max_err_over_scale": worst, "host_ms": ms,
+                      "launches": lv, "plain_calls": pv}
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def _family_argv(arch, device):
+    """2 steps of the reduced ``arch`` at the CPU tests' 4 x 32 tokens in 2
+    microbatches."""
+    return ["--arch", arch, "--reduced", "--steps", "2", "--batch", "4",
+            "--seq", "32", "--grad-accum", "2", "--log-every", "1",
+            "--device", device]
+
+
+def sharded_family(device):
+    """[sharded] (e), in the phase's process group: reduced phi3.5-moe and
+    deepseek-v2 through the launcher's ``--model-axis 1`` under each
+    expert-parallel regime on ``device``.  Returns {(arch, regime): (run,
+    launches, plain calls)}."""
+    runs = {}
+    for arch in SHARDED_EP_ARCHS:
+        for v in SHARDED_REGIMES:
+            run, lv, pv, _ = _launched(_family_argv(arch, device) + [
+                "--model-axis", "1", "--variant", v])
+            if any(pv.values()) and device == "cuda":
+                raise AssertionError(f"[sharded] (e) {arch} {v} called "
+                                     f"plain versions: {pv}")
+            runs[arch, v] = (run, lv, pv)
+    return runs
+
+
+def sharded_family_vs_cpu(runs):
+    """[sharded] (e), after the phase's group is gone: each run again on
+    the CPU under a world-1 gloo group (the launcher's own), its losses
+    within SHARDED_LOSS_RTOL of the first's."""
+    from repro_torch.launch import train as train_cli
+    out = {}
+    for (arch, v), (run, lv, pv) in runs.items():
+        cpu = train_cli.main(_family_argv(arch, "cpu") + [
+            "--model-axis", "1", "--variant", v])
+        got = [h["loss"] for h in run["history"]]
+        want = [h["loss"] for h in cpu["history"]]
+        worst = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+        print(f"[sharded] (e) reduced {arch} --model-axis 1 --variant {v}: "
+              f"losses {got} against the CPU's (world-1 gloo) {want} (max "
+              f"rel err {worst:.2e}, rtol {SHARDED_LOSS_RTOL}); launches "
+              f"{lv}; plain calls {pv}")
+        if worst > SHARDED_LOSS_RTOL:
+            raise AssertionError(f"[sharded] (e) {arch} {v}: {got} against "
+                                 f"the CPU's {want}")
+        out[f"{arch} {v}"] = {"losses": got, "cpu_losses": want,
+                              "max_rel_err": worst, "launches": lv}
+    return out
+
+
+# one rank of the several-card expert-parallel run (f): the process group
+# from torchrun's environment, a (1, n) mesh; rank 0 writes the errors
+_EP_RANK = r"""
+import json, os, sys
+from dataclasses import replace
+import torch
+import torch.distributed as dist
+from repro_torch.configs import get_config
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import moe
+from repro_torch.models.model import Model
+from repro_torch.parallel.compression import ring_allreduce_int8
+from repro_torch.parallel.sharding import (NamedSharding, P, axis_rules,
+                                           distribute, make_rules)
+from repro_torch.train.step import shard_params
+args = json.loads(sys.argv[1])
+device, n = args["device"], int(os.environ["WORLD_SIZE"])
+if device == "cuda":
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+dist.init_process_group("nccl" if device == "cuda" else "gloo")
+try:
+    mesh = make_host_mesh(n, device_type=device)
+    x = torch.randn((n, 777), generator=torch.Generator().manual_seed(0))
+    ring = ring_allreduce_int8(distribute(x, NamedSharding(mesh, P("model"))),
+                               mesh, "model").to_local()[0].cpu()
+    want = x.sum(0)
+    ring_err = float((ring - want).abs().max() / want.abs().max())
+    cfg = get_config("phi3.5-moe", reduced=args["reduced"])
+    m = cfg.moe
+    cfg = replace(cfg, n_layers=1, moe=replace(
+        m, capacity_factor=m.n_experts / m.top_k))
+    model = Model(cfg, device=device)
+    params = model.init(torch.Generator(device=device).manual_seed(0))
+    xs = torch.randn((2, 64, cfg.d_model), device=device,
+                     generator=torch.Generator(device=device).manual_seed(1))
+    ffn = {k[4:]: t[0] for k, t in params["pos0"].items()
+           if k.startswith("ffn_")}
+    want = moe.moe_ffn(ffn, xs, cfg, dispatch="sort")
+    rules = make_rules("cp").with_mesh(mesh)
+    sp = shard_params(model, params, rules)["pos0"]
+    pd = {k[4:]: t.unbind(0)[0] for k, t in sp.items()
+          if k.startswith("ffn_")}
+    xd = distribute(xs, NamedSharding(mesh, rules.spec(
+        "batch", "seq", "embed", dims=xs.shape)))
+    with axis_rules(rules):
+        got = moe.moe_ffn(pd, xd, cfg, dispatch="a2a").full_tensor()
+    moe_err = float((got - want).abs().max() / want.abs().max())
+    if os.environ["RANK"] == "0":
+        with open(sys.argv[2], "w") as f:
+            json.dump({"ring": ring_err, "moe": moe_err}, f)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def _torchrun_env(n):
+    """Each of n ranks' environment as torchrun gives it, on a free port."""
+    import os
+    import socket
+    with socket.socket() as s_:
+        s_.bind(("localhost", 0))
+        port = s_.getsockname()[1]
+    return [dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+                 MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(r),
+                 LOCAL_RANK=str(r), WORLD_SIZE=str(n)) for r in range(n)]
+
+
+def _run_ranks(script, args, n, tag):
+    """``script`` in n processes under torchrun's environment; rank 0's
+    JSON result."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        res = Path(tmp) / "result.json"
+        procs = [subprocess.Popen([sys.executable, "-c", script,
+                                   json.dumps(args), str(res)], env=env)
+                 for env in _torchrun_env(n)]
+        try:
+            rcs = [p.wait(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+        if any(rcs):
+            raise AssertionError(f"[sharded] the {n}-rank {tag} exited {rcs}")
+        return json.loads(res.read_text())
+
+
+def several_cards_ep(cards: int, device="cuda", reduced=False):
+    """[sharded] (f): over n = min(cards, 4) ranks, one card each, a (1, n)
+    mesh: ``ring_allreduce_int8`` of an (n, 777) input over the model axis
+    within 5% of the sum's scale, and one phi3.5-moe MoE layer (capacity
+    factor E / top_k) under cp, its all_to_all over the n ranks, within
+    SHARDED_MOE_TOL x scale of ``sort`` on one rank."""
+    n = min(cards, 4)
+    got = _run_ranks(_EP_RANK, {"device": device, "reduced": reduced}, n,
+                     "expert-parallel run")
+    print(f"[sharded] (f) (1, {n}) mesh over {n} {device} ranks: int8 ring "
+          f"max err / scale {got['ring']:.3e} (under 0.05); phi3.5-moe's cp "
+          f"all_to_all MoE layer against sort on one rank, max err / scale "
+          f"{got['moe']:.2e} (tol {SHARDED_MOE_TOL:g})")
+    if got["ring"] >= 0.05 or got["moe"] > SHARDED_MOE_TOL:
+        raise AssertionError(f"[sharded] (f) over {n} ranks: {got}")
+    return dict(got, ranks=n)
 
 
 def phase_sharded(reduced=False, device="cuda", cards=None):
@@ -4077,7 +4333,12 @@ def phase_sharded(reduced=False, device="cuda", cards=None):
     reduced model under dp, tp and cp_fsdp, each bit-equal to its
     one-device run; (c) where the machine shows several cards, the
     full-width cp run on a (1, n) mesh over n = min(cards, 4) of them
-    against (a)."""
+    against (a), and (f) the int8 ring and phi3.5-moe's cp all_to_all over
+    them (``several_cards_ep``).  (d), full-width phi3.5-moe under the
+    expert-parallel regimes, runs in the [moe] phase on its weights
+    (``sharded_moe``); (e) here: reduced phi3.5-moe and deepseek-v2
+    through ``--model-axis 1`` under cp, tp and dp, their losses against
+    the same commands on the CPU (``sharded_family``)."""
     import torch.distributed as dist
     from repro_torch.configs import get_config
     cfg = get_config("smollm-135m", reduced=reduced)
@@ -4107,8 +4368,10 @@ def phase_sharded(reduced=False, device="cuda", cards=None):
                       device)
             variants[v] = {"losses": [h["loss"] for h in run["history"]],
                            "launches": lv}
+        family = sharded_family(device)
     finally:
         dist.destroy_process_group()
+    family = sharded_family_vs_cpu(family)
     host = {"one_device": [h["host_ms"] for h in one["history"]],
             "sharded": [h["host_ms"] for h in sh["history"]]}
     print(f"[sharded] host ms a step (batch to loss; step 1, step 2): one "
@@ -4118,13 +4381,16 @@ def phase_sharded(reduced=False, device="cuda", cards=None):
     out = {"launches": l_sh, "launches_per_step": {
         k: n // 2 for k, n in l_sh.items()}, "plain_calls": p_sh,
         "losses": [h["loss"] for h in sh["history"]], "host_ms": host,
-        "variants": variants}
+        "variants": variants, "family": family}
     cards = torch.cuda.device_count() if cards is None else cards
     if cards >= 2:
         out["several_cards"] = several_cards(argv, sh, cards, device)
+        out["several_cards_ep"] = several_cards_ep(cards, device, reduced)
     else:
-        print(f"[sharded] several cards: not run; this machine shows "
-              f"{cards} CUDA device and NCCL puts no two ranks on one card")
+        print(f"[sharded] several cards ((c) and (f): the cp run, the int8 "
+              f"ring, the MoE all_to_all): not run; this machine shows "
+              f"{cards} CUDA device and NCCL puts no two ranks on one card "
+              f"(at world 1 the ring returns its input)")
     return out
 
 
@@ -4217,7 +4483,13 @@ def main(argv=None) -> int:
                 for what, n in (("serve", st["launches"].get(name, 0)),
                                 ("study", st["study"]["launches"][name]))},
             "launches_train": train["launches"][name],
-            "launches_sharded": sharded["launches"][name],
+            "launches_sharded": {
+                "smollm-135m cp": sharded["launches"][name],
+                **{f"phi3.5-moe {v} (a microbatch)":
+                   moe["sharded"][v]["launches"][name]
+                   for v in SHARDED_REGIMES},
+                **{f"reduced {k}": st["launches"][name]
+                   for k, st in sharded["family"].items()}},
             "max_abs_err": max(r["max_abs_err"] for r in table
                                if r["kernel"] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],

@@ -94,10 +94,16 @@ def build(args: argparse.Namespace, rules=None):
     if rules is not None and device == "cuda":
         device = torch.device("cuda", torch.cuda.current_device())
     model = Model(cfg, knobs, device=device)
-    tc = TrainConfig(grad_accum=args.grad_accum,
-                     optimizer=AdamWConfig(lr=args.lr, warmup=10,
-                                           decay_steps=args.steps))
-    return cfg, shape, model, make_train_step(model, tc, rules=rules)
+    return cfg, shape, model, make_train_step(model, train_config(args),
+                                              rules=rules)
+
+
+def train_config(args: argparse.Namespace) -> TrainConfig:
+    """The step's microbatches and AdamW (warmup 10, decay over
+    --steps)."""
+    return TrainConfig(grad_accum=args.grad_accum,
+                       optimizer=AdamWConfig(lr=args.lr, warmup=10,
+                                             decay_steps=args.steps))
 
 
 def main(argv=None) -> dict:

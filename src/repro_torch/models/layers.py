@@ -15,10 +15,11 @@ recurrent ``r``) go through ``ops.matmul``.  Projection weights are
 ``wk_b`` and ``wv_b`` are ``(r, H*d)`` (``models/convert.py`` reshapes
 the JAX ``(D, H, dh)``/``(H, dh, D)``/``(r, H, d)`` tensors).
 
-The dense family's sharding annotations are the reference's
+The dense family's and MLA's sharding annotations are the reference's
 (``parallel.sharding.annotate``): no-ops on plain tensors or without
-rules, a redistribute of a DTensor under rules.  The MLA, SSM and MoE
-sites wait for their multi-GPU slices.
+rules, a redistribute of a DTensor under rules.  The SSM sites wait for
+their multi-GPU slice, and ``mla_decode``'s for the serving engine under
+rules.
 """
 
 from __future__ import annotations
@@ -202,10 +203,13 @@ def mla_block(p, x, cfg, *, positions, kv_chunk=DEFAULT_KV_CHUNK):
     H = cfg.n_heads
     h = rms_norm(x, p["ln"], cfg.norm_eps)
     q = mla_project_q(p, h, cfg)
-    cos, sin = rope_tables(positions, m.d_rope, cfg.rope_theta)
+    cos, sin = (replicate_like(t, q)
+                for t in rope_tables(positions, m.d_rope, cfg.rope_theta))
     q = torch.cat([q[..., :m.d_nope],
                    apply_rope(q[..., m.d_nope:], cos, sin)], dim=-1)
+    q = annotate(q, "batch", "seq", "heads", None)
     ckv, k_rope = _mla_latent(p, h, cfg, cos, sin)
+    ckv = annotate(ckv, "batch", "seq", "lora")
     k_nope = linear(ckv, p["wk_b"]).view(B, S, H, m.d_nope)
     v = linear(ckv, p["wv_b"]).view(B, S, H, m.d_v)
     k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, m.d_rope)
@@ -213,8 +217,9 @@ def mla_block(p, x, cfg, *, positions, kv_chunk=DEFAULT_KV_CHUNK):
     bk = None if kv_chunk == DEFAULT_KV_CHUNK else kv_chunk
     o = ops.flash_attention(q, k, v, causal=True, bk=bk,
                             scale=1.0 / math.sqrt(m.d_nope + m.d_rope))
+    o = annotate(o, "batch", "seq", "heads", None)
     out = linear(o.reshape(B, S, H * m.d_v), p["wo"])
-    return out, (ckv, k_rope)
+    return annotate(out, "batch", "seq", "embed"), (ckv, k_rope)
 
 
 def per_head_matmul(x, w, width: int, *, transposed: bool):

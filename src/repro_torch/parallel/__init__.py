@@ -1,5 +1,6 @@
-"""parallel -- mesh/sharding rules and the int8 gradient round trip (the
-pipeline option and the compressed ring wait for the multi-GPU port)."""
+"""parallel -- mesh/sharding rules, the int8 gradient round trip, error
+feedback and the int8 ring all-reduce (the pipeline waits for multi-GPU
+slice d)."""
 
 from .sharding import (RULE_VARIANTS, ShardingRules, annotate, axis_rules,
                        current_rules, logical_spec, make_rules)

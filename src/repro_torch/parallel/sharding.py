@@ -385,6 +385,28 @@ def annotate(x, *logical: Optional[str]):
     return x.redistribute(rules.mesh, placements(spec, rules.mesh))
 
 
+def reshape(x, shape):
+    """``x.reshape(shape)``.  A DTensor is reshaped rank by rank: where its
+    placements shard only its first dim, over n ranks, and n divides the
+    new first dim, each rank's block of rows is its block of the result
+    (the blocks stay in mesh order, as JAX lays out the same spec); any
+    other goes through a replicated copy, which the caller then annotates.
+    DTensor's own view is not used: of a DTensor sharded on two dims it
+    refuses, or leaves a strided layout that is not JAX's (which tokens
+    share a rank decides the MoE capacity's drops), and the gradient of a
+    view may arrive in placements it cannot view back."""
+    if not isinstance(x, DTensor):
+        return x.reshape(shape)
+    mesh = x.device_mesh
+    n = math.prod(mesh.size(i) for i, p in enumerate(x.placements)
+                  if p.is_shard(0))
+    if shape[0] % n or any(not (p.is_replicate() or p.is_shard(0))
+                           for p in x.placements):
+        x, n = x.redistribute(mesh, (Replicate(),) * mesh.ndim), 1
+    local = x.to_local().reshape(shape[0] // n, *shape[1:])
+    return DTensor.from_local(local, mesh, x.placements, run_check=False)
+
+
 def on_shards(fn, rule, *tensors):
     """``fn`` on each rank's local tensors under ``rule``: the inputs are
     redistributed to the placements the rule accepts, ``fn`` runs on the

@@ -88,19 +88,19 @@ def shard_params(model: Model, params, rules: ShardingRules):
     return place(params, param_shardings(model, rules))
 
 
-# the dense family: the annotate sites that are ported (the MLA, SSM and
-# MoE sites wait for their multi-GPU slices)
-SHARDED_MIXERS, SHARDED_FFNS = ("attn",), ("dense",)
+# the layer kinds whose annotate sites are ported (the SSM mixers' wait for
+# the multi-GPU slice that brings ``_manual_scan`` under rules)
+SHARDED_MIXERS, SHARDED_FFNS = ("attn", "mla"), ("dense", "moe")
 
 
 def check_sharded_supported(cfg) -> None:
     if set(cfg.pattern) - set(SHARDED_MIXERS) or \
             set(cfg.ffn_pattern) - set(SHARDED_FFNS):
         raise NotImplementedError(
-            f"{cfg.name}: the sharded train step runs the dense family "
-            f"(mixers {SHARDED_MIXERS}, FFNs {SHARDED_FFNS}); "
-            f"{cfg.pattern}/{cfg.ffn_pattern} wait for their multi-GPU "
-            f"slices")
+            f"{cfg.name}: the sharded train step runs the mixers "
+            f"{SHARDED_MIXERS} with the FFNs {SHARDED_FFNS}; "
+            f"{cfg.pattern}/{cfg.ffn_pattern} wait for multi-GPU slice c "
+            f"(the SSM scans under sharding rules)")
 
 
 # ---------------------------------------------------------------------------
