@@ -196,10 +196,11 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               zeroed around it: per point predicted and full ms, the
               chosen point and its ssm_chunk, the true best, speedup and
               optimum quality; (d) the reduced jamba study's 48 points,
-              its depth cut to one period (8 of 16 layers), as phase
-              11's (d): every kernel launched (the flash backward at
-              its attention position), no plain call, sort and dense
-              sharing every mamba_fb and attn_fb and no moe_fb;
+              its depth cut to one period (8 of 16 layers) and one
+              selective run a point (trials 1), as phase 11's (d):
+              every kernel launched (the flash backward at its attention
+              position), no plain call, sort and dense sharing every
+              mamba_fb and attn_fb and no moe_fb;
 15. frontends -- (a) musicgen-large at its published widths, all 48
               layers (13.0 GB f32, 4 codebooks of 2048), served through
               launch/serve.py with 4-codebook prompts as phase 13's (a)
@@ -254,7 +255,25 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               the same commands on the CPU (world-1 gloo); (f) with
               several cards, the int8 ring and phi3.5-moe's cp
               all_to_all over a (1, n) mesh; otherwise a line saying (c)
-              and (f) were not run.
+              and (f) were not run; (g) the SSM scans in their manual
+              regions: xlstm-125m at its published widths and reduced
+              jamba through launch/train.py --model-axis 1 under cp, tp
+              and dp (2 steps of 2 x 32 tokens), each
+              equal to its one-device run bit for bit with the same
+              launches and no plain call, host ms a step with and without
+              DTensors; (h) the serving engine under cp rules on the (1,
+              1) mesh, smollm-135m and xlstm-125m at their published
+              widths (batch 4, s_max 256, 8 requests, 16 new tokens): the
+              one-device engine's tokens, the same launches each decode
+              step, no plain call, host ms a decode step with and without
+              rules;
+18. jaxdist -- the paper's distributed algorithms (repro_torch.jaxdist) on
+              a (1, 1, 1) mesh of a world-1 NCCL group: matmul_3d at 4096
+              cubed, tsqr at 65536 x 256 and cholesky_3d at n 4096, block
+              512, each bit for bit with the same program on one device's
+              plain tensors and against torch.linalg on the card; matmul
+              launches, no plain call, host ms; where the machine shows 8
+              or more cards, the same at c = 2 over 8 ranks.
 
 The kernels line gives each kernel's launches in every phase, the sharded
 runs' as ``launches_sharded``.  It prints the kernels as one JSON line, then
@@ -2675,8 +2694,9 @@ def phase_moe_grads(cfg, p_cpu, p_gpu, reps: int = 5):
             "rows": rows, "dense_over_sort": ratio}
 
 
-def study_session(tag, study, bwd_pairs=None):
-    """A conditional session (tolerance 0.25, trials 3) over the study's
+def study_session(tag, study, bwd_pairs=None, trials: int = 3):
+    """A conditional session (tolerance 0.25, ``trials`` selective runs a
+    point after its reference run) over the study's
     whole space (``lm_config_space``) on the card, the launch counters
     zeroed just before and read just after: every kernel of the
     configuration's path launched (the flash kernels where it has
@@ -2689,7 +2709,7 @@ def study_session(tag, study, bwd_pairs=None):
     t0 = time.perf_counter()
     with _recording_flash_pairs(bwd_pairs, "flash_attention_bwd_cuda"):
         res = study.session(policy="conditional", tolerance=0.25,
-                            trials=3).run()
+                            trials=trials).run()
     wall = time.perf_counter() - t0
     launches, plain = dict(ops.launches), dict(ops.plain_calls)
     print(f"[{tag}] study launches: {launches}; plain calls: {plain}")
@@ -2713,7 +2733,8 @@ def study_session(tag, study, bwd_pairs=None):
     return res, launches, wall
 
 
-def phase_family_study(tag, arch, mixers, bwd_pairs=None, periods=None):
+def phase_family_study(tag, arch, mixers, bwd_pairs=None, periods=None,
+                       trials: int = 3):
     """(d) A reduced family's study on the card, a protocol check
     (``study_session``); with MoE layers, the sort and dense points share
     every kernel of ``mixers`` (names such as ``attn_fb``) and no
@@ -2721,7 +2742,8 @@ def phase_family_study(tag, arch, mixers, bwd_pairs=None, periods=None):
     two dispatches differ by less than the run-to-run noise, so its
     chosen point and speedup say nothing of the knob: phase (c) times the
     knob at full width.  ``periods``: a depth cut to that many periods of
-    the configuration's layer pattern (its weights cut to match)."""
+    the configuration's layer pattern (its weights cut to match);
+    ``trials``: the selective runs a point (fewer rounds)."""
     from repro_torch.tune.lm_study import LMStudy, lm_config_space
     study = LMStudy(arch, **STUDY)
     depth = study.cfg.n_layers
@@ -2730,7 +2752,7 @@ def phase_family_study(tag, arch, mixers, bwd_pairs=None, periods=None):
         study.params = {g: {k: v[:periods] for k, v in sub.items()}
                         if g.startswith("pos") else sub
                         for g, sub in study.params.items()}
-    res, launches, wall = study_session(tag, study, bwd_pairs)
+    res, launches, wall = study_session(tag, study, bwd_pairs, trials)
     sigs = {"sort": set(), "dense": set()}
     for kn in lm_config_space(study.cfg):
         sigs[kn.moe_dispatch] |= {str(s) for s, _, _ in
@@ -2749,7 +2771,8 @@ def phase_family_study(tag, arch, mixers, bwd_pairs=None, periods=None):
                    f"moe_fb")
     print(f"[{tag}] study (reduced {arch}, {study.cfg.n_layers} of {depth} "
           f"layers, {len(res.records)} points, "
-          f"conditional 0.25, trials 3; a protocol check, not a reading of "
+          f"conditional 0.25, trials {trials}; a protocol check, not a "
+          f"reading of "
           f"the knob): chosen {res.chosen.name} true best "
           f"{res.true_best.name} (optimum quality "
           f"{res.optimum_quality:.4f}); speedup {res.speedup:.3f}x; wall "
@@ -3606,9 +3629,11 @@ def phase_ssm_study(reduced=False, device="cuda"):
     del study
     torch.cuda.empty_cache()
     # reduced jamba cut to one period (8 of its 16 layers): the same 48
-    # points and signatures, half the thunks a step
+    # points and signatures, half the thunks a step; one selective run a
+    # point after its reference (the script's time: [sharded] (g), (h)
+    # and [jaxdist] took the room)
     jamba = phase_family_study("ssm-study", "jamba-v0.1-52b",
-                               ("mamba_fb", "attn_fb"), periods=1)
+                               ("mamba_fb", "attn_fb"), periods=1, trials=1)
     return {"thunks": rows, "session": session, "jamba_study": jamba}
 
 
@@ -4323,6 +4348,132 @@ def several_cards_ep(cards: int, device="cuda", reduced=False):
     return dict(got, ranks=n)
 
 
+# (g): the SSM families through the launcher, 2 steps of 2 x 32 tokens in
+# one microbatch (the script's time: a step of the CPU tests' 4 x 32 in 2
+# microbatches is twice the host work): xlstm-125m at its published widths
+# (the phase's ``reduced`` says), jamba reduced
+SHARDED_SSM_ARGV = ["--steps", "2", "--batch", "2", "--seq", "32",
+                    "--grad-accum", "1", "--log-every", "1"]
+SHARDED_SSM_ARCHS = ("xlstm-125m", "jamba-v0.1-52b")
+
+
+def sharded_ssm(device, reduced=False):
+    """[sharded] (g), in the phase's process group: each SSM configuration
+    through the launcher on one device, then ``--model-axis 1`` under cp,
+    tp and dp: losses, parameters and AdamW state bit for bit, the same
+    launches, no plain call on the card; host ms a step of each."""
+    out = {}
+    for arch in SHARDED_SSM_ARCHS:
+        red = reduced or arch != "xlstm-125m"
+        argv = ["--arch", arch] + SHARDED_SSM_ARGV + ["--device", device] \
+            + (["--reduced"] if red else [])
+        one, l_one, p_one, _ = _launched(argv)
+        if any(p_one.values()) and device == "cuda":
+            raise AssertionError(f"[sharded] (g) {arch} one device called "
+                                 f"plain versions: {p_one}")
+        name = f"{'reduced ' if red else ''}{arch}"
+        entry = {"one_device": {
+            "host_ms": [h["host_ms"] for h in one["history"]],
+            "launches_per_step": {k: n // 2 for k, n in l_one.items()}}}
+        for v in SHARDED_REGIMES:
+            run, lv, pv, _ = _launched(argv + ["--model-axis", "1",
+                                               "--variant", v])
+            _same_run(f"(g) {name} {v} on a (1, 1) mesh", run, one, lv,
+                      l_one, pv, device)
+            entry[v] = {"losses": [h["loss"] for h in run["history"]],
+                        "host_ms": [h["host_ms"] for h in run["history"]],
+                        "launches": lv}
+        print(f"[sharded] (g) {name}: host ms a step (step 1, step 2) one "
+              f"device {[round(t, 2) for t in entry['one_device']['host_ms']]}"
+              + "".join(f", {v} {[round(t, 2) for t in entry[v]['host_ms']]}"
+                        for v in SHARDED_REGIMES)
+              + f"; launches a step {entry['one_device']['launches_per_step']}")
+        out[name] = entry
+    return out
+
+
+# (h): the serving engine under rules, [serve]'s traffic
+SHARDED_SERVE = dict(batch_size=4, s_max=256, max_new_tokens=16, seed=0)
+SHARDED_SERVE_ARCHS = ("smollm-135m", "xlstm-125m")
+SHARDED_SERVE_REQUESTS = 8
+
+
+def _engine_run(model, params, rules):
+    """(tokens per request, launches of each decode step, decode host ms,
+    plain calls) of an engine over SHARDED_SERVE_REQUESTS of
+    launch/serve.py's prompts."""
+    from repro_torch.launch.serve import synthetic_requests
+    from repro_torch.serve.engine import Engine, ServeConfig
+    eng = Engine(model, params, ServeConfig(**SHARDED_SERVE), rules=rules)
+    for req in synthetic_requests(SHARDED_SERVE_REQUESTS, model.cfg.vocab,
+                                  0, model.cfg.n_codebooks):
+        eng.submit(req)
+    per_step = []
+    inner = model.decode_step
+
+    def counted(*a, **kw):
+        before = dict(ops.launches)
+        out = inner(*a, **kw)
+        per_step.append({k: ops.launches[k] - before[k] for k in before})
+        return out
+    _zero_counts()
+    model.decode_step = counted
+    try:
+        res = eng.run()
+    finally:
+        del model.decode_step
+    return ({u: r.tokens for u, r in res.items()}, per_step,
+            [1e3 * t for t in eng.timings["decode_s"]],
+            dict(ops.plain_calls))
+
+
+def sharded_serve(device, mesh, reduced=False):
+    """[sharded] (h): each configuration's engine on one device, then
+    under cp rules on ``mesh`` (a (1, 1) mesh of the phase's group): the
+    same tokens, the same launches each decode step, no plain call on the
+    card; host ms a decode step of each (median and least)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.sharding import make_rules
+    rules = make_rules("cp").with_mesh(mesh)
+    out = {}
+    for arch in SHARDED_SERVE_ARCHS:
+        cfg = get_config(arch, reduced=reduced)
+        model = Model(cfg, device=device)
+        params = draw_on(device, cfg, seed=0)
+        runs = {"one": _engine_run(model, params, None)}
+        runs["cp"] = _engine_run(model, params, rules)
+        (t1, s1, ms1, p1), (t2, s2, ms2, p2) = runs["one"], runs["cp"]
+        tag = (f"[sharded] (h) {arch} ({cfg.n_layers} layers, d_model "
+               f"{cfg.d_model}) engine under cp on a (1, 1) mesh")
+        stats = {k: {"median_ms": float(np.median(m)), "min_ms": min(m)}
+                 for k, m in (("one_device", ms1), ("cp", ms2))}
+        print(f"{tag}: tokens {'equal' if t1 == t2 else 'NOT equal'} to "
+              f"the one-device engine's ({len(t1)} requests, "
+              f"{sum(len(t) for t in t1.values())} tokens); {len(s2)} "
+              f"decode steps, launches a step {s2[0]} (one device "
+              f"{s1[0]}), every step equal: {s1 == s2}; plain calls {p2}; "
+              f"host ms a decode step median {stats['cp']['median_ms']:.2f}"
+              f" least {stats['cp']['min_ms']:.2f} (one device "
+              f"{stats['one_device']['median_ms']:.2f} / "
+              f"{stats['one_device']['min_ms']:.2f})")
+        if t1 != t2:
+            raise AssertionError(f"{tag}: tokens {t2} against {t1}")
+        if s1 != s2:
+            raise AssertionError(f"{tag}: decode launches {s2} against "
+                                 f"{s1}")
+        if device == "cuda" and (any(p1.values()) or any(p2.values())):
+            raise AssertionError(f"{tag}: plain calls {p1} / {p2}")
+        out[arch] = {"tokens_equal": True, "decode_steps": len(s2),
+                     "launches_per_decode_step": s2[0],
+                     "launches": {k: sum(st[k] for st in s2)
+                                  for k in s2[0]},
+                     "host_ms": stats}
+        del params, model
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_sharded(reduced=False, device="cuda", cards=None):
     """(a) smollm-135m at its published widths through ``launch/train.py
     --model-axis 1 --variant cp`` under a world-1 process group (NCCL on
@@ -4369,6 +4520,10 @@ def phase_sharded(reduced=False, device="cuda", cards=None):
             variants[v] = {"losses": [h["loss"] for h in run["history"]],
                            "launches": lv}
         family = sharded_family(device)
+        ssm = sharded_ssm(device, reduced)
+        from repro_torch.launch.mesh import make_host_mesh
+        serve = sharded_serve(device, make_host_mesh(1, device_type=device),
+                              reduced)
     finally:
         dist.destroy_process_group()
     family = sharded_family_vs_cpu(family)
@@ -4381,7 +4536,7 @@ def phase_sharded(reduced=False, device="cuda", cards=None):
     out = {"launches": l_sh, "launches_per_step": {
         k: n // 2 for k, n in l_sh.items()}, "plain_calls": p_sh,
         "losses": [h["loss"] for h in sh["history"]], "host_ms": host,
-        "variants": variants, "family": family}
+        "variants": variants, "family": family, "ssm": ssm, "serve": serve}
     cards = torch.cuda.device_count() if cards is None else cards
     if cards >= 2:
         out["several_cards"] = several_cards(argv, sh, cards, device)
@@ -4391,6 +4546,198 @@ def phase_sharded(reduced=False, device="cuda", cards=None):
               f"ring, the MoE all_to_all): not run; this machine shows "
               f"{cards} CUDA device and NCCL puts no two ranks on one card "
               f"(at world 1 the ring returns its input)")
+    return out
+
+
+# -- phase 18: the distributed algorithms (jaxdist) ----------------------------
+
+JAXDIST = dict(matmul=4096, tsqr=(65536, 256), cholesky=(4096, 512))
+JAXDIST_TOL = {"matmul": 1e-4, "tsqr": 1e-4, "cholesky": 2e-3}
+# one rank of the c = 2 run over 8 cards: the process group from
+# torchrun's environment; rank 0 writes the errors
+_JAXDIST_RANK = r"""
+import json, os, sys
+import torch
+import torch.distributed as dist
+from repro_torch.jaxdist import cholesky_3d, make_3d_mesh, matmul_3d, tsqr
+args = json.loads(sys.argv[1])
+torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+dist.init_process_group("nccl")
+try:
+    mesh = make_3d_mesh(2)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    n = args["matmul"]
+    a = torch.randn((n, n), device="cuda", generator=g)
+    b = torch.randn((n, n), device="cuda", generator=g)
+    c = matmul_3d(a, b, mesh).full_tensor()
+    want = torch.matmul(a, b)
+    err = {"matmul": float((c - want).abs().max() / want.abs().max())}
+    m, k = args["tsqr"]
+    x = torch.randn((m, k), device="cuda", generator=g)
+    q, r = tsqr(x, mesh, "x")
+    q, r = q.full_tensor(), r.full_tensor()
+    err["tsqr"] = float((q @ r - x).abs().max() / x.abs().max())
+    n, blk = args["cholesky"]
+    y = torch.randn((n, n), device="cuda", generator=g)
+    spd = y @ y.T + n * torch.eye(n, device="cuda")
+    l, _ = cholesky_3d(spd, mesh, blk)
+    l = l.full_tensor()
+    ref = torch.linalg.cholesky(spd)
+    err["cholesky"] = float((l - ref).abs().max() / ref.abs().max())
+    if os.environ["RANK"] == "0":
+        with open(sys.argv[2], "w") as f:
+            json.dump(err, f)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def _tsqr_one(a):
+    """TSQR's program on one device's plain tensors (p = 1)."""
+    q1, r1 = torch.linalg.qr(a, mode="reduced")
+    q2, r = torch.linalg.qr(r1, mode="reduced")
+    return ops.matmul(q1, q2.contiguous()), r
+
+
+def _cholesky_one(a, block):
+    """Capital's recursion on one device's plain tensors, every product
+    one ``ops.matmul`` on contiguous operands, as ``matmul_3d`` runs it on
+    a (1, 1, 1) mesh."""
+    n = a.shape[0]
+    if n <= block:
+        l = torch.linalg.cholesky(a)
+        return l, torch.linalg.solve_triangular(
+            l, torch.eye(n, dtype=a.dtype, device=a.device), upper=False)
+
+    def mm(x, y):
+        return ops.matmul(x.contiguous(), y.contiguous())
+    h = n // 2
+    l11, linv11 = _cholesky_one(a[:h, :h], block)
+    l21 = mm(a[h:, :h], linv11.T)
+    l22, linv22 = _cholesky_one(a[h:, h:] - mm(l21, l21.T), block)
+    linv21 = -mm(linv22, mm(l21, linv11))
+    zero = torch.zeros((h, h), dtype=a.dtype, device=a.device)
+    return (torch.cat([torch.cat([l11, zero], 1), torch.cat([l21, l22], 1)]),
+            torch.cat([torch.cat([linv11, zero], 1),
+                       torch.cat([linv21, linv22], 1)]))
+
+
+def _jaxdist_case(tag, run, one, check):
+    """(result, launches, plain calls, host ms): ``run()`` once to warm
+    (the solver's handles), then timed with the counters zeroed just
+    before; its output against ``one()`` (one device's program) bit for
+    bit, the launches equal; ``check(result)`` the error against
+    torch.linalg."""
+    run()
+    torch.cuda.synchronize()
+    _zero_counts()
+    t0 = time.perf_counter()
+    got = run()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches, plain = dict(ops.launches), dict(ops.plain_calls)
+    _zero_counts()
+    t0 = time.perf_counter()
+    want = one()
+    torch.cuda.synchronize()
+    ms_one = 1e3 * (time.perf_counter() - t0)
+    l_one = dict(ops.launches)
+    same = all(torch.equal(a.full_tensor(), b) for a, b in zip(got, want))
+    err = check(got)
+    print(f"[jaxdist] {tag}: {'equal' if same else 'NOT equal'} bit for "
+          f"bit to one device's program; {err}; matmul launches "
+          f"{launches['matmul']} (one device {l_one['matmul']}); plain "
+          f"calls {plain}; {ms:.2f} host ms (warm; one device "
+          f"{ms_one:.2f})")
+    if not same or launches != l_one:
+        raise AssertionError(f"[jaxdist] {tag}: bits equal {same}, "
+                             f"launches {launches} against {l_one}")
+    if any(plain.values()) and torch.cuda.is_available():
+        raise AssertionError(f"[jaxdist] {tag}: plain calls {plain}")
+    return {"launches": launches, "plain_calls": plain, "host_ms": ms,
+            "one_device_host_ms": ms_one}
+
+
+def phase_jaxdist(device="cuda", sizes=JAXDIST, cards=None):
+    """matmul_3d, tsqr and cholesky_3d on a (1, 1, 1) mesh of a world-1
+    group (NCCL on the card), each against one device's program bit for
+    bit and against torch.linalg; at c = 2 over 8 ranks where the machine
+    shows 8 or more cards."""
+    import torch.distributed as dist
+    from repro_torch.jaxdist import (cholesky_3d, make_3d_mesh, matmul_3d,
+                                     tsqr)
+    gen = torch.Generator(device=device).manual_seed(18)
+    out = {}
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        mesh = make_3d_mesh(1, device)
+        n = sizes["matmul"]
+        a = torch.randn((n, n), device=device, generator=gen)
+        b = torch.randn((n, n), device=device, generator=gen)
+
+        def rel(x, y):
+            return float((x - y).abs().max() / y.abs().max())
+
+        def check_mm(got):
+            e = rel(got[0].full_tensor(), torch.matmul(a, b))
+            if e > JAXDIST_TOL["matmul"]:
+                raise AssertionError(f"[jaxdist] matmul_3d: {e:.2e}")
+            return (f"against torch.matmul max err / scale {e:.2e} (tol "
+                    f"{JAXDIST_TOL['matmul']:g}); bound "
+                    f"{bound(12 * n * n, 2 * n ** 3, 'float32')[0]:.3f} ms")
+        out["matmul_3d"] = _jaxdist_case(
+            f"matmul_3d {n}^3 f32 on a (1, 1, 1) mesh",
+            lambda: (matmul_3d(a, b, mesh),), lambda: (ops.matmul(a, b),),
+            check_mm)
+        m, k = sizes["tsqr"]
+        x = torch.randn((m, k), device=device, generator=gen)
+
+        def check_qr(got):
+            q, r = (t.full_tensor() for t in got)
+            es = (rel(q @ r, x), float((q.T @ q - torch.eye(
+                k, device=device)).abs().max()),
+                rel(r.abs(), torch.linalg.qr(x)[1].abs()))
+            if max(es) > JAXDIST_TOL["tsqr"]:
+                raise AssertionError(f"[jaxdist] tsqr: {es}")
+            return (f"Q R against A {es[0]:.2e}, Q^T Q against I "
+                    f"{es[1]:.2e}, |R| against torch.linalg.qr's "
+                    f"{es[2]:.2e} (tol {JAXDIST_TOL['tsqr']:g})")
+        out["tsqr"] = _jaxdist_case(
+            f"tsqr {m} x {k} on a (1, 1, 1) mesh",
+            lambda: tsqr(x, mesh, "x"), lambda: _tsqr_one(x), check_qr)
+        n, blk = sizes["cholesky"]
+        y = torch.randn((n, n), device=device, generator=gen)
+        spd = y @ y.T + n * torch.eye(n, device=device)
+
+        def check_chol(got):
+            l, linv = (t.full_tensor() for t in got)
+            es = (rel(l, torch.linalg.cholesky(spd)), float(
+                (l @ linv - torch.eye(n, device=device)).abs().max()))
+            if max(es) > JAXDIST_TOL["cholesky"]:
+                raise AssertionError(f"[jaxdist] cholesky_3d: {es}")
+            return (f"L against torch.linalg.cholesky {es[0]:.2e}, L "
+                    f"L^-1 against I {es[1]:.2e} (tol "
+                    f"{JAXDIST_TOL['cholesky']:g})")
+        out["cholesky_3d"] = _jaxdist_case(
+            f"cholesky_3d n {n} block {blk} on a (1, 1, 1) mesh",
+            lambda: cholesky_3d(spd, mesh, blk),
+            lambda: _cholesky_one(spd, blk), check_chol)
+    finally:
+        dist.destroy_process_group()
+    cards = torch.cuda.device_count() if cards is None else cards
+    if cards >= 8:
+        got = _run_ranks(_JAXDIST_RANK, sizes, 8, "jaxdist run")
+        print(f"[jaxdist] (2, 2, 2) mesh over 8 cards: max err / scale "
+              f"{got}")
+        if got["matmul"] > JAXDIST_TOL["matmul"] or \
+                got["tsqr"] > JAXDIST_TOL["tsqr"] or \
+                got["cholesky"] > JAXDIST_TOL["cholesky"]:
+            raise AssertionError(f"[jaxdist] over 8 cards: {got}")
+        out["c2"] = got
+    else:
+        print(f"[jaxdist] c = 2 (8 ranks): not run; this machine shows "
+              f"{cards} CUDA device(s)")
     return out
 
 
@@ -4440,6 +4787,7 @@ def main(argv=None) -> int:
     frontends = timed("frontends", phase_frontends)
     train = timed("train", phase_train)
     sharded = timed("sharded", phase_sharded)
+    jaxdist = timed("jaxdist", phase_jaxdist)
 
     # one entry per kernel: its largest main-path shape at f32 (forward:
     # the serving path's, launches counted there; backward: the tuning
@@ -4489,7 +4837,15 @@ def main(argv=None) -> int:
                    moe["sharded"][v]["launches"][name]
                    for v in SHARDED_REGIMES},
                 **{f"reduced {k}": st["launches"][name]
-                   for k, st in sharded["family"].items()}},
+                   for k, st in sharded["family"].items()},
+                **{f"(g) {a} {v}": st[v]["launches"][name]
+                   for a, st in sharded["ssm"].items()
+                   for v in SHARDED_REGIMES},
+                **{f"(h) {a} engine under cp (decode steps)":
+                   st["launches"][name]
+                   for a, st in sharded["serve"].items()}},
+            "launches_jaxdist": {k: st["launches"][name]
+                                 for k, st in jaxdist.items() if k != "c2"},
             "max_abs_err": max(r["max_abs_err"] for r in table
                                if r["kernel"] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -4528,6 +4884,7 @@ def main(argv=None) -> int:
                                         "frontends": frontends,
                                         "train": train,
                                         "sharded": sharded,
+                                        "jaxdist": jaxdist,
                                         "phase_s": phase_s},
                                        indent=1))
     print(f"[time] chip_smoke.py took {time.perf_counter() - T_START:.1f} s "

@@ -37,7 +37,10 @@ from torch.distributed.tensor import DTensor
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike, resolve_device
-from ..parallel.sharding import annotate, on_shards, pick_rule, take_rule
+from ..parallel.sharding import (NamedSharding, annotate, current_rules,
+                                 distribute, on_shards, pick_rule,
+                                 replicate_like, rows_at_rule, take_rule,
+                                 write_block)
 from . import layers as L
 from . import moe as M
 from . import remat as R
@@ -347,6 +350,19 @@ def _pick(x, idx):
     return _pick_local(x, idx)
 
 
+def _rows_at_local(x, at):
+    return x[torch.arange(x.shape[0], device=x.device), at][:, None]
+
+
+def _rows_at(x, at):
+    """x (B, S, ...) at position ``at[b]`` of row b: (B, 1, ...); on
+    DTensors under ``parallel.sharding.rows_at_rule``."""
+    if isinstance(x, DTensor):
+        return on_shards(_rows_at_local, rows_at_rule, x,
+                         replicate_like(at, x))
+    return _rows_at_local(x, at)
+
+
 def map_cache(fn: Callable, *trees):
     """``fn`` over the leaves of cache trees of one structure (nested
     tuples of tensors); returns the results in that structure."""
@@ -475,7 +491,8 @@ class Model:
                                        state=c[1])
             else:
                 h, new = S.slstm_block(p, x, cfg, chunk=1, state=c)
-            map_cache(lambda old, nw: old.copy_(nw), c, new)
+            map_cache(lambda old, nw: write_block(old, nw, (0,) * old.ndim),
+                      c, new)
         return self._ffn(i, pf, x + h)
 
     def _period(self, x, layers, positions, caches=None):
@@ -528,6 +545,40 @@ class Model:
 
     # -- prefill / decode -----------------------------------------------------
 
+    def cache_axes(self):
+        """Logical axes of every cache leaf (the ``init_cache`` structure):
+        attention's K/V over (batch, kv_seq, kv_heads), MLA's latent over
+        (batch, kv_seq, lora), the SSM states over batch and their inner
+        width; mLSTM's C has its v-dim sharded (``head_ff``) and n and m
+        whole, as the scan's region holds them."""
+        axes = []
+        for kind in self.cfg.pattern:
+            if kind == "attn":
+                a = ("layers", "batch", "kv_seq", "kv_heads", None)
+                axes.append((a, a))
+            elif kind == "mla":
+                axes.append((("layers", "batch", "kv_seq", "lora"),
+                             ("layers", "batch", "kv_seq", None)))
+            elif kind == "mamba":
+                axes.append((("layers", "batch", None, "inner"),
+                             ("layers", "batch", "inner", "state")))
+            elif kind == "mlstm":
+                axes.append((("layers", "batch", None, "inner"),
+                             (("layers", "batch", None, "head_ff", None),
+                              ("layers", "batch", None, None),
+                              ("layers", "batch", None))))
+            else:   # slstm
+                axes.append((("layers", "batch", None),) * 4)
+        return tuple(axes)
+
+    def place_cache(self, cache, rules):
+        """A cache that every rank holds whole, as DTensors placed by the
+        specs of ``cache_axes`` (each rank keeps its slice; the reference's
+        decode cell places its cache so, ``launch/cells.py``)."""
+        return map_cache(lambda t, ax: distribute(t, NamedSharding(
+            rules.mesh, rules.spec(*ax, dims=t.shape))),
+            cache, self.cache_axes())
+
     def init_cache(self, batch_size: int, s_max: int):
         cfg = self.cfg
         f32 = torch.float32
@@ -574,12 +625,11 @@ class Model:
         x, caches = self._backbone(params, batch, with_cache=True)
         B, S_ = x.shape[0], x.shape[1]
         if logits_at is None:
-            x_last = x[:, -1:]
-        else:
-            rows = torch.arange(B, device=x.device)
-            x_last = x[rows, logits_at.long()][:, None]
-        logits = self._head(params, x_last)[:, 0]
+            logits_at = torch.full((B,), S_ - 1, device=x.device)
+        logits = self._head(params, _rows_at(x, logits_at.long()))[:, 0]
         cache = self.init_cache(B, max(S_, s_max))
+        if isinstance(x, DTensor):
+            cache = self.place_cache(cache, current_rules())
         for (j, i, _, _), c in zip(self._layers(params), caches):
             self._store(cache, j, i, c)
         return logits, cache, S_
@@ -587,12 +637,11 @@ class Model:
     def _store(self, cache, j, i, c):
         """Write layer (j, i)'s prefill cache entry ``c`` into ``cache`` in
         place: attention's and MLA's at the head of the sequence, an SSM's
-        state whole."""
-        if self.cfg.pattern[i] in ATTENTION:
-            S_ = c[0].shape[1]
-            map_cache(lambda big, one: big[j, :, :S_].copy_(one), cache[i], c)
-        else:
-            map_cache(lambda big, one: big[j].copy_(one), cache[i], c)
+        state whole (on DTensors each rank writes its own shard,
+        ``parallel.sharding.write_block``)."""
+        map_cache(lambda big, one: write_block(big, one.unsqueeze(0),
+                                               (j,) + (0,) * one.ndim),
+                  cache[i], c)
 
     def _cache_smax(self, cache) -> int:
         """The sequence capacity of the first attention or MLA position's

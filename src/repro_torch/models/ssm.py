@@ -21,9 +21,19 @@ backward saves only the carries at chunk boundaries and recomputes each
 chunk's steps (the reference's ``jax.checkpoint`` of the chunk body with
 ``nothing_saveable``).  A length within one chunk, or a scan that records
 no graph (the serving path), runs one plain loop.  A length longer than one
-chunk and not a multiple of it is refused, as in the reference.  The
-reference's ``_manual_scan`` and the sharding annotations are no-ops
-without rules and are dropped.
+chunk and not a multiple of it is refused, as in the reference.
+
+Under sharding rules (DTensor inputs, ``parallel/sharding.py``) each scan
+runs in a manual region (``parallel.sharding.manual``, the reference's
+``_manual_scan`` on shard_map): its
+inputs are redistributed to the specs of their logical axes and the scan
+runs on each rank's local tensors, ``chunked_scan``'s checkpoints and
+sLSTM's per-head ``ops.matmul`` launches included, so a weight's gradient
+(Mamba's A, sLSTM's r) accumulates on each rank and is summed once at the
+region's boundary.  The chunkwise mLSTM, which the reference leaves to
+XLA's partitioner, runs in such a region too, under the recurrent form's
+axes.  The annotations are the reference's; ``causal_conv`` and the gates
+between them are plain PyTorch on DTensors.
 """
 
 from __future__ import annotations
@@ -32,9 +42,11 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels import ops
+from ..parallel.sharding import annotate, manual, replicate_like
 from . import layers as L
 
 
@@ -61,6 +73,18 @@ def _loop(step_fn, carry, xs):
                            else tuple(a[t] for a in xs))
         ys.append(y)
     return carry, torch.stack(ys)
+
+
+def _merge_heads(y, shape):
+    """y (..., nh, dh) -> ``shape`` (..., nh * dh).  A DTensor split on
+    dh (``head_ff``) has its heads gathered first: a split of each head's
+    dh is no split of nh * dh (which ``annotate`` then splits on
+    ``inner``)."""
+    if isinstance(y, DTensor):
+        y = y.redistribute(y.device_mesh, tuple(
+            Replicate() if p.is_shard() and p.dim >= y.ndim - 2 else p
+            for p in y.placements))
+    return y.reshape(shape)
 
 
 def chunked_scan(step_fn, carry, xs, *, chunk: int):
@@ -101,7 +125,8 @@ def causal_conv(x, w, state=None):
     B, S, C = x.shape
     K = w.shape[0]
     if state is None:
-        state = x.new_zeros((B, K - 1, C))
+        state = replicate_like(torch.zeros((B, K - 1, C), dtype=x.dtype,
+                                           device=x.device), x)
     xp = torch.cat([state, x], dim=1)
     y = torch.zeros_like(x)
     for i in range(K):
@@ -121,6 +146,7 @@ def _mamba_inner(p, xz, cfg, conv_state, ssm_state, *, chunk):
     x, z = xz[..., :di], xz[..., di:]
     x, conv_state = causal_conv(x, p["conv_w"], conv_state)
     x = F.silu(x)
+    x = annotate(x, "batch", "seq", "inner")
 
     dbc = L.linear(x, p["x_proj"])
     dtr = di // 16
@@ -129,20 +155,30 @@ def _mamba_inner(p, xz, cfg, conv_state, ssm_state, *, chunk):
     Cc = dbc[..., dtr + N:]
     A = -torch.exp(p["a_log"].float())                     # (di, N)
 
-    def step(h, inp):
-        x_t, dt_t, b_t, c_t = inp                   # (B,di),(B,di),(B,N)
-        dA = torch.exp(dt_t.float()[..., None] * A)
-        dBx = (dt_t * x_t).float()[..., None] * b_t.float()[:, None, :]
-        h = h * dA + dBx
-        y_t = torch.einsum("bcn,bn->bc", h, c_t.float())
-        return h, y_t.to(x_t.dtype)
+    # the recurrent core runs in a manual region under rules: A's gradient
+    # accumulates on each rank and is summed once at the boundary
+    def scan_part(A_, h0, x_s, dt_s, b_s, c_s):
+        def step(h, inp):
+            x_t, dt_t, b_t, c_t = inp               # (B,di),(B,di),(B,N)
+            dA = torch.exp(dt_t.float()[..., None] * A_)
+            dBx = (dt_t * x_t).float()[..., None] * b_t.float()[:, None, :]
+            h = h * dA + dBx
+            y_t = torch.einsum("bcn,bn->bc", h, c_t.float())
+            return h, y_t.to(x_t.dtype)
+        return chunked_scan(step, h0, (x_s, dt_s, b_s, c_s), chunk=chunk)
 
     xs = (x.transpose(0, 1), dt.transpose(0, 1), Bc.transpose(0, 1),
           Cc.transpose(0, 1))
-    ssm_state, ys = chunked_scan(step, ssm_state, xs, chunk=chunk)
+    ssm_state, ys = manual(
+        scan_part,
+        (("inner", "state"), ("batch", "inner", "state"),
+         (None, "batch", "inner"), (None, "batch", "inner"),
+         (None, "batch", None), (None, "batch", None)),
+        (("batch", "inner", "state"), (None, "batch", "inner")),
+        (A, ssm_state) + xs)
     y = ys.transpose(0, 1) + x * p["d"]
     y = y * F.silu(z)
-    return y, conv_state, ssm_state
+    return annotate(y, "batch", "seq", "inner"), conv_state, ssm_state
 
 
 def mamba_block(p, x, cfg, *, chunk=256, conv_state=None, ssm_state=None):
@@ -150,24 +186,35 @@ def mamba_block(p, x, cfg, *, chunk=256, conv_state=None, ssm_state=None):
     B = x.shape[0]
     di, N = cfg.d_inner, cfg.d_state
     if ssm_state is None:
-        ssm_state = torch.zeros((B, di, N), dtype=torch.float32,
-                                device=x.device)
+        ssm_state = replicate_like(torch.zeros(
+            (B, di, N), dtype=torch.float32, device=x.device), x)
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
     xz = L.linear(h, p["in_proj"])
+    xz = annotate(xz, "batch", "seq", "inner")
     y, conv_state, ssm_state = _mamba_inner(
         p, xz, cfg, conv_state, ssm_state, chunk=chunk)
     out = L.linear(y, p["out_proj"])
-    return out, (conv_state, ssm_state)
+    return annotate(out, "batch", "seq", "embed"), (conv_state, ssm_state)
 
 
 # ---------------------------------------------------------------------------
 # mLSTM (xLSTM matrix-memory block, recurrent-chunked form)
 # ---------------------------------------------------------------------------
 
-def _mlstm_state(B, nh, dh, device):
-    return (torch.zeros((B, nh, dh, dh), dtype=torch.float32, device=device),
-            torch.zeros((B, nh, dh), dtype=torch.float32, device=device),
-            torch.full((B, nh), -1e30, dtype=torch.float32, device=device))
+def _mlstm_state(B, nh, dh, x):
+    """The zero state on ``x``'s device (replicated where x is a
+    DTensor)."""
+    dev = x.device
+    return tuple(replicate_like(t, x) for t in (
+        torch.zeros((B, nh, dh, dh), dtype=torch.float32, device=dev),
+        torch.zeros((B, nh, dh), dtype=torch.float32, device=dev),
+        torch.full((B, nh), -1e30, dtype=torch.float32, device=dev)))
+
+
+# the mLSTM state's logical axes: C's v-dim sharded, its k-dim and n and m
+# whole (a sharded k-dim would cost a reduction every step)
+_MLSTM_STATE_AXES = (("batch", None, "head_ff", None), ("batch", None, None),
+                     ("batch", None))
 
 
 def mlstm_block(p, x, cfg, *, chunk=128, conv_state=None, state=None,
@@ -182,25 +229,38 @@ def mlstm_block(p, x, cfg, *, chunk=128, conv_state=None, state=None,
     nh = cfg.n_heads
     dh = di // nh
     if state is None:
-        state = _mlstm_state(B, nh, dh, x.device)
+        state = _mlstm_state(B, nh, dh, x)
     h = L.rms_norm(x, p["ln"], cfg.norm_eps)
     xz = L.linear(h, p["up"])
     xi, z = xz[..., :di], xz[..., di:]
     xi, conv_state = causal_conv(xi, p["conv_w"], conv_state)
     xi = F.silu(xi)
+    xi = annotate(xi, "batch", "seq", "inner")
 
     q = L.linear(xi, p["wq"]).reshape(B, S, nh, dh)
     k = L.linear(xi, p["wk"]).reshape(B, S, nh, dh)
     v = L.linear(xi, p["wv"]).reshape(B, S, nh, dh)
+    # shard only v's dim (C's rows): q and k stay whole on dh, so the q.k
+    # contraction and the C/n updates are rank-local
+    q = annotate(q, "batch", "seq", None, None)
+    k = annotate(k, "batch", "seq", None, None)
+    v = annotate(v, "batch", "seq", None, "head_ff")
     gif = L.linear(xi, p["wif"]) + p["b_if"]
     ig, fg = gif[..., :nh], gif[..., nh:]
     scale = 1.0 / math.sqrt(dh)
 
     if mode == "chunkwise" and S > 1:
-        state, y4 = _mlstm_chunkwise(q, k, v, ig, fg, state,
-                                     chunk=chunk, scale=scale)
-        y = y4.reshape(B, S, di) * F.silu(z)
-        return L.linear(y, p["down"]), (conv_state, state)
+        state, y4 = manual(
+            lambda *a: _mlstm_chunkwise(*a, chunk=chunk, scale=scale),
+            (("batch", None, None, None), ("batch", None, None, None),
+             ("batch", None, None, "head_ff"), ("batch", None, None),
+             ("batch", None, None), _MLSTM_STATE_AXES),
+            (_MLSTM_STATE_AXES, ("batch", None, None, "head_ff")),
+            (q, k, v, ig, fg, state))
+        y = annotate(_merge_heads(y4, (B, S, di)), "batch", "seq", "inner")
+        y = y * F.silu(z)
+        out = L.linear(y, p["down"])
+        return annotate(out, "batch", "seq", "embed"), (conv_state, state)
 
     def step(carry, inp):
         C, n, m = carry
@@ -220,11 +280,25 @@ def mlstm_block(p, x, cfg, *, chunk=128, conv_state=None, state=None,
             torch.exp(-m_new))[..., None]
         return (C, n, m_new), (qy / denom).to(q_t.dtype)
 
+    def scan_part(st, q_s, k_s, v_s, i_s, f_s):
+        return chunked_scan(step, st, (q_s, k_s, v_s, i_s, f_s),
+                            chunk=chunk)
+
     xs = (q.transpose(0, 1), k.transpose(0, 1), v.transpose(0, 1),
           ig.transpose(0, 1), fg.transpose(0, 1))
-    state, ys = chunked_scan(step, state, xs, chunk=chunk)
-    y = ys.transpose(0, 1).reshape(B, S, di) * F.silu(z)
-    return L.linear(y, p["down"]), (conv_state, state)
+    state, ys = manual(
+        scan_part,
+        (_MLSTM_STATE_AXES,
+         (None, "batch", None, None), (None, "batch", None, None),
+         (None, "batch", None, "head_ff"),
+         (None, "batch", None), (None, "batch", None)),
+        (_MLSTM_STATE_AXES, (None, "batch", None, "head_ff")),
+        (state,) + xs)
+    y = annotate(_merge_heads(ys.transpose(0, 1), (B, S, di)), "batch",
+                 "seq", "inner")
+    y = y * F.silu(z)
+    out = L.linear(y, p["down"])
+    return annotate(out, "batch", "seq", "embed"), (conv_state, state)
 
 
 def _mlstm_chunkwise(q, k, v, ig, fg, state, *, chunk: int, scale: float):
@@ -290,7 +364,7 @@ def _mlstm_chunkwise(q, k, v, ig, fg, state, *, chunk: int, scale: float):
         n = torch.einsum("blh,blhk->bhk", wS, kf) + \
             torch.exp(m_in - mm_L)[..., None] * n
         C, m_in = C_out, a[:, -1] + mm_L
-    y = torch.stack(ys, dim=1).reshape(B, S, nh, dh)
+    y = torch.stack(ys, dim=1).reshape(B, S, nh, v.shape[-1])
     return (C, n, m_in), y
 
 
@@ -314,14 +388,14 @@ def slstm_block(p, x, cfg, *, chunk=128, state=None):
     di = cfg.d_inner
     if state is None:
         z = torch.zeros((B, D), dtype=torch.float32, device=x.device)
-        state = (z, z.clone(), z.clone(),
-                 torch.full((B, nh), -1e30, dtype=torch.float32,
-                            device=x.device))
+        state = tuple(replicate_like(t, x) for t in (
+            z, z.clone(), z.clone(),
+            torch.full((B, nh), -1e30, dtype=torch.float32,
+                       device=x.device)))
     xh = L.rms_norm(x, p["ln"], cfg.norm_eps)
     wx = L.linear(xh, p["w"]) + p["b"]                     # (B,S,4D)
-    r = p["r"]
 
-    def step(carry, wx_t):
+    def step(carry, wx_t, r):
         c, n, h, m = carry
         Bt = h.shape[0]
         hh = h.reshape(Bt, nh, dh)
@@ -343,9 +417,18 @@ def slstm_block(p, x, cfg, *, chunk=128, state=None):
         h_new = ot * c_new / torch.clamp(n_new, min=1.0)
         return (c_new, n_new, h_new, m_new), h_new.to(wx_t.dtype)
 
-    state, ys = chunked_scan(step, state, wx.transpose(0, 1), chunk=chunk)
+    def scan_part(r_, st, wx_s):
+        return chunked_scan(lambda c, w: step(c, w, r_), st, wx_s,
+                            chunk=chunk)
+
+    st_ax = (("batch", None),) * 4
+    state, ys = manual(
+        scan_part, ((None, None, None), st_ax, (None, "batch", None)),
+        (st_ax, (None, "batch", None)),
+        (p["r"], state, wx.transpose(0, 1)))
     h_seq = ys.transpose(0, 1)
     # per-block projection FFN (d_ff=0 archs carry their own up/down)
     u = L.linear(h_seq, p["up"])                           # (B,S,2*di) GLU
+    u = annotate(u, "batch", "seq", "inner")
     out = L.linear(F.silu(u[..., :di]) * u[..., di:], p["down"])
-    return out, state
+    return annotate(out, "batch", "seq", "embed"), state

@@ -40,6 +40,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
+import torch.utils._pytree as pytree
 from torch.distributed.tensor import (DTensor, Partial, Placement, Replicate,
                                       Shard, distribute_tensor)
 from torch.distributed.tensor.experimental import local_map
@@ -441,6 +442,14 @@ def take_rule(idx, table):
     return (pi, rep), pi, (pi, g_t)
 
 
+def rows_at_rule(x, at):
+    """``x[b, at[b]]`` along x's dim 1, one position a row (the prefill's
+    logits position): x's batch dim keeps its placements and the indices
+    and the output take them; every other dim is gathered."""
+    px = tuple(p if p.is_shard(0) else Replicate() for p in x.placements)
+    return (px, px), px, (px, px)
+
+
 def pick_rule(x, idx):
     """``x[..., idx]`` along x's last dim, one index a row (the loss's label
     logit): x's leading dims keep their placements and the indices and the
@@ -450,3 +459,153 @@ def pick_rule(x, idx):
     px = tuple(p if p.is_shard() and p.dim < last else Replicate()
                for p in x.placements)
     return (px, px), px, (px, px)
+
+
+# ---------------------------------------------------------------------------
+# manual regions (the reference's shard_map) and in-place writes
+# ---------------------------------------------------------------------------
+
+class _ScaleGrad(torch.autograd.Function):
+    """The identity whose backward scales the gradient by ``s``."""
+
+    @staticmethod
+    def forward(ctx, x, s):
+        ctx.s = s
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g * ctx.s, None
+
+
+def _axes_list(tree):
+    """The logical-axes tuples of a tree of them (nested tuples), in
+    order."""
+    if is_axes_leaf(tree):
+        return [tree]
+    return [a for sub in tree for a in _axes_list(sub)]
+
+
+def region_grads(in_pl, out_pl, mesh):
+    """A manual region's gradient rule, JAX's transpose of shard_map: each
+    input's gradient placements (a shard where its input is sharded, else
+    ``Partial``) and the factor of each output's cotangent (1 / the number
+    of ranks it is replicated over)."""
+    grad_pl = tuple(tuple(p if p.is_shard() else Partial() for p in pl)
+                    for pl in in_pl)
+    share = [1.0 / math.prod(mesh.size(i) for i, p in enumerate(pl)
+                             if not p.is_shard()) for pl in out_pl]
+    return grad_pl, share
+
+
+def manual(fn, arg_axes, out_axes, args):
+    """``fn(*args)`` on each rank's local tensors, as the reference's
+    ``shard_map(..., check_vma=False)`` runs it under the active rules (its
+    ``_manual_scan``).  ``arg_axes`` and ``out_axes`` are trees of logical
+    axes that match ``args`` and ``fn``'s output, leaf by leaf.  Each input
+    is redistributed to the spec of its axes (a plain tensor, which every
+    rank holds whole, is placed replicated first); each output's spec is
+    computed on the global sizes its logical names have in the inputs.
+
+    Gradients follow JAX's transpose of such a region: an output's
+    cotangent is divided by the number of ranks it is replicated over (the
+    mesh dims its spec leaves out), and an input's gradient is a partial
+    sum (``Partial``) over the mesh dims its spec leaves out, a shard on the
+    others.  So a weight that every rank holds whole (sLSTM's ``r``) gets
+    the sum of the ranks' local gradients once, at the region's boundary,
+    and an input that is replicated where the outputs are split (mLSTM's q
+    and k under cp) gets the sum over the split.  Without rules, or with no
+    DTensor among ``args``, ``fn(*args)`` runs as it is."""
+    rules = current_rules()
+    flat, _ = pytree.tree_flatten(args)
+    ref = next((t for t in flat if isinstance(t, DTensor)), None)
+    if rules is None or rules.mesh is None or ref is None:
+        return fn(*args)
+    mesh = ref.device_mesh
+    in_axes = _axes_list(arg_axes)
+    if len(in_axes) != len(flat):
+        raise ValueError(f"{len(in_axes)} input axes for {len(flat)} "
+                         f"tensors")
+    sizes: Dict[str, int] = {}
+    for ax, t in zip(in_axes, flat):
+        for name, n in zip(ax, t.shape):
+            if name is not None and sizes.setdefault(name, n) != n:
+                raise ValueError(f"logical axis {name!r} has sizes "
+                                 f"{sizes[name]} and {n} in one region")
+    flat = [t if isinstance(t, DTensor) else replicate_like(t, ref)
+            for t in flat]
+    args = pytree.tree_unflatten(flat, pytree.tree_flatten(args)[1])
+    in_pl = tuple(placements(rules.spec(*ax, dims=t.shape), mesh)
+                  for ax, t in zip(in_axes, flat))
+
+    def out_placements(ax):
+        missing = [a for a in ax if a is not None and a not in sizes]
+        if missing:
+            raise ValueError(f"output axes {missing} name no input's dim")
+        return placements(rules.spec(*ax, dims=[sizes.get(a, 1)
+                                                for a in ax]), mesh)
+    out_pl = [out_placements(ax) for ax in _axes_list(out_axes)]
+    grad_pl, share = region_grads(in_pl, out_pl, mesh)
+
+    def local(*a):
+        out = fn(*a)
+        leaves, spec = pytree.tree_flatten(out)
+        if len(leaves) != len(out_pl):
+            raise ValueError(f"{len(leaves)} outputs, {len(out_pl)} output "
+                             f"axes")
+        leaves = [_ScaleGrad.apply(t, s) if s != 1.0 and t.requires_grad
+                  else t for t, s in zip(leaves, share)]
+        return pytree.tree_unflatten(leaves, spec)
+    return local_map(local, out_placements=tuple(out_pl),
+                     in_placements=in_pl, in_grad_placements=grad_pl,
+                     device_mesh=mesh, redistribute_inputs=True)(*args)
+
+
+def local_range(t: DTensor, dim: int) -> Tuple[int, int]:
+    """(offset, length) of this rank's block of ``t``'s dim ``dim``: the
+    mesh dims that shard it split it in mesh-dim order, each evenly."""
+    mesh = t.device_mesh
+    coord = mesh.get_coordinate()
+    lo, n = 0, t.shape[dim]
+    for i, p in enumerate(t.placements):
+        if p.is_shard(dim):
+            k = mesh.size(i)
+            if n % k:
+                raise ValueError(f"dim {dim} of {tuple(t.shape)} does not "
+                                 f"split evenly over mesh dim {i}")
+            n //= k
+            lo += coord[i] * n
+    return lo, n
+
+
+def write_block(big, one, starts: Sequence[int]) -> None:
+    """``big[s0:s0 + one.shape[0], s1:...] = one`` in place (``big`` holds
+    no gradient).  A DTensor ``big`` is written rank by rank: each rank
+    copies the part of the block that falls in its own shard, from ``one``
+    redistributed to ``big``'s placements on the dims the block covers
+    whole and replicated on the others.  Nothing of ``big`` moves."""
+    if not isinstance(big, DTensor):
+        big[tuple(slice(s, s + n) for s, n in zip(starts, one.shape))] \
+            .copy_(one)
+        return
+    mesh = big.device_mesh
+    want = tuple(p if p.is_shard() and starts[p.dim] == 0
+                 and one.shape[p.dim] == big.shape[p.dim] else Replicate()
+                 for p in big.placements)
+    if isinstance(one, DTensor):
+        src = one.redistribute(mesh, want)
+    else:
+        src = distribute_tensor(one.to(big.device), mesh, want,
+                                src_data_rank=None)
+    dst_idx, src_idx = [], []
+    for d, (s, n) in enumerate(zip(starts, one.shape)):
+        blo, bn = local_range(big, d)
+        olo, _ = local_range(src, d)
+        a, b = max(s, blo), min(s + n, blo + bn)
+        if a >= b:
+            return
+        dst_idx.append(slice(a - blo, b - blo))
+        src_idx.append(slice(a - s - olo, b - s - olo))
+    with torch.no_grad():
+        big.to_local()[tuple(dst_idx)].copy_(
+            src.to_local()[tuple(src_idx)].to(big.dtype))

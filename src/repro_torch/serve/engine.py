@@ -17,6 +17,15 @@ patch prefix goes through ``Model.prefill``.
 Sampling stays on the host with numpy: greedy or temperature.  The engine
 records the host time of each prefill (cache splice and the logits' copy
 to the host included) and of each decode step in ``timings``.
+
+Under sharding rules (``rules`` with a mesh over the process group) every
+rank runs the same engine on the same requests: the parameters are placed
+by ``param_shardings``, the cache by ``Model.cache_axes``, and each
+prefill's and decode step's tokens by their batch spec (a batch-1 prompt
+falls back to replicated); ``prefill`` and ``decode_step`` run under the
+rules, the logits are made whole before the host samples them, and a
+prefill's cache is spliced into its slot rank by rank
+(``parallel.sharding.write_block``): nothing of the batch cache moves.
 """
 
 from __future__ import annotations
@@ -27,8 +36,11 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..models.model import Model, Params, map_cache
+from ..parallel.sharding import (NamedSharding, ShardingRules, axis_rules,
+                                 distribute, place, write_block)
 
 
 def bucket_length(n: int, buckets: Sequence[int]) -> int:
@@ -68,16 +80,29 @@ class Result:
     tokens: List[int] = field(default_factory=list)
 
 
-class Engine:
-    """Single-device engine on ``model.device``."""
+def _whole(t):
+    return t.full_tensor() if isinstance(t, DTensor) else t
 
-    def __init__(self, model: Model, params: Params, sc: ServeConfig):
+
+class Engine:
+    """The engine on ``model.device``; ``rules`` with a mesh runs it sharded
+    (every rank the same engine), None on one device."""
+
+    def __init__(self, model: Model, params: Params, sc: ServeConfig,
+                 rules: Optional[ShardingRules] = None):
         self.model = model
-        self.params = params
         self.sc = sc
         self.device = model.device
+        self.rules = rules if rules is not None and rules.mesh is not None \
+            else None
         B = sc.batch_size
-        self.cache = model.init_cache(B, sc.s_max)
+        with axis_rules(self.rules):
+            self.cache = model.init_cache(B, sc.s_max)
+        if self.rules is not None:
+            from ..train.step import param_shardings
+            params = place(params, param_shardings(model, self.rules))
+            self.cache = model.place_cache(self.cache, self.rules)
+        self.params = params
         self.lengths = np.zeros(B, np.int64)         # per-slot position
         self.budget = np.zeros(B, np.int64)
         self.active = np.zeros(B, bool)
@@ -92,6 +117,16 @@ class Engine:
     def _tok_trailing(self):
         ncb = self.model.cfg.n_codebooks
         return (ncb,) if ncb else ()
+
+    def _tokens(self, toks: np.ndarray, axes):
+        """Host tokens on the device; under rules placed by ``axes``'
+        spec (each rank keeps its slice)."""
+        t = torch.from_numpy(toks).to(self.device)
+        if self.rules is None:
+            return t
+        axes = axes + (None,) * (t.ndim - len(axes))
+        return distribute(t, NamedSharding(self.rules.mesh, self.rules.spec(
+            *axes, dims=t.shape)))
 
     def _token(self, tok):
         """A sampled token as a result holds it: an int, or one a codebook."""
@@ -118,14 +153,16 @@ class Engine:
                             np.int64)
             toks[0, :n] = req.tokens
             t0 = time.perf_counter()
-            batch = {"tokens": torch.from_numpy(toks).to(self.device)}
-            logits, cache1, _ = self.model.prefill(
-                self.params, batch, self.sc.s_max,
-                logits_at=torch.tensor([n - 1], device=self.device))
+            batch = {"tokens": self._tokens(toks, ("batch", "seq"))}
+            with axis_rules(self.rules):
+                logits, cache1, _ = self.model.prefill(
+                    self.params, batch, self.sc.s_max,
+                    logits_at=torch.tensor([n - 1], device=self.device))
             # splice the single-request cache into slot `slot`, in place
-            map_cache(lambda big, one: big[:, slot:slot + 1].copy_(one),
-                      self.cache, cache1)
-            logits = logits.cpu().numpy()
+            map_cache(lambda big, one: write_block(
+                big, one, (0, int(slot)) + (0,) * (one.ndim - 2)),
+                self.cache, cache1)
+            logits = _whole(logits).cpu().numpy()
             self.timings["prefill_s"].append(time.perf_counter() - t0)
             tok0 = self._sample(logits[0])
             self.last_token[slot] = tok0
@@ -155,12 +192,13 @@ class Engine:
         if not self.active.any():
             return 0
         t0 = time.perf_counter()
-        logits, self.cache = self.model.decode_step(
-            self.params, self.cache,
-            torch.from_numpy(self.lengths).to(self.device),
-            {"tokens": torch.from_numpy(self.last_token[:, None]).to(
-                self.device)})
-        logits = logits.cpu().numpy()
+        with axis_rules(self.rules):
+            logits, self.cache = self.model.decode_step(
+                self.params, self.cache,
+                torch.from_numpy(self.lengths).to(self.device),
+                {"tokens": self._tokens(self.last_token[:, None],
+                                        ("batch", None))})
+        logits = _whole(logits).cpu().numpy()
         self.timings["decode_s"].append(time.perf_counter() - t0)
         for slot in np.nonzero(self.active)[0]:
             nxt = self._sample(logits[slot])

@@ -88,21 +88,6 @@ def shard_params(model: Model, params, rules: ShardingRules):
     return place(params, param_shardings(model, rules))
 
 
-# the layer kinds whose annotate sites are ported (the SSM mixers' wait for
-# the multi-GPU slice that brings ``_manual_scan`` under rules)
-SHARDED_MIXERS, SHARDED_FFNS = ("attn", "mla"), ("dense", "moe")
-
-
-def check_sharded_supported(cfg) -> None:
-    if set(cfg.pattern) - set(SHARDED_MIXERS) or \
-            set(cfg.ffn_pattern) - set(SHARDED_FFNS):
-        raise NotImplementedError(
-            f"{cfg.name}: the sharded train step runs the mixers "
-            f"{SHARDED_MIXERS} with the FFNs {SHARDED_FFNS}; "
-            f"{cfg.pattern}/{cfg.ffn_pattern} wait for multi-GPU slice c "
-            f"(the SSM scans under sharding rules)")
-
-
 # ---------------------------------------------------------------------------
 # the step
 # ---------------------------------------------------------------------------
@@ -146,7 +131,6 @@ def make_train_step(model: Model, tc: TrainConfig = TrainConfig(), *,
                          f"{tc.grad_compression!r}; one of {COMPRESSIONS}")
     sharded = rules is not None and rules.mesh is not None
     if sharded:
-        check_sharded_supported(model.cfg)
         p_shard = param_shardings(model, rules)
         axes = batch_axes(model.cfg)
 

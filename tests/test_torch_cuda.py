@@ -1688,3 +1688,159 @@ def test_op_rule_on_the_card_is_the_kernel(world1_mesh, op):
     assert l2 == l1 and not any(p1.values()) and not any(p2.values())
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("places", ["batch/seq", "batch/heads"])
+def test_cache_writes_on_a_world1_nccl_mesh_are_rank_local(world1_mesh,
+                                                           places):
+    """The cache's write rules on the card: ``cache_update`` (one position
+    a row) and ``write_block`` (a prefill's block into a slot) on a cache
+    placed on a (1, 1) NCCL mesh write the same bits as on the plain
+    tensor, in the DTensor's own storage, with no kernel launch and no
+    plain call."""
+    from torch.distributed.tensor import Shard, distribute_tensor
+    from repro_torch.models import layers
+    from repro_torch.parallel.sharding import write_block
+    pl = {"batch/seq": (Shard(0), Shard(1)),
+          "batch/heads": (Shard(0), Shard(2))}[places]
+    gen = torch.Generator().manual_seed(71)
+    cache = torch.randn((4, 256, 3, 64), generator=gen).cuda()
+    new = torch.randn((4, 1, 3, 64), generator=gen).cuda()
+    t = torch.tensor([0, 17, 255, 128]).cuda()
+    block = torch.randn((1, 31, 3, 64), generator=gen).cuda()
+    want = cache.clone()
+    layers.cache_update(want, new, t)
+    write_block(want, block, (2, 0, 0, 0))
+    dc = distribute_tensor(cache.clone(), world1_mesh, pl,
+                           src_data_rank=None)
+    storage = dc.to_local().data_ptr()
+    (_, l1, p1) = _counted(lambda: (
+        layers.cache_update(dc, distribute_tensor(new, world1_mesh, (
+            Shard(0), Shard(2))), t),
+        write_block(dc, block, (2, 0, 0, 0))))
+    assert dc.to_local().data_ptr() == storage
+    assert torch.equal(dc.full_tensor(), want)
+    assert not any(l1.values()) and not any(p1.values())
+
+
+@pytest.fixture
+def world1_3d_mesh(cuda_device):
+    """``jaxdist.make_3d_mesh(1)`` over a world-1 NCCL group, destroyed
+    after the test."""
+    import torch.distributed as dist
+    from repro_torch.jaxdist import make_3d_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield make_3d_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_jaxdist_on_a_world1_mesh(world1_3d_mesh):
+    """``matmul_3d`` on a (1, 1, 1) NCCL mesh is one matmul launch, bit for
+    bit the kernel on the whole operands; ``tsqr`` and ``cholesky_3d``
+    (n 256, block 64) reproduce their inputs against ``torch.linalg`` on
+    the card, with no plain call."""
+    from repro_torch.jaxdist import cholesky_3d, matmul_3d, tsqr
+    mesh = world1_3d_mesh
+    gen = torch.Generator().manual_seed(72)
+    a = torch.randn((512, 384), generator=gen).cuda()
+    b = torch.randn((384, 256), generator=gen).cuda()
+    c, l1, p1 = _counted(lambda: matmul_3d(a, b, mesh).full_tensor())
+    assert l1["matmul"] == 1 and not any(p1.values())
+    assert torch.equal(c, ops.matmul(a, b))
+    m = torch.randn((4096, 64), generator=gen).cuda()
+    (q, r), _, p2 = _counted(lambda: tsqr(m, mesh, "x"))
+    q, r = q.full_tensor(), r.full_tensor()
+    torch.testing.assert_close(q @ r, m, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(q.T @ q, torch.eye(64, device="cuda"),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(r.abs(), torch.linalg.qr(m)[1].abs(),
+                               rtol=1e-4, atol=1e-4)
+    n = 256
+    x = torch.randn((n, n), generator=gen).cuda()
+    spd = x @ x.T + n * torch.eye(n, device="cuda")
+    (l, linv), l3, p3 = _counted(lambda: cholesky_3d(spd, mesh, block=64))
+    l, linv = l.full_tensor(), linv.full_tensor()
+    torch.testing.assert_close(l, torch.linalg.cholesky(spd), rtol=2e-3,
+                               atol=2e-3)
+    torch.testing.assert_close(l @ linv, torch.eye(n, device="cuda"),
+                               rtol=2e-3, atol=2e-3)
+    assert l3["matmul"] > 0 and not any(p2.values()) \
+        and not any(p3.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["xlstm-125m", "jamba-v0.1-52b"])
+def test_ssm_sharded_step_on_a_world1_nccl_mesh_is_the_unsharded_step(
+        world1_mesh, arch):
+    """Reduced xlstm-125m and jamba, one sharded step under cp on a (1, 1)
+    NCCL mesh (the scans in their manual regions): the unsharded step's
+    loss, parameters and moments bit for bit, the same launches, no plain
+    call."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, ModelKnobs
+    from repro_torch.parallel.sharding import gather, make_rules, place
+    from repro_torch.train.optim import AdamWConfig, adamw_init
+    from repro_torch.train.step import (TrainConfig, make_train_step,
+                                        opt_shardings, placed_train_step,
+                                        shard_params)
+    from repro_torch.tune.lm_study import _flatten
+    cfg = get_config(arch, reduced=True)
+    model = Model(cfg, ModelKnobs(ssm_chunk=8, kv_chunk=16), device="cuda")
+    params = model.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    batch = {k: torch.randint(0, cfg.vocab, (4, 32), generator=gen)
+             for k in ("tokens", "labels")}
+    tc = TrainConfig(grad_accum=2, optimizer=AdamWConfig(lr=1e-3, warmup=1))
+    (p1, o1, m1), l1, pl1 = _counted(lambda: make_train_step(model, tc)(
+        params, adamw_init(params), {k: v.cuda() for k, v in batch.items()}))
+    rules = make_rules("cp").with_mesh(world1_mesh)
+    step = placed_train_step(model, rules, tc)
+    (p2, o2, m2), l2, pl2 = _counted(lambda: step(
+        shard_params(model, params, rules),
+        place(adamw_init(params), opt_shardings(model, rules)), batch))
+    assert l2 == l1 and l1["matmul"] > 0 and not any(pl1.values()) \
+        and not any(pl2.values())
+    assert float(m2["loss"]) == float(m1["loss"])
+    for (p, a), (_, b) in zip(_flatten({"p": gather(p2), "o": gather(o2)}),
+                              _flatten({"p": p1, "o": o1})):
+        assert a.is_cuda and torch.equal(a, b), p
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["smollm-135m", "xlstm-125m",
+                                  "deepseek-v2"])
+def test_engine_under_rules_on_a_world1_nccl_mesh(world1_mesh, arch):
+    """The engine under cp on a (1, 1) NCCL mesh (reduced configurations;
+    deepseek-v2's MoE at capacity factor E / top_k, where neither the
+    per-shard capacity nor the one-device sort drops a pair): the
+    one-device engine's tokens, the same launches, no plain call."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, ModelKnobs
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+    cfg = get_config(arch, reduced=True)
+    if cfg.moe:
+        cfg = replace(cfg, moe=replace(
+            cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+    model = Model(cfg, ModelKnobs(ssm_chunk=8, kv_chunk=16), device="cuda")
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, cfg.vocab, n) for n in (5, 8, 16, 7, 3)]
+
+    def serve(rules):
+        eng = Engine(model, params, ServeConfig(batch_size=4, s_max=64,
+                                                max_new_tokens=6),
+                     rules=rules)
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid, p))
+        return {u: r.tokens for u, r in eng.run().items()}
+    want, l1, p1 = _counted(lambda: serve(None))
+    got, l2, p2 = _counted(lambda: serve(
+        make_rules("cp").with_mesh(world1_mesh)))
+    assert got == want and l2 == l1
+    assert not any(p1.values()) and not any(p2.values())
