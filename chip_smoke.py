@@ -108,11 +108,11 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               rows (router N 16, experts at M = cap 1/5/10, the untied
               head N 32064, flash at d 128 over 32/8 heads, RMSNorm 4096
               wide); (a) serve 8 requests (launch/serve.py's draw, batch
-              4, s_max 256, 16 new tokens) three times, the launch
+              4, s_max 256, 16 new tokens) twice, the launch
               counters zeroed just before the first run and read just
               after (matmul, RMSNorm and flash launched, the expected
               count, no plain call, the same tokens every run; host ms
-              least of 3), then prefill and 4 teacher-forced decode steps
+              least of 2), then prefill and 4 teacher-forced decode steps
               of 2 prompts against the port's CPU run, every layer's
               routing first, then the logits; (b) the decode step under
               torch.profiler, the expert products and the dispatch's
@@ -273,10 +273,30 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               512, each bit for bit with the same program on one device's
               plain tensors and against torch.linalg on the card; matmul
               launches, no plain call, host ms; where the machine shows 8
-              or more cards, the same at c = 2 over 8 ranks.
+              or more cards, the same at c = 2 over 8 ranks;
+19. pipeline -- the GPipe pipeline over 'pod' (parallel/pipeline.py):
+              smollm-135m at its published widths on [train]'s 8 x 128
+              tokens in 4 microbatches through pipeline_loss on a (1, 1,
+              1) mesh of a world-1 NCCL group, its loss and gradients
+              against Model.loss on the same microbatches on one device
+              (the reference test's tolerances), the same launches of
+              every kernel forward and backward, no plain call, host ms of
+              each; where the machine shows 2 or more cards, pod 2 across
+              two of them, one process a card;
+20. dryrun -- the dry-run (launch/dryrun.py) in a subprocess of its own
+              (its fake process group never meets the NCCL ones), started
+              before the build and read at the end: smollm-135m x
+              train_4k and x decode_32k on the single-pod 16x16 mesh and
+              deepseek-v2 x train_4k (bf16 accumulation) on the 2x16x16
+              mesh, traced on fake tensors: each cell's roofline terms
+              against the H100's peaks, per-device peak bytes, whether it
+              fits the card's memory, the trace's seconds; no kernel
+              launched and no plain call in that process; then the
+              dry-run's score of [train]'s own step on a (1, 1) mesh beside
+              [train]'s measured device busy ms.
 
 The kernels line gives each kernel's launches in every phase, the sharded
-runs' as ``launches_sharded``.  It prints the kernels as one JSON line, then
+runs' as ``launches_sharded``, the pipeline's as ``launches_pipeline``.  It prints the kernels as one JSON line, then
 the last line
 ``{"ok": true, "device": {...}}``.  ``--out PATH`` also writes the full
 tables (every case, the serve and profile numbers) as JSON.  It exits
@@ -301,9 +321,6 @@ from pathlib import Path
 T_START = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 # (rtol, atol) of each kernel against its plain version, per dtype: the JAX
 # test sweep's tolerances (tests/test_kernels.py)
 TOL = {"matmul": {"float32": (1e-5, 8e-5), "bfloat16": (3e-2, 2.4e-1)},
@@ -350,6 +367,10 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+# H100 SXM peaks (NVIDIA data sheet; dense, at the 700 W limit) and each
+# kernel's bytes and operations, shared with the dry-run
+from repro_torch.kernels.cost import (HBM_BYTES_PER_S,  # noqa: E402
+                                      PEAK_FLOPS, causal_pairs, kernel_cost)
 from repro_torch.kernels.matmul import (L2_BYTES, matmul_cuda,  # noqa: E402
                                         plan_for, skinny_max_m)
 from repro_torch.kernels.rmsnorm import (  # noqa: E402
@@ -514,27 +535,6 @@ def flash_case(B, Sq, Skv, H, KVH, d, dtype, gen, dv=None):
                  ((B, Sq, H, d), (B, Skv, KVH, d), (B, Skv, KVH, dv or d)))
 
 
-def causal_pairs(Sq, Skv) -> int:
-    return sum(min(Skv, Skv - Sq + i + 1) for i in range(Sq))
-
-
-def cost(name, args):
-    """(bytes, flops) the function needs on these inputs."""
-    es = elem(args[0].dtype)
-    if name == "matmul":
-        (M, K), N = args[0].shape, args[1].shape[1]
-        return (M * K + K * N + M * N) * es, 2 * M * N * K
-    if name == "rmsnorm":
-        x, w = args
-        return 2 * x.numel() * es + w.numel() * w.element_size(), \
-            4 * x.numel()
-    q, k, v = args
-    B, Sq, H, dk = q.shape
-    dv = v.shape[-1]
-    return ((q.numel() + k.numel() + v.numel() + B * Sq * H * dv) * es,
-            2 * (dk + dv) * B * H * causal_pairs(Sq, k.shape[1]))
-
-
 def library_call(name, args):
     """One PyTorch call computing the same function (yardstick only)."""
     if name == "matmul":
@@ -683,7 +683,7 @@ def rms_bwd_path(plan):
 
 
 def time_row(row, name, args, dn):
-    nbytes, flops = cost(name, args)
+    nbytes, flops = kernel_cost(name, args)
     row["bound_ms"], row["bound_by"] = bound(nbytes, flops, dn)
     row["ms"], row["host_ms"] = time_ms(lambda: KERNEL_FN[name](*args))
     row["plain_ms"], row["plain_host_ms"] = time_ms(
@@ -876,15 +876,16 @@ def phase_rms_bwd_variants():
 # (K, N, B = embed.T, the M to time) per dtype: the MLP projections, whose
 # weights sit in L2, the tied head, whose 49152-wide weight does not, and
 # the tied head's backward dX = dC embed (row-major B beyond the L2)
+# (K, N, B = embed.T, M values): each straddles the shape's threshold
 CROSSOVER = {
-    torch.float32: [(576, 1536, False, (16, 64, 256, 512, 768, 1024)),
-                    (1536, 576, False, (16, 64, 256, 512, 768, 1024)),
-                    (576, 49152, True, (4, 16, 32, 64)),
-                    (49152, 576, False, (16, 32, 64, 128, 256, 512))],
-    torch.bfloat16: [(576, 1536, False, (16, 32, 64, 128)),
-                     (1536, 576, False, (16, 32, 64, 128)),
-                     (576, 49152, True, (1, 4, 8, 16, 32)),
-                     (49152, 576, False, (16, 32, 64, 128))]}
+    torch.float32: [(576, 1536, False, (256, 512, 768)),
+                    (1536, 576, False, (256, 512, 768)),
+                    (576, 49152, True, (16, 32, 64)),
+                    (49152, 576, False, (128, 256, 512))],
+    torch.bfloat16: [(576, 1536, False, (16, 32, 64)),
+                     (1536, 576, False, (16, 32, 64)),
+                     (576, 49152, True, (1, 4, 8)),
+                     (49152, 576, False, (32, 64, 128))]}
 
 
 def phase_crossover():
@@ -1151,27 +1152,6 @@ GRAD_TOL = (1e-4, 1e-4)             # f32 backward kernel vs plain version
 STUDY_TOL = (1e-4, 1e-5)
 
 
-def flash_bwd_cost(q, k, v):
-    """(bytes, flops) of the attention backward on these inputs: q, k, v,
-    o, dO and lse read once, dq, dk, dv written once; per visible (query,
-    key) pair of each query head 6 dk + 4 dv flops (S recomputed, dK and dQ
-    over dk; dP and dV over dv)."""
-    B, Sq, H, dk = q.shape
-    dv = v.shape[-1]
-    es = elem(q.dtype)
-    nbytes = (2 * (q.numel() + k.numel() + v.numel() + B * Sq * H * dv)
-              * es + B * H * Sq * 4)
-    return nbytes, (6 * dk + 4 * dv) * B * H * causal_pairs(Sq, k.shape[1])
-
-
-def rms_bwd_cost(x, w):
-    """x and dy read, dx written, w read and dw written once; ~8 flops an
-    element."""
-    es = elem(x.dtype)
-    return 3 * x.numel() * es + 2 * w.numel() * w.element_size(), \
-        8 * x.numel()
-
-
 # bf16 flash backward against its plain version: the kernel rounds P and dS
 # to bf16 before their products (the plain version keeps them f32), both
 # round the outputs: rtol 2e-2 (a few ulps of the element) and atol 1e-2 x
@@ -1216,7 +1196,7 @@ def grad_case_flash(label, dims, bk, gen, timed=True, dtype=torch.float32,
     if not row["bit_identical"]:
         raise AssertionError(f"flash_attention_bwd {label}: two runs differ")
     if timed:
-        nbytes, flops = flash_bwd_cost(q, k, v)
+        nbytes, flops = kernel_cost("flash_attention_bwd", (q, k, v))
         plain = lambda: ref.flash_attention_bwd_ref(  # noqa: E731
             q, k, v, o, lse, do, scale=scale)
         # library: SDPA's backward alone (autograd of one forward), on the
@@ -1262,7 +1242,7 @@ def grad_case_rms(label, rows_, D, dtype, gen, timed=True):
     if not row["bit_identical"]:
         raise AssertionError(f"rmsnorm_bwd {label}: two runs differ")
     if timed:
-        nbytes, flops = rms_bwd_cost(x, w)
+        nbytes, flops = kernel_cost("rmsnorm_bwd", (x, w))
         lx = x.clone().requires_grad_()
         lw = (1.0 + w).detach().requires_grad_()
         ly = F.rms_norm(lx, (D,), weight=lw, eps=1e-5)
@@ -1287,7 +1267,7 @@ def grad_case_matmul(label, a, b, timed=True):
     if not row["bit_identical"]:
         raise AssertionError(f"matmul {label}: two runs differ")
     if timed:
-        nbytes, flops = cost("matmul", (a, b))
+        nbytes, flops = kernel_cost("matmul", (a, b))
         grad_timing(row, lambda: ops.matmul(a, b),
                     lambda: ref.matmul_ref(a, b),
                     lambda: torch.matmul(a, b), nbytes, flops)
@@ -2382,17 +2362,20 @@ def serve_family(tag, arch, depth, cfg, p_cpu, p_gpu, per_step,
     return stats
 
 
+SERVE_RUNS = 2
+
+
 def serve_runs(tag, arch, depth, cfg, p_gpu, per_step, flash_pairs=None):
-    """Serve 8 requests on the card three times with the launch counters
-    zeroed just before the first and read just after it: the forward
-    kernels only, the expected count per prefill and decode step
+    """Serve 8 requests on the card ``SERVE_RUNS`` times with the launch
+    counters zeroed just before the first and read just after it: the
+    forward kernels only, the expected count per prefill and decode step
     (``per_step``), no plain call, the same tokens every run; host-clock
-    ms (least of the 3 runs).  ``flash_pairs``: a list that records the
+    ms (least of the runs).  ``flash_pairs``: a list that records the
     (dk, dv) of every flash launch of the first run."""
     from repro_torch.models.model import Model
     model = Model(cfg, device=_device_of(p_gpu))
     runs = []
-    for i in range(3):
+    for i in range(SERVE_RUNS):
         eng = _serve_engine(model, p_gpu)
         if i == 0:
             _zero_counts()
@@ -2445,9 +2428,10 @@ def serve_runs(tag, arch, depth, cfg, p_gpu, per_step, flash_pairs=None):
         "launches_per_prefill": per_pre, "launches_per_decode_step": per_dec}
     print(f"[{tag}] serve full-width {arch} ({cfg.n_layers} of {depth} "
           f"layers, f32): {len(toks)} requests, {n_tok} tokens, same tokens "
-          f"in 3 runs; prefill {stats['prefill_ms']:.2f} ms a request, "
-          f"decode {stats['decode_ms']:.2f} ms a step (host clock, least of "
-          f"3 runs: {[round(m, 2) for m in stats['decode_ms_runs']]}); "
+          f"in {SERVE_RUNS} runs; prefill {stats['prefill_ms']:.2f} ms a "
+          f"request, decode {stats['decode_ms']:.2f} ms a step (host clock, "
+          f"least of {SERVE_RUNS} runs: "
+          f"{[round(m, 2) for m in stats['decode_ms_runs']]}); "
           f"launches a prefill {per_pre}, a decode step {per_dec}")
     return stats
 
@@ -3387,7 +3371,7 @@ def layers_vs_cpu(tag, cfg, p_dev, prompts, steps):
 def phase_ssm_jamba(cfg, device="cuda"):
     """(b) jamba at its published widths cut to one period, drawn on the
     card from a seeded CUDA generator (the CPU draw of 13.3 G values would
-    take minutes): served as phase 11's (a) (three runs, the counters
+    take minutes): served as phase 11's (a) (two runs, the counters
     zeroed around the first: the launches a prefill and a decode step from
     the configuration, every flash launch at (128, 128), no plain call),
     then held against the CPU layer by layer (``layers_vs_cpu``)."""
@@ -3408,16 +3392,18 @@ def phase_ssm_jamba(cfg, device="cuda"):
         stats = serve_runs("ssm", "jamba-v0.1-52b", 32, cfg, p_dev,
                            stack_launches(cfg, 1))
     want = (cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, cfg.head_dim)
-    if len(launched) != 3 * stats["prefills"] * stats["launches_per_prefill"][
-            "flash_attention"] or set(launched) != {want}:
+    if len(launched) != SERVE_RUNS * stats["prefills"] * stats[
+            "launches_per_prefill"]["flash_attention"] or \
+            set(launched) != {want}:
         raise AssertionError(f"[ssm] jamba's {len(launched)} flash launches "
-                             f"in 3 runs were at (H, KVH, dk, dv) "
-                             f"{sorted(set(launched))}, not all at {want}")
-    print(f"[ssm] jamba's {len(launched)} flash launches in 3 runs were all "
-          f"at (H, KVH, dk, dv) {want}")
+                             f"in {SERVE_RUNS} runs were at (H, KVH, dk, "
+                             f"dv) {sorted(set(launched))}, not all at "
+                             f"{want}")
+    print(f"[ssm] jamba's {len(launched)} flash launches in {SERVE_RUNS} "
+          f"runs were all at (H, KVH, dk, dv) {want}")
     prompts, steps = SSM_COMPARE
     stats.update({"params": n_params, "draw_s": draw_s,
-                  "flash_launches_3_runs": len(launched),
+                  "flash_launches_all_runs": len(launched),
                   "flash_shape": want,
                   "decode_step_weight_bytes": step_bytes,
                   "decode_step_bound_ms": step_bound_ms,
@@ -3813,12 +3799,12 @@ def train_bound(cfg, params, tokens: int, mb: int, seq: int):
     return ms, by, flops, nbytes
 
 
-def _layers_a_view_at_a_time(self, params):
+def _layers_a_view_at_a_time(self, params, n_periods=None):
     """``Model._layers`` as the model took its per-layer views before it
     unbound each stack once: a view of each stack a layer at a time, whose
     backward fills a zero tensor the size of the whole stack for each
     layer (kept here to measure that against the unbound views)."""
-    for j in range(self.cfg.n_periods):
+    for j in range(n_periods or self.cfg.n_periods):
         for i in range(self.cfg.period):
             stack = params[f"pos{i}"]
             yield (j, i,
@@ -4741,6 +4727,299 @@ def phase_jaxdist(device="cuda", sizes=JAXDIST, cards=None):
     return out
 
 
+# -- phase 19: the pipeline over 'pod' ------------------------------------------
+
+PIPELINE_MB = 4                 # microbatches of [train]'s 8 x 128 tokens
+# the reference test's tolerances (tests/test_sharded.py
+# test_pipeline_parallel_matches_reference)
+PIPELINE_TOL = {"loss": 2e-3, "grad": (5e-3, 1e-4)}
+# one rank of pod n over n cards: the process group from torchrun's
+# environment; rank 0 writes the loss and the gradients' global norm
+_PIPELINE_RANK = r"""
+import json, os, sys
+import torch
+import torch.distributed as dist
+args = json.loads(sys.argv[1])
+dev = args["device"]
+if dev == "cuda":
+    torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+dist.init_process_group("nccl" if dev == "cuda" else "gloo")
+try:
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.pipeline import pipeline_loss, place_pipeline
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    a = train_cli.parse(args["argv"])
+    cfg, shape, model, _ = train_cli.build(a)
+    params = model.init(torch.Generator().manual_seed(a.seed))
+    host = synthetic_batch(cfg, shape, 0, DataConfig(seed=a.seed))
+    batch = {k: torch.from_numpy(v) for k, v in host.items()}
+    rules = make_rules("cp").with_mesh(make_host_mesh(
+        1, pod=dist.get_world_size(), device_type=dev))
+    placed = place_pipeline(model, params, rules)
+    leaves = [v.detach().requires_grad_(True) for sub in placed.values()
+              for v in sub.values()]
+    it = iter(leaves)
+    tree = {g: {k: next(it) for k in sub} for g, sub in placed.items()}
+    loss = pipeline_loss(model, rules, tree, batch, n_mb=args["n_mb"])
+    grads = [g.full_tensor() for g in torch.autograd.grad(loss, leaves)]
+    norm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
+    if dist.get_rank() == 0:
+        with open(sys.argv[2], "w") as f:
+            json.dump({"loss": float(loss), "grad_norm": norm}, f)
+finally:
+    dist.destroy_process_group()
+"""
+
+
+def phase_pipeline(reduced=False, device="cuda", cards=None):
+    """smollm-135m at its published widths on [train]'s first batch (8 x
+    128 tokens, the launcher's seeded weights) in 4 microbatches:
+    ``Model.loss`` and its gradients on each microbatch on one device,
+    averaged, then ``pipeline_loss`` on a (1, 1, 1) mesh of a world-1
+    group (NCCL on the card; made and destroyed here), its gradients as
+    whole tensors: the loss and every gradient within the reference test's
+    tolerances, the same launches of every kernel, no plain call on the
+    card; host ms of each, warm (a second call, synced).  With 2 or more
+    cards, pod 2 across two of them, its loss and gradient norm against
+    the one-rank run's."""
+    import torch.distributed as dist
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel.pipeline import pipeline_loss, place_pipeline
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.train.data import DataConfig, synthetic_batch
+    from repro_torch.train.optim import tree_leaves
+    from repro_torch.train.step import _split, loss_and_grads
+    argv = TRAIN_ARGV + ["--device", device] + (["--reduced"] if reduced
+                                                else [])
+    args = train_cli.parse(argv)
+    cfg, shape, model, _ = train_cli.build(args)
+    params = model.init(torch.Generator().manual_seed(args.seed))
+    host = synthetic_batch(cfg, shape, 0, DataConfig(seed=args.seed))
+    batch = {k: torch.from_numpy(v) for k, v in host.items()}
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def one_device():
+        loss, acc = 0.0, None
+        for mb in _split(batch, PIPELINE_MB):
+            l, g = loss_and_grads(model, params, {
+                k: v.to(model.device) for k, v in mb.items()})
+            loss = loss + l / PIPELINE_MB
+            g = [t / PIPELINE_MB for t in tree_leaves(g)]
+            acc = g if acc is None else [a + b for a, b in zip(acc, g)]
+        sync()
+        return float(loss), acc
+
+    def timed_twice(fn):
+        """(the first call's result, its launches and plain calls, the
+        second call's host ms)."""
+        _zero_counts()
+        got = fn()
+        launches, plain = dict(ops.launches), dict(ops.plain_calls)
+        t0 = time.perf_counter()
+        fn()
+        return got, launches, plain, 1e3 * (time.perf_counter() - t0)
+
+    (ref_loss, ref_g), l_ref, p_ref, ms_ref = timed_twice(one_device)
+    dist.init_process_group("nccl" if device == "cuda" else "gloo",
+                            store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        rules = make_rules("cp").with_mesh(make_host_mesh(
+            1, pod=1, device_type=device))
+        placed = place_pipeline(model, params, rules)
+
+        def pipe():
+            leaves = [v.detach().requires_grad_(True) for v in
+                      tree_leaves(placed)]
+            it = iter(leaves)
+            tree = {g: {k: next(it) for k in sub}
+                    for g, sub in placed.items()}
+            loss = pipeline_loss(model, rules, tree, batch,
+                                 n_mb=PIPELINE_MB)
+            grads = [g.full_tensor() for g in torch.autograd.grad(
+                loss, leaves)]
+            sync()
+            return float(loss), grads
+        (loss, grads), l_pipe, p_pipe, ms_pipe = timed_twice(pipe)
+    finally:
+        dist.destroy_process_group()
+    loss_err = abs(loss - ref_loss) / abs(ref_loss)
+    rtol, atol = PIPELINE_TOL["grad"]
+    worst = max(float(((a - b).abs() / (atol + rtol * b.abs())).max())
+                for a, b in zip(grads, ref_g))
+    print(f"[pipeline] {cfg.name} ({cfg.n_layers} layers, d_model "
+          f"{cfg.d_model}, f32), {args.batch} x {args.seq} tokens in "
+          f"{PIPELINE_MB} microbatches: pipeline_loss on a (1, 1, 1) mesh "
+          f"of a world-1 {'NCCL' if device == 'cuda' else 'gloo'} group "
+          f"{loss!r} against Model.loss on one device {ref_loss!r} (rel err "
+          f"{loss_err:.2e}, rtol {PIPELINE_TOL['loss']}); every gradient "
+          f"within rtol {rtol} / atol {atol} (worst |diff| / (atol + rtol "
+          f"|want|) {worst:.2e})")
+    print(f"[pipeline] launches {l_pipe} (one device: {l_ref}); plain calls "
+          f"{p_pipe}; host ms, warm: pipeline {ms_pipe:.2f}, one device "
+          f"{ms_ref:.2f}")
+    if loss_err > PIPELINE_TOL["loss"] or worst > 1.0:
+        raise AssertionError(f"[pipeline] loss {loss} vs {ref_loss}, "
+                             f"gradients {worst:.2e} x the tolerance")
+    if l_pipe != l_ref or not all(l_pipe[k] for k in ops.launches if
+                                  device == "cuda"):
+        raise AssertionError(f"[pipeline] launched {l_pipe}, one device "
+                             f"{l_ref}")
+    if device == "cuda" and (any(p_pipe.values()) or any(p_ref.values())):
+        raise AssertionError(f"[pipeline] plain calls {p_pipe} / {p_ref}")
+    out = {"loss": loss, "ref_loss": ref_loss, "loss_rel_err": loss_err,
+           "grad_worst_over_tol": worst, "launches": l_pipe,
+           "launches_one_device": l_ref, "plain_calls": p_pipe,
+           "host_ms": ms_pipe, "host_ms_one_device": ms_ref}
+    cards = torch.cuda.device_count() if cards is None else cards
+    if cards >= 2:
+        norm = float(torch.sqrt(sum((g.float() ** 2).sum() for g in grads)))
+        got = _run_ranks(_PIPELINE_RANK, {"argv": argv, "n_mb": PIPELINE_MB,
+                                          "device": device}, 2,
+                         "pipeline run")
+        err = abs(got["loss"] - loss) / abs(loss)
+        nerr = abs(got["grad_norm"] - norm) / norm
+        print(f"[pipeline] pod 2 over 2 {device} ranks: loss {got['loss']!r} "
+              f"(rel err {err:.2e} against one rank's), gradient norm rel "
+              f"err {nerr:.2e} (rtol {rtol})")
+        if err > PIPELINE_TOL["loss"] or nerr > rtol:
+            raise AssertionError(f"[pipeline] pod 2: {got}")
+        out["pod2"] = dict(got, loss_rel_err=err, grad_norm_rel_err=nerr)
+    else:
+        print(f"[pipeline] pod 2: not run; this machine shows {cards} CUDA "
+              f"device and NCCL puts no two ranks on one card")
+    return out
+
+
+# -- phase 20: the dry-run ----------------------------------------------------
+
+DRYRUN_CELLS = (("smollm-135m", "train_4k", False),
+                ("smollm-135m", "decode_32k", False),
+                ("deepseek-v2", "train_4k", True))
+# the dry-run's process: the cells on their production meshes, then
+# [train]'s own step (full-width smollm-135m, 8 x 128 tokens in 2
+# microbatches, remat full, f32) on a (1, 1) mesh of a fake world of one;
+# it writes one JSON and asserts that it launched no kernel and took no
+# plain version
+_DRYRUN_CHILD = r"""
+import json, os, sys, time
+os.nice(10)          # it runs beside the card's phases, on the host
+sys.path.insert(0, sys.argv[1])
+import torch
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.kernels import ops
+from repro_torch.launch import dryrun
+from repro_torch.launch import train as train_cli
+from repro_torch.launch.cells import Cell, build_cell
+from repro_torch.launch.mesh import fake_world
+cells = json.loads(sys.argv[2])
+out = {"cells": [], "start_s": time.perf_counter()}
+for arch, shape, multi in cells:
+    out["cells"].append(dryrun.run_cell(arch, shape, multi_pod=multi))
+a = train_cli.parse(json.loads(sys.argv[3]))
+cfg, _, model, _ = train_cli.build(a)
+from repro_torch.configs import SHAPES, Shape
+SHAPES["chip_smoke_train"] = Shape("chip_smoke_train", a.seq, a.batch,
+                                   "train")
+import repro_torch.launch.cells as C
+C.get_config = lambda name: cfg
+with fake_world(1):
+    mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    t0 = time.perf_counter()
+    cell = build_cell(a.arch, "chip_smoke_train", mesh, knobs=model.knobs,
+                      tc=train_cli.train_config(a))
+    build_s = time.perf_counter() - t0
+    _, tr = cell.trace()
+    out["train"] = dryrun.record(a.arch, "chip_smoke_train", "cp", [1, 1],
+                                 ["data", "model"], 1, build_s, tr,
+                                 cell.argument_bytes(), 0.0)
+out["launches"], out["plain_calls"] = ops.launches, ops.plain_calls
+out["wall_s"] = time.perf_counter() - out.pop("start_s")
+with open(sys.argv[4], "w") as f:
+    json.dump(out, f)
+assert not any(ops.launches.values()), ops.launches
+assert not any(ops.plain_calls.values()), ops.plain_calls
+"""
+
+
+def start_dryrun(tmp: Path, argv=None):
+    """Start the dry-run's process (it needs no card); ``finish_dryrun``
+    reads it.  It is killed when this script exits, whatever the exit."""
+    import atexit
+    import os
+    argv = argv or TRAIN_ARGV + ["--device", "cpu"]
+    res, log = tmp / "dryrun.json", tmp / "dryrun.log"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", _DRYRUN_CHILD, str(ROOT / "src"),
+             json.dumps(DRYRUN_CELLS), json.dumps(argv), str(res)],
+            stdout=f, stderr=subprocess.STDOUT, env=env, cwd=tmp)
+    atexit.register(lambda: proc.poll() is None and proc.kill())
+    return proc, res, log
+
+
+def finish_dryrun(started, train=None, limit_s: float = 1150):
+    """Wait for the dry-run's process (until ``limit_s`` after the script's
+    start) and print its cells, and its score of [train]'s step beside
+    [train]'s measured device busy ms."""
+    from repro_torch.kernels.cost import CARD_MEMORY_BYTES, CARD_NAME
+    proc, res, log = started
+    t_wait = time.perf_counter()
+    try:
+        rc = proc.wait(timeout=max(10.0, limit_s - (t_wait - T_START)))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+    if rc != 0 or not res.exists():
+        raise AssertionError(f"[dryrun] the dry-run's process exited {rc}:\n"
+                             f"{log.read_text()[-4000:]}")
+    got = json.loads(res.read_text())
+    gb = 1 << 30
+    total = torch.cuda.get_device_properties(0).total_memory \
+        if torch.cuda.is_available() else None
+    print(f"[dryrun] its process ran {got['wall_s']:.1f} s beside the card's "
+          f"phases (waited {time.perf_counter() - t_wait:.1f} s for it at "
+          f"the end); launches {got['launches']}, plain calls "
+          f"{got['plain_calls']} in it; fits against {CARD_MEMORY_BYTES} "
+          f"B ({CARD_NAME}); this card reports {total} B")
+    for rec in got["cells"]:
+        r, m = rec["roofline"], rec["memory"]
+        print(f"[dryrun] {rec['arch']} x {rec['shape']} x {rec['variant']} "
+              f"@ {'x'.join(map(str, rec['mesh']))}: compute "
+              f"{r['compute_s']:.6f} s, memory {r['memory_s']:.6f} s, "
+              f"collective {r['collective_s']:.6f} s -> {r['bound']}-bound "
+              f"(step {r['step_s']:.6f} s); per device {r['flops_per_dev']:.4e} "
+              f"flops, {r['bytes_per_dev']:.4e} B, "
+              f"{r['collective_bytes_per_dev']:.4e} B of collectives; peak "
+              f"{m['peak_bytes'] / gb:.3f} GiB (args "
+              f"{m['argument_bytes'] / gb:.3f}), fits: {m['fits']}; trace "
+              f"{rec['trace_s']:.1f} s; useful-flops ratio "
+              f"{rec['useful_flops_ratio']:.3f}")
+    tr = got["train"]
+    r = tr["roofline"]
+    f32_ms = 1e3 * r["flops_per_dev"] / PEAK_FLOPS["float32"]
+    busy = ((train or {}).get("profile") or {}).get("device_busy_ms")
+    print(f"[dryrun] [train]'s step traced on a (1, 1) mesh (8 x 128 "
+          f"tokens, 2 microbatches, f32): {r['flops_per_dev']:.4e} flops, "
+          f"{r['bytes_per_dev']:.4e} B; the dry-run's score {1e3 * r['step_s']:.3f}"
+          f" ms ({r['bound']}-bound at the bf16 peak), compute at the f32 "
+          f"peak {f32_ms:.3f} ms, memory {1e3 * r['memory_s']:.3f} ms; "
+          f"[train] measured device busy "
+          + (f"{busy:.3f} ms" if busy is not None else "not measured")
+          + f"; trace {tr['trace_s']:.1f} s")
+    if any(got["launches"].values()) or any(got["plain_calls"].values()):
+        raise AssertionError(f"[dryrun] the dry-run launched "
+                             f"{got['launches']} / called plain versions "
+                             f"{got['plain_calls']}")
+    return dict(got, train_busy_ms=busy, train_f32_compute_ms=f32_ms)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None,
@@ -4762,6 +5041,10 @@ def main(argv=None) -> int:
         print(f"[time] {name}: {phase_s[name]:.1f} s")
         return out
 
+    import tempfile
+    dryrun_dir = tempfile.TemporaryDirectory()
+    # the dry-run needs no card: its process runs beside the phases below
+    dryrun_proc = start_dryrun(Path(dryrun_dir.name))
     card, ptxas = timed("build", phase_build)
     rows, floor = timed("kernels", phase_kernels, cfg)
     variants = timed("variants", phase_rms_variants)
@@ -4788,6 +5071,9 @@ def main(argv=None) -> int:
     train = timed("train", phase_train)
     sharded = timed("sharded", phase_sharded)
     jaxdist = timed("jaxdist", phase_jaxdist)
+    pipeline = timed("pipeline", phase_pipeline)
+    dryrun = timed("dryrun", finish_dryrun, dryrun_proc, train)
+    dryrun_dir.cleanup()
 
     # one entry per kernel: its largest main-path shape at f32 (forward:
     # the serving path's, launches counted there; backward: the tuning
@@ -4846,6 +5132,11 @@ def main(argv=None) -> int:
                    for a, st in sharded["serve"].items()}},
             "launches_jaxdist": {k: st["launches"][name]
                                  for k, st in jaxdist.items() if k != "c2"},
+            "launches_pipeline": {
+                "pipeline_loss (1, 1, 1), 4 microbatches":
+                    pipeline["launches"][name],
+                "Model.loss on the same microbatches":
+                    pipeline["launches_one_device"][name]},
             "max_abs_err": max(r["max_abs_err"] for r in table
                                if r["kernel"] == name),
             "ms": row["ms"], "plain_ms": row["plain_ms"],
@@ -4885,6 +5176,8 @@ def main(argv=None) -> int:
                                         "train": train,
                                         "sharded": sharded,
                                         "jaxdist": jaxdist,
+                                        "pipeline": pipeline,
+                                        "dryrun": dryrun,
                                         "phase_s": phase_s},
                                        indent=1))
     print(f"[time] chip_smoke.py took {time.perf_counter() - T_START:.1f} s "

@@ -20,16 +20,18 @@ the simulator on the host::
 Verbatim copies of ``repro.api``'s NumPy-only modules (``space``,
 ``result``, ``serialize``, ``search``, ``scheduler``, ``transfer``,
 ``session``, ``daemon``, ``faults``, ``parallel``, ``worker``,
-``supervisor``) and of the wall-clock and simulator subset of
-``backends``; only ``repro.`` imports are rewritten, and in
-``supervisor`` the worker's module path, so that a ``WorkerPool``
-spawns ``python -m repro_torch.api.worker`` (``tests/test_torch_copies.py``).
-The always-on tuning daemon (``daemon``) is bound to the LM studies by
-``repro_torch.serve.tuner``.  Not ported: ``DryRunBackend``/``dryrun_space``.
+``supervisor``) and of ``backends``' classes; only ``repro.`` imports
+are rewritten, and in ``supervisor`` the worker's module path, so that a
+``WorkerPool`` spawns ``python -m repro_torch.api.worker``
+(``tests/test_torch_copies.py``).  The always-on tuning daemon
+(``daemon``) is bound to the LM studies by ``repro_torch.serve.tuner``;
+``DryRunBackend`` scores ``tune.dryrun_search`` points by the port's
+dry-run.
 """
 
-from .backends import (Backend, BackendRun, Measurement, SimBackend,
-                       WallClockBackend, WallClockRun)
+from .backends import (Backend, BackendRun, DryRunBackend, Measurement,
+                       SimBackend, WallClockBackend, WallClockRun,
+                       dryrun_space)
 from .daemon import (BackgroundTuner, DaemonCheckpoint, DaemonConfig,
                      DriftDetector, FleetStore, TuningDaemon)
 from .faults import FaultInjector, FaultPlan
@@ -48,13 +50,14 @@ from .transfer import CopulaModel, StatisticsBank
 __all__ = [
     "AutotuneSession", "Backend", "BackendRun", "BackgroundTuner",
     "ConfigPoint", "ConfigRecord", "CopulaModel", "DaemonCheckpoint",
-    "DaemonConfig", "DriftDetector", "Executor", "FaultInjector",
+    "DaemonConfig", "DriftDetector", "DryRunBackend", "Executor",
+    "FaultInjector",
     "FaultPlan", "FleetStore", "ForkExecutor", "InProcessExecutor",
     "Measurement", "RESET_POLICY", "RemoteExecutor", "SEARCHES",
     "Scheduler", "SchedulerError", "SearchSpace", "SimBackend",
     "StatisticsBank", "StudyResult", "Task", "TuningDaemon",
     "WallClockBackend", "WallClockRun", "WorkerPool", "WorkerSpec",
-    "dumps_canonical", "exhaustive",
+    "dryrun_space", "dumps_canonical", "exhaustive",
     "fork_available", "from_jsonable", "measure_config", "model_guided",
     "racing", "run_payload", "to_jsonable",
 ]

@@ -7,13 +7,17 @@
 - ``WallClockBackend`` real timing of kernel sequences (closures running a
                        forward+backward through the port's CUDA kernels)
                        via ``SelectiveTimer``: the paper's technique on the
-                       LM framework itself.
+                       LM framework itself;
+- ``DryRunBackend``    trace-and-score: ranks configurations by the
+                       dominant roofline term of the step traced on fake
+                       tensors over a fake production mesh
+                       (``tune.dryrun_search``), against an H100's peaks.
 
 ``Measurement``, ``BackendRun``, ``Backend``, ``SimBackend``, ``SimRun``,
-``WallClockBackend`` and ``WallClockRun`` are verbatim copies of the
-originals (only ``repro.`` imports rewritten; ``tests/test_torch_copies.py``
-holds them to it).  ``DryRunBackend`` is not ported: it stands on HLO
-lowering.
+``WallClockBackend``, ``WallClockRun``, ``DryRunBackend``, ``DryRunRun``
+and ``dryrun_space`` are verbatim copies of the originals (only ``repro.``
+imports rewritten; ``tests/test_torch_copies.py`` holds them to it), so
+their comments speak of the reference's lowering; the port traces.
 
 The run protocol (the paper's per-configuration measurement sequence,
 section VI.A), which the search drivers orchestrate:
@@ -493,3 +497,93 @@ class WallClockRun(BackendRun):
         return Measurement(predicted=rep.predicted_time,
                            time=rep.measured_time, cost=rep.measured_time,
                            executed=rep.executed, skipped=rep.skipped)
+
+
+# ------------------------------------------------------------------ dry run
+
+class DryRunBackend(Backend):
+    """Compile-and-score: ranks configurations by the dominant roofline
+    term of their lowered HLO on the production mesh (``tune.dryrun_search``
+    machinery).  Deterministic — use ``trials=1``; the "full" and
+    "selective" times coincide, so a DryRunBackend study degenerates to a
+    ranked table with speedup 1, which is exactly what a cost-model search
+    is.  Point payloads are ``tune.dryrun_search.SearchPoint``s.
+    """
+
+    name = "dryrun"
+    parallel_safe = False     # XLA compiles deadlock in forked children
+
+    def __init__(self, arch: str, shape: str, *, multi_pod: bool = False,
+                 cache_dir: Optional[str] = None):
+        self.arch = arch
+        self.shape = shape
+        self.multi_pod = multi_pod
+        self.cache_dir = cache_dir
+
+    def fingerprint(self) -> dict:
+        return {"name": self.name, "arch": self.arch, "shape": self.shape,
+                "multi_pod": self.multi_pod}
+
+    def open(self, space: SearchSpace, policy: Policy, *,
+             seed: int = 0, allocation: int = 0,
+             prior=None) -> "DryRunRun":
+        # a pure cost model keeps no kernel statistics: priors are inert
+        return DryRunRun(self)
+
+
+class DryRunRun(BackendRun):
+    def __init__(self, backend: DryRunBackend):
+        self.b = backend
+        self._recs: Dict[str, dict] = {}
+
+    def reset_models(self) -> None:
+        pass                        # nothing accumulates across configs
+
+    def _evaluate(self, point: ConfigPoint) -> dict:
+        rec = self._recs.get(point.name)
+        if rec is None:
+            from repro_torch.tune.dryrun_search import evaluate_point
+            try:
+                rec = evaluate_point(self.b.arch, self.b.shape,
+                                     point.payload,
+                                     multi_pod=self.b.multi_pod,
+                                     cache_dir=self.b.cache_dir)
+            except Exception as e:   # lowering failures are search results
+                rec = {"error": repr(e)}
+            self._recs[point.name] = rec
+        return rec
+
+    def _measure(self, rec: dict) -> Measurement:
+        if "error" in rec:
+            return Measurement(predicted=float("inf"), time=float("inf"),
+                               cost=0.0, extra=dict(rec))
+        t = float(rec["roofline"]["step_s"])
+        # "full" and "selective" coincide for a pure cost model: each trial
+        # charges the modeled step time, so full_cost == selective_cost and
+        # the study degenerates to a ranked table with speedup exactly 1
+        # (the compile time itself stays available in extra["compile_s"])
+        return Measurement(predicted=t, time=t, cost=t, extra=dict(rec))
+
+    def run_reference(self, point: ConfigPoint) -> Measurement:
+        return self._measure(self._evaluate(point))
+
+    def run_trial(self, point: ConfigPoint) -> Measurement:
+        return self._measure(self._evaluate(point))
+
+    def cost_lower_bound(self, point: ConfigPoint) -> float:
+        """The dry-run roofline IS an analytic lower bound: the lowered
+        HLO's dominant roofline term at peak rates.  A lowering failure is
+        ``+inf`` — dominated by any measured incumbent."""
+        rec = self._evaluate(point)
+        if "error" in rec:
+            return float("inf")
+        return float(rec["roofline"]["step_s"])
+
+
+def dryrun_space(arch: str, shape: str, points) -> SearchSpace:
+    """Wrap ``tune.dryrun_search.SearchPoint``s for the session API."""
+    return SearchSpace(
+        name=f"dryrun-{arch}-{shape}",
+        points=[ConfigPoint(name=p.name, params=dict(p.__dict__),
+                            payload=p) for p in points],
+        reset_between_configs=False)

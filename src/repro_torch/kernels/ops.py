@@ -3,7 +3,12 @@ tensors (mirrors ``repro.kernels.ops``, with its signatures and the
 model-native ``(B, S, H, d)`` attention layout).
 
 There is no fallback: a tensor that is not on the CPU goes to the kernel,
-whose wrapper launches it or raises.  ``launches`` counts kernel launches
+whose wrapper launches it or raises.  Fake tensors (the dry-run,
+``launch/trace_cost.py``) are checked first: each op and its backward
+returns empty fake outputs of the kernel's shapes, launches nothing, runs
+no plain version and charges the kernel's own bytes and flops
+(``cost.charge``).  A real tensor, on the CPU or the card, never takes that
+branch.  ``launches`` counts kernel launches
 per kernel (the CPU path does not count); ``plain_calls`` counts the calls
 that took a plain version (``kernels/ref.py``), so a run on the card can
 show that it took none.
@@ -34,10 +39,12 @@ import math
 from typing import Dict
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..parallel.sharding import on_shards
 from . import ref
+from .cost import charge
 from ._build import launches
 from .flash_attention import flash_attention_bwd_cuda, flash_attention_cuda
 from .matmul import matmul_cuda
@@ -54,6 +61,10 @@ def _on_cpu(*tensors: torch.Tensor) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
+def _fake(*tensors: torch.Tensor) -> bool:
+    return any(isinstance(t, FakeTensor) for t in tensors)
+
+
 def _plain(name: str) -> None:
     plain_calls[name] += 1
 
@@ -63,6 +74,9 @@ def _records_grad(*tensors: torch.Tensor) -> bool:
 
 
 def _matmul_fwd(a, b):
+    if _fake(a, b):
+        charge("matmul", a, b)
+        return a.new_empty((a.shape[0], b.shape[1]))
     if _on_cpu(a, b):
         _plain("matmul")
         return ref.matmul_ref(a, b)
@@ -70,6 +84,9 @@ def _matmul_fwd(a, b):
 
 
 def _rmsnorm_fwd(x, w, eps):
+    if _fake(x, w):
+        charge("rmsnorm", x, w)
+        return torch.empty_like(x)
     if _on_cpu(x, w):
         _plain("rmsnorm")
         return ref.rmsnorm_ref(x, w, eps)
@@ -77,6 +94,12 @@ def _rmsnorm_fwd(x, w, eps):
 
 
 def _flash_fwd(q, k, v, causal, bk, scale, with_lse=False):
+    if _fake(q, k, v):
+        charge("flash_attention", q, k, v)
+        B, Sq, H, _ = q.shape
+        o = q.new_empty((B, Sq, H, v.shape[-1]))
+        return (o, q.new_empty((B, H, Sq), dtype=torch.float32)) \
+            if with_lse else o
     if _on_cpu(q, k, v):
         _plain("flash_attention")
         return ref.flash_attention_ref(q, k, v, causal=causal,
@@ -109,6 +132,9 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, w = ctx.saved_tensors
+        if _fake(x, w, dy):
+            charge("rmsnorm_bwd", x, w)
+            return torch.empty_like(x), torch.empty_like(w), None
         if _on_cpu(x, w, dy):
             _plain("rmsnorm_bwd")
             dx, dw = ref.rmsnorm_bwd_ref(x, w, dy, ctx.eps)
@@ -128,6 +154,10 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
+        if _fake(q, k, v, do):
+            charge("flash_attention_bwd", q, k, v)
+            return (torch.empty_like(q), torch.empty_like(k),
+                    torch.empty_like(v), None, None, None)
         if _on_cpu(q, k, v, do):
             _plain("flash_attention_bwd")
             grads = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,

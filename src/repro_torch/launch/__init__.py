@@ -1,1 +1,1 @@
-"""launch — command-line drivers."""
+"""launch — command-line drivers, the production mesh and the dry-run."""

@@ -29,7 +29,7 @@ from __future__ import annotations
 import itertools
 import math
 from dataclasses import dataclass
-from typing import Callable, Dict, Iterator, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -37,8 +37,8 @@ from torch.distributed.tensor import DTensor
 
 from ..configs.base import ArchConfig
 from ..device import DeviceLike, resolve_device
-from ..parallel.sharding import (NamedSharding, annotate, current_rules,
-                                 distribute, on_shards, pick_rule,
+from ..parallel.sharding import (annotate, current_rules, local_shape,
+                                 on_shards, pick_rule, placements,
                                  replicate_like, rows_at_rule, take_rule,
                                  write_block)
 from . import layers as L
@@ -363,6 +363,15 @@ def _rows_at(x, at):
     return _rows_at_local(x, at)
 
 
+@dataclass(frozen=True)
+class _Leaf:
+    """A cache leaf to make: its shape, dtype and fill."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    fill: float
+
+
 def map_cache(fn: Callable, *trees):
     """``fn`` over the leaves of cache trees of one structure (nested
     tuples of tensors); returns the results in that structure."""
@@ -427,16 +436,18 @@ class Model:
 
     # -- layers ---------------------------------------------------------------
 
-    def _layers(self, params) -> Iterator[Tuple[int, int, dict, dict]]:
+    def _layers(self, params, n_periods: Optional[int] = None
+                ) -> Iterator[Tuple[int, int, dict, dict]]:
         """Per layer, periods then positions: (period j, position i, mixer
         params, ffn params), views of position i's stacks at period j.
         Each stack is unbound once, so that a backward stacks its
         per-layer gradients in one pass (a view taken a layer at a time
         would fill and add a zero tensor the size of the whole stack for
-        each layer)."""
+        each layer).  ``n_periods``: the stacks' length (default the
+        configuration's; a pipeline stage holds fewer)."""
         views = [{k: v.unbind(0) for k, v in params[f"pos{i}"].items()}
                  for i in range(self.cfg.period)]
-        for j in range(self.cfg.n_periods):
+        for j in range(n_periods or self.cfg.n_periods):
             for i, stack in enumerate(views):
                 yield (j, i,
                        {k[4:]: v[j] for k, v in stack.items()
@@ -509,20 +520,27 @@ class Model:
         """Embedding, the periods, the final norm.  Without a cache each
         period runs under ``knobs.remat`` (``remat.run``: checkpointed
         only where autograd records it)."""
-        cfg = self.cfg
         x = self._embed(params, batch)
-        positions = torch.arange(x.shape[1], device=x.device)
         caches = [] if with_cache else None
-        for _, period in itertools.groupby(self._layers(params),
+        x = self._periods(params, x, caches=caches)
+        x = L.rms_norm(x, params["final"]["ln"], self.cfg.norm_eps)
+        return x, caches
+
+    def _periods(self, params, x, n_periods: Optional[int] = None,
+                 caches=None):
+        """The stacks' periods over x (the reference's scan of
+        ``_period_body_fwd``); without a cache each period runs under
+        ``knobs.remat``."""
+        positions = torch.arange(x.shape[1], device=x.device)
+        for _, period in itertools.groupby(self._layers(params, n_periods),
                                            key=lambda layer: layer[0]):
             layers = [(i, p, pf) for _, i, p, pf in period]
-            if with_cache:
+            if caches is not None:
                 x = self._period(x, layers, positions, caches)
             else:
                 x = R.run(self.knobs.remat, self._period, x, layers,
                           positions)
-        x = L.rms_norm(x, params["final"]["ln"], cfg.norm_eps)
-        return x, caches
+        return x
 
     def forward(self, params, batch, *, with_cache=False):
         x, caches = self._backbone(params, batch, with_cache=with_cache)
@@ -535,8 +553,11 @@ class Model:
         text tail ``logits[:, -S_labels:]``; with codebooks logits (B, S,
         ncb, V) against labels (B, S, ncb).  A gather takes the
         reference's one-hot product."""
-        logits = self.forward(params, batch)
-        labels = batch["labels"].long()
+        return self._ce(self.forward(params, batch), batch["labels"])
+
+    def _ce(self, logits, labels):
+        """``loss``'s mean cross-entropy of the logits against the labels."""
+        labels = labels.long()
         if self.cfg.n_patches:
             # labels align with the text tail of the concatenated sequence
             logits = logits[:, -labels.shape[1]:]
@@ -571,21 +592,30 @@ class Model:
                 axes.append((("layers", "batch", None),) * 4)
         return tuple(axes)
 
-    def place_cache(self, cache, rules):
-        """A cache that every rank holds whole, as DTensors placed by the
-        specs of ``cache_axes`` (each rank keeps its slice; the reference's
-        decode cell places its cache so, ``launch/cells.py``)."""
-        return map_cache(lambda t, ax: distribute(t, NamedSharding(
-            rules.mesh, rules.spec(*ax, dims=t.shape))),
-            cache, self.cache_axes())
-
-    def init_cache(self, batch_size: int, s_max: int):
+    def init_cache(self, batch_size: int, s_max: int, rules=None):
+        """The zero cache (mLSTM's and sLSTM's m at -1e30).  With ``rules``
+        (a mesh), each leaf is a DTensor placed by the spec of its
+        ``cache_axes`` entry, and each rank allocates only its own shard:
+        no rank holds the whole cache (the reference's decode cell places
+        its cache so, ``launch/cells.py``)."""
         cfg = self.cfg
         f32 = torch.float32
 
         def full(*shape, dtype=self.knobs.compute_dtype, fill=0.0):
-            return torch.full((cfg.n_periods, batch_size) + shape, fill,
-                              dtype=dtype, device=self.device)
+            return _Leaf((cfg.n_periods, batch_size) + shape, dtype, fill)
+
+        def make(leaf, ax):
+            if isinstance(leaf, tuple):
+                return tuple(make(a, b) for a, b in zip(leaf, ax))
+            if rules is None or rules.mesh is None:
+                return torch.full(leaf.shape, leaf.fill, dtype=leaf.dtype,
+                                  device=self.device)
+            pl = placements(rules.spec(*ax, dims=leaf.shape), rules.mesh)
+            return DTensor.from_local(
+                torch.full(local_shape(leaf.shape, rules.mesh, pl),
+                           leaf.fill, dtype=leaf.dtype,
+                           device=self.device), rules.mesh, pl,
+                run_check=False)
 
         di, nh, D = cfg.d_inner, cfg.n_heads, cfg.d_model
         out = []
@@ -609,7 +639,7 @@ class Model:
                 out.append((full(D, dtype=f32), full(D, dtype=f32),
                             full(D, dtype=f32),
                             full(nh, dtype=f32, fill=-1e30)))
-        return tuple(out)
+        return make(tuple(out), self.cache_axes())
 
     def prefill(self, params, batch, s_max: int, logits_at=None):
         """Run the full prompt, build an s_max-capacity cache.
@@ -627,9 +657,8 @@ class Model:
         if logits_at is None:
             logits_at = torch.full((B,), S_ - 1, device=x.device)
         logits = self._head(params, _rows_at(x, logits_at.long()))[:, 0]
-        cache = self.init_cache(B, max(S_, s_max))
-        if isinstance(x, DTensor):
-            cache = self.place_cache(cache, current_rules())
+        cache = self.init_cache(B, max(S_, s_max), rules=(
+            current_rules() if isinstance(x, DTensor) else None))
         for (j, i, _, _), c in zip(self._layers(params), caches):
             self._store(cache, j, i, c)
         return logits, cache, S_

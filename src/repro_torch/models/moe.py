@@ -33,7 +33,7 @@ per expert (gate, up, down), so 3E expert launches a layer whatever the
 dispatch and the regime (under tp each rank runs its E / n experts; the
 reference's extra expert of zero weights, which takes the pairs routed to
 other ranks, is not run: its rows are zero times a zero gate).  Argsort,
-bincount, cumsum and the index writes are plain tensor code, as they are
+the counts, cumsum and the index writes are plain tensor code, as they are
 plain ``jnp`` in JAX.  Two choices keep the card's result a fixed function
 of its inputs: the argsort is stable (as ``jnp.argsort`` is), so the card
 drops the same pairs as JAX; and the combine un-permutes the pairs and
@@ -164,8 +164,11 @@ def _plan(idx, n_exp: int, cap: int):
     fidx = idx.reshape(tk)
     order = torch.argsort(fidx, stable=True)
     se = fidx[order]
-    # position within expert: running index minus the expert's start
-    counts = torch.bincount(fidx, minlength=n_exp)
+    # position within expert: running index minus the expert's start (the
+    # counts by a scatter, whose shape does not depend on the indices, as
+    # bincount's does: the dry-run traces this on fake tensors)
+    counts = torch.zeros(n_exp, dtype=fidx.dtype, device=fidx.device) \
+        .scatter_add_(0, fidx, torch.ones_like(fidx))
     starts = torch.cumsum(counts, 0) - counts
     pos = torch.arange(tk, device=idx.device) - starts[se]
     return order, se * cap + pos, pos < cap

@@ -1,6 +1,5 @@
 """parallel -- mesh/sharding rules, the int8 gradient round trip, error
-feedback and the int8 ring all-reduce (the pipeline waits for multi-GPU
-slice d)."""
+feedback, the int8 ring all-reduce and the GPipe pipeline over 'pod'."""
 
 from .sharding import (RULE_VARIANTS, ShardingRules, annotate, axis_rules,
                        current_rules, logical_spec, make_rules)

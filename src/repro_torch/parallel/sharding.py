@@ -288,6 +288,21 @@ def placements(spec: Sequence[MeshAxes], mesh) -> Tuple[Placement, ...]:
     return tuple(out)
 
 
+def local_shape(shape: Sequence[int], mesh, pl) -> Tuple[int, ...]:
+    """A rank's shard shape of a tensor of ``shape`` under placements
+    ``pl`` on ``mesh``, whose sharded dims split evenly (as the rules'
+    divisibility fallback leaves them)."""
+    out = list(shape)
+    for i, p in enumerate(pl):
+        if p.is_shard():
+            n = mesh.size(i)
+            if out[p.dim] % n:
+                raise ValueError(f"dim {p.dim} of {tuple(shape)} does not "
+                                 f"split evenly over mesh dim {i}")
+            out[p.dim] //= n
+    return tuple(out)
+
+
 def merge_spec(spec: Sequence[MeshAxes], src_shape: Sequence[int],
                dst_shape: Sequence[int]) -> PartitionSpec:
     """A spec for ``src_shape`` mapped onto ``dst_shape``, whose every dim

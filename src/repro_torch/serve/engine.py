@@ -96,12 +96,10 @@ class Engine:
         self.rules = rules if rules is not None and rules.mesh is not None \
             else None
         B = sc.batch_size
-        with axis_rules(self.rules):
-            self.cache = model.init_cache(B, sc.s_max)
+        self.cache = model.init_cache(B, sc.s_max, rules=self.rules)
         if self.rules is not None:
             from ..train.step import param_shardings
             params = place(params, param_shardings(model, self.rules))
-            self.cache = model.place_cache(self.cache, self.rules)
         self.params = params
         self.lengths = np.zeros(B, np.int64)         # per-slot position
         self.budget = np.zeros(B, np.int64)

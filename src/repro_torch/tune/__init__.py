@@ -6,12 +6,16 @@ port's LM framework on the card.
 with concrete input shapes); ``selective.SelectiveTimer`` (a verbatim copy
 of ``repro.tune.selective``) applies the paper's confidence-interval
 machinery to real wall-clock samples, skipping kernels once predictable.
-Front-ended by ``repro_torch.api.AutotuneSession`` (``LMStudy.session``,
-``LMStudy.race``).
+``dryrun_search`` (production mesh, modeled): configurations are ranked by
+the three-term roofline of their dry-run (the step traced on fake tensors
+over a fake mesh, against an H100's peaks).  Front-ended by
+``repro_torch.api.AutotuneSession`` (``LMStudy.session``, ``LMStudy.race``;
+``DryRunBackend`` wraps ``dryrun_search.evaluate_point``).
 """
 
 from .selective import SelectiveTimer, TimerReport
 from .lm_study import LMStudy, StepKnobs, lm_config_space
+from .dryrun_search import dryrun_search
 
 __all__ = ["SelectiveTimer", "TimerReport", "LMStudy", "StepKnobs",
-           "lm_config_space"]
+           "lm_config_space", "dryrun_search"]

@@ -33,9 +33,10 @@ COPIES = ["core/signatures.py", "core/stats.py", "core/policies.py",
 # ``python -m repro_torch.api.worker``, not the JAX package's worker
 MODULE_STRING_COPIES = ["api/supervisor.py"]
 BACKEND_CLASSES = ["Measurement", "BackendRun", "Backend", "SimBackend",
-                   "SimRun", "WallClockBackend", "WallClockRun"]
+                   "SimRun", "WallClockBackend", "WallClockRun",
+                   "DryRunBackend", "DryRunRun", "dryrun_space"]
 # what the port still leaves out of repro.api
-NOT_PORTED = {"DryRunBackend", "dryrun_space"}
+NOT_PORTED = set()
 # a string constant naming a module of the JAX package ("repro.api.worker",
 # "repro.linalg.studies:search_space")
 MODULE_PATH = re.compile(r"repro(\.[A-Za-z_]\w*)+(:[A-Za-z_]\w*)?")
@@ -147,14 +148,17 @@ def test_backend_subset_class_equals_original(name):
 
 
 def test_backend_subset_leaves_out_the_simulator_backends():
-    """The dry-run backend (HLO lowering) is the part of ``backends`` the
-    port leaves out; the simulator's ``SimBackend`` is ported."""
+    """Every backend of ``backends`` is ported, the dry-run's too (its
+    ``DryRunBackend``, ``DryRunRun`` and ``dryrun_space``), and
+    ``repro_torch.api`` exports each of them but the runs, as
+    ``repro.api`` does."""
     import repro_torch.api as api
     import repro_torch.api.backends as port_backends
     for name in ("DryRunBackend", "DryRunRun", "dryrun_space"):
-        assert not hasattr(port_backends, name)
-        assert not hasattr(api, name)
-    assert set(BACKEND_CLASSES) - {"SimRun"} <= set(api.__all__)
+        assert hasattr(port_backends, name)
+    assert {"DryRunBackend", "dryrun_space"} <= set(api.__all__)
+    assert set(BACKEND_CLASSES) - {"SimRun", "DryRunRun"} <= set(
+        api.__all__)
 
 
 @pytest.mark.parametrize("package", ["core", "api", "simmpi", "linalg",

@@ -1844,3 +1844,79 @@ def test_engine_under_rules_on_a_world1_nccl_mesh(world1_mesh, arch):
         make_rules("cp").with_mesh(world1_mesh)))
     assert got == want and l2 == l1
     assert not any(p1.values()) and not any(p2.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["matmul", "rmsnorm", "flash_attention"])
+def test_cuda_tensors_never_take_the_fake_branch(cuda_device, op):
+    """The dry-run's branch of ``ops`` is for fake tensors only: on CUDA
+    tensors each op launches its kernel, forward and backward, and
+    charges nothing to an active collector."""
+    from repro_torch.kernels.cost import charging
+    g = torch.Generator(device="cuda").manual_seed(5)
+
+    def rnd(*shape):
+        return torch.randn(shape, device="cuda", generator=g) \
+            .requires_grad_(True)
+    args = {"matmul": (rnd(64, 96), rnd(96, 32)),
+            "rmsnorm": (rnd(8, 128), rnd(128)),
+            "flash_attention": (rnd(2, 64, 4, 32), rnd(2, 64, 2, 32),
+                                rnd(2, 64, 2, 32))}[op]
+    fn = getattr(ops, op)
+    l0 = dict(ops.launches)
+    with charging() as c:
+        out = fn(*args)
+        torch.autograd.grad(out.sum(), args)
+    torch.cuda.synchronize()
+    assert c.calls == {}
+    launched = {k: ops.launches[k] - l0[k] for k in l0}
+    assert launched[op] >= 1
+    assert launched.get(op + "_bwd", launched["matmul"]) >= 1
+
+
+@pytest.fixture
+def world1_pod_mesh(cuda_device):
+    """A (1, 1, 1) (pod, data, model) mesh of a world-1 NCCL group,
+    destroyed after the test."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        yield make_host_mesh(1, pod=1, device_type="cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_pipeline_pod1_on_the_card_equals_model_loss(world1_pod_mesh):
+    """``pipeline_loss`` at pod 1 on the card: reduced smollm-135m, 8 x 32
+    tokens in 4 microbatches, against ``Model.loss`` on the whole batch
+    (the reference test's rtol 2e-3; gradients rtol 5e-3 / atol 1e-4), no
+    plain call."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model, ModelKnobs
+    from repro_torch.parallel.pipeline import pipeline_loss, place_pipeline
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.train.optim import tree_leaves
+    from repro_torch.train.step import loss_and_grads
+    cfg = get_config("smollm-135m", reduced=True)
+    model = Model(cfg, ModelKnobs(kv_chunk=16, ssm_chunk=8), device="cuda")
+    g = torch.Generator().manual_seed(0)
+    params = model.init(g)
+    batch = {k: torch.randint(0, cfg.vocab, (8, 32), generator=g)
+             for k in ("tokens", "labels")}
+    rules = make_rules("cp").with_mesh(world1_pod_mesh)
+    placed = place_pipeline(model, params, rules)
+    leaves = [v.detach().requires_grad_(True) for v in tree_leaves(placed)]
+    it = iter(leaves)
+    tree = {k: {n: next(it) for n in sub} for k, sub in placed.items()}
+    p0 = dict(ops.plain_calls)
+    loss = pipeline_loss(model, rules, tree, batch, n_mb=4)
+    grads = [t.full_tensor() for t in torch.autograd.grad(loss, leaves)]
+    assert ops.plain_calls == p0
+    want, want_g = loss_and_grads(model, params, {
+        k: v.cuda() for k, v in batch.items()})
+    np.testing.assert_allclose(float(loss), float(want), rtol=2e-3)
+    for a, b in zip(grads, tree_leaves(want_g)):
+        np.testing.assert_allclose(_np(a), _np(b), rtol=5e-3, atol=1e-4)
