@@ -46,7 +46,18 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               version and library call (SDPA's and F.rms_norm's backward
               by autograd, torch.matmul); then one full-width attn_fb,
               dense_fb and embed_loss_fb gradient of the study on the
-              card against the port's CPU run;
+              card against the port's CPU run; then "offsets": the flash
+              forward and backward at query offsets, a causal sequence
+              split into 4 shards of queries as cp on a model axis of 4
+              splits it ([train]'s microbatch 4 x 128 in f32 and bf16, a
+              2048-token prompt in bf16; (64, 64) over 9/3 heads, (192,
+              128) over 128/128, (24, 16) over 4/4): each shard against
+              its plain version at its offset and against the whole
+              call's rows, the shards' dk and dv summed against the whole
+              call's, dk and dv past a shard's last position exactly 0;
+              each shard's and the whole call's device ms beside its bound
+              (its own bytes and pairs), plain version and SDPA on the K/V
+              prefix with a lower-right causal mask;
 6. tune    -- LMStudy("smollm-135m", reduced=False, batch=2, seq=32) on
               the card: a 12-point conditional session (tolerance 0.25,
               trials 3) and a race, with the launch counters zeroed just
@@ -191,8 +202,9 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               plain call; the matmul launches a call, where ssm 8's
               per-chunk recompute shows) against the port's CPU run, then
               timed warm (least of 5, host clock) beside its bound; (c)
-              LMStudy("xlstm-125m", reduced=False) as a 24-point
-              conditional session (tolerance 0.25, trials 3), the counters
+              LMStudy("xlstm-125m", reduced=False), its depth cut to 3 of
+              its 6 periods (6 of 12 layers), as a 24-point conditional
+              session (tolerance 0.25, trials 1), the counters
               zeroed around it: per point predicted and full ms, the
               chosen point and its ssm_chunk, the true best, speedup and
               optimum quality; (d) the reduced jamba study's 48 points,
@@ -296,7 +308,10 @@ Phases (any failure raises and exits non-zero; no phase catches and goes on):
               [train]'s measured device busy ms.
 
 The kernels line gives each kernel's launches in every phase, the sharded
-runs' as ``launches_sharded``, the pipeline's as ``launches_pipeline``.  It prints the kernels as one JSON line, then
+runs' as ``launches_sharded``, the pipeline's as ``launches_pipeline``,
+and the two flash kernels once more "at q_offset": the offset rows
+(``offset_rows``), the last shard of [train]'s microbatch at f32 (64, 64)
+as the entry's numbers.  It prints the kernels as one JSON line, then
 the last line
 ``{"ok": true, "device": {...}}``.  ``--out PATH`` also writes the full
 tables (every case, the serve and profile numbers) as JSON.  It exits
@@ -1358,6 +1373,182 @@ def phase_grads(cfg):
         ("embed_loss_fb", lambda st: st._embed_loss_kernel(
             StepKnobs("k"), 2))))
     return rows, checks
+
+
+# -- the query offset: shards of a split sequence -----------------------------
+
+# (label, heads, KV heads, dk, dv, MLA's scale?): smollm-135m's attention,
+# deepseek-v2's at its published widths and at its reduced configuration's
+OFFSET_PAIRS = (("H9/3 d64", 9, 3, 64, 64, False),
+                ("H128/128 (192, 128)", 128, 128, 192, 128, True),
+                ("H4/4 (24, 16)", 4, 4, 24, 16, True))
+# (label, B, S, shards, dtypes, timed dtypes): [train]'s microbatch (4 x
+# 128) and the long prompt, each split into 4 shards of queries as cp on a
+# model axis of 4 splits them; the bf16 microbatch is checked, not timed
+# (the script's time)
+OFFSET_SHAPES = (("train mb 4x128", 4, 128, 4,
+                  (torch.float32, torch.bfloat16), (torch.float32,)),
+                 ("long B1 S2048", 1, 2048, 4, (torch.bfloat16,),
+                  (torch.bfloat16,)))
+
+
+def sdpa_prefix(q, k, v, off, scale):
+    """SDPA on the K/V prefix [0, off + Sq) with a lower-right causal mask
+    (query i at key position off + i): the function of the flash kernels
+    at q_offset off, as one PyTorch call (a yardstick only); q, k, v in
+    SDPA's (B, heads, S, d) layout, the KV heads expanded."""
+    from torch.nn.attention.bias import causal_lower_right
+    end = off + q.shape[2]
+    mask = causal_lower_right(q.shape[2], end)
+    return F.scaled_dot_product_attention(q, k[:, :, :end], v[:, :, :end],
+                                          attn_mask=mask, scale=scale)
+
+
+def offset_case(label, pair, shape, dtype, gen, timed=True):
+    """A causal sequence split into shards of queries, each run against all
+    its keys at its offset r S / m, forward and backward, on the kernels:
+    each against its plain version at the offset, its output, lse and dq
+    against the same rows of the whole call's, the shards' dk and dv summed
+    against the whole call's, dk and dv past the shard's last position
+    exactly 0; with ``timed``, each shard's and the whole call's device ms
+    beside its bound (the shard's own bytes and pairs), its plain version
+    and SDPA on the K/V prefix with a lower-right causal mask (forward;
+    its backward by autograd)."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    _, H, KVH, dk, dv, mla = pair
+    B, S, m = shape[1:4]
+    dn = str(dtype).split(".")[1]
+    scale = 1.0 / math.sqrt(dk) if mla else None
+    q, k, v = flash_case(B, S, S, H, KVH, dk, dtype, gen, dv)
+    do = randn((B, S, H, dv), dtype, 1.0, gen)
+    o, lse = flash_attention_cuda(q, k, v, with_lse=True, scale=scale)
+    dq, dkw, dvw = flash_attention_bwd_cuda(q, k, v, o, lse, do, scale=scale)
+    G = H // KVH
+    lay = lambda t: t.transpose(1, 2).contiguous()  # noqa: E731
+    lq, ldo = lay(q), lay(do)
+    lk = lay(k.repeat_interleave(G, 2))
+    lv = lay(v.repeat_interleave(G, 2))
+    ftol = TOL["flash_attention"][dn]
+
+    def gtol(w):
+        if dtype == torch.float32:
+            return GRAD_TOL
+        rtol, arel = GRAD_TOL_BF16
+        return rtol, arel * float(w.float().abs().max())
+
+    def ms(fn, reps=10):
+        # 30 timed rows of 6 timings each: fewer repeats than [kernels]'
+        return time_ms(fn, reps=reps, trials=2)[0]
+    n = S // m
+    sum_dk = torch.zeros(dkw.shape, dtype=torch.float32, device="cuda")
+    sum_dv = torch.zeros(dvw.shape, dtype=torch.float32, device="cuda")
+    rows = []
+    for r in range(m + 1):
+        whole = r == m
+        off, sl = (0, slice(0, S)) if whole else (r * n, slice(r * n,
+                                                              (r + 1) * n))
+        qs, dos = q[:, sl], do[:, sl]
+        # the whole call takes the default offset, a shard its own
+        kw = {} if whole else {"q_offset": off}
+        what = f"{label} whole" if whole else \
+            f"{label} shard {r}/{m} (offset {off})"
+        os_, ls = flash_attention_cuda(qs, k, v, with_lse=True, scale=scale,
+                                       **kw)
+        want_o, want_l = ref.flash_attention_ref(qs, k, v, return_lse=True,
+                                                 scale=scale, **kw)
+        err = check_close(what, os_, want_o, dn, ftol)
+        check_close(what + " lse", ls, want_l, "float32", (1e-4, 1e-4))
+        grads = flash_attention_bwd_cuda(qs, k, v, os_, ls, dos, scale=scale,
+                                         **kw)
+        want_g = ref.flash_attention_bwd_ref(qs, k, v, os_, ls, dos,
+                                             scale=scale, **kw)
+        gerr = max(check_close(what, g, w, dn, gtol(w))
+                   for g, w in zip(grads, want_g))
+        if not whole:
+            # the same rows of the whole call's
+            check_close(what + " vs whole", os_, o[:, sl], dn, ftol)
+            check_close(what + " dq vs whole", grads[0], dq[:, sl], dn,
+                        gtol(dq))
+            if grads[1][:, off + n:].any() or grads[2][:, off + n:].any():
+                raise AssertionError(f"{what}: dk/dv past the shard's last "
+                                     f"position are not 0")
+            sum_dk += grads[1].float()
+            sum_dv += grads[2].float()
+        args = (qs, k, v)
+        fb, ff = kernel_cost("flash_attention", args, off if kw else None)
+        bb, bf = kernel_cost("flash_attention_bwd", args,
+                             off if kw else None)
+        row = {"kernel": "flash_attention", "shape": what, "dtype": dn,
+               "pair": [dk, dv], "heads": [H, KVH], "q_offset": off,
+               "Sq": n if not whole else S, "Skv": S,
+               "pairs": B * H * causal_pairs(qs.shape[1], S, off if kw
+                                             else None),
+               "max_abs_err": err, "bwd_max_abs_err": gerr}
+        row["bound_ms"], row["bound_by"] = bound(fb, ff, dn)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = bound(bb, bf, dn)
+        rows.append(row)
+        if not timed:
+            for f in ("ms", "plain_ms", "library_ms"):
+                row[f] = row["bwd_" + f] = None
+            print(f"[offsets] {what:44s} {dn} err {err:.2e} / {gerr:.2e} "
+                  f"(checked, not timed);  pairs {row['pairs']}")
+            continue
+        row["ms"] = ms(lambda: flash_attention_cuda(qs, k, v, scale=scale,
+                                                    **kw))
+        row["plain_ms"] = ms(lambda: ref.flash_attention_ref(
+            qs, k, v, scale=scale, **kw), reps=5)
+        lqs = lq[:, :, sl]
+        row["library_ms"] = ms(lambda: sdpa_prefix(lqs, lk, lv, off, scale))
+        row["bwd_ms"] = ms(lambda: flash_attention_bwd_cuda(
+            qs, k, v, os_, ls, dos, scale=scale, **kw))
+        row["bwd_plain_ms"] = ms(lambda: ref.flash_attention_bwd_ref(
+            qs, k, v, os_, ls, dos, scale=scale, **kw), reps=5)
+        aq, ak, av = (t.detach().clone().requires_grad_()
+                      for t in (lqs, lk, lv))
+        ao = sdpa_prefix(aq, ak, av, off, scale)
+        ag = ldo[:, :, sl]
+        row["bwd_library_ms"] = ms(lambda: torch.autograd.grad(
+            ao, (aq, ak, av), ag, retain_graph=True))
+        print(f"[offsets] {what:44s} {dn} err {err:.2e} / {gerr:.2e}  "
+              f"device ms: forward {row['ms']:.4f} plain "
+              f"{row['plain_ms']:.4f} library {row['library_ms']:.4f} bound "
+              f"{row['bound_ms']:.5f} ({row['bound_by']});  backward "
+              f"{row['bwd_ms']:.4f} plain {row['bwd_plain_ms']:.4f} library "
+              f"{row['bwd_library_ms']:.4f} bound {row['bwd_bound_ms']:.5f} "
+              f"({row['bwd_bound_by']});  pairs {row['pairs']}")
+        del aq, ak, av, ao
+    check_close(f"{label} sum of the shards' dk", sum_dk, dkw, dn, gtol(dkw))
+    check_close(f"{label} sum of the shards' dv", sum_dv, dvw, dn, gtol(dvw))
+    return rows
+
+
+def phase_offsets():
+    """The flash kernels at the query offsets of a sequence split over a
+    model axis of 4 (``offset_case``), at each of ``OFFSET_PAIRS`` and
+    ``OFFSET_SHAPES``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(9)
+    rows = []
+    for shape in OFFSET_SHAPES:
+        for pair in OFFSET_PAIRS:
+            for dt in shape[4]:
+                rows += offset_case(f"{shape[0]} {pair[0]}", pair, shape, dt,
+                                    gen, timed=dt in shape[5])
+                torch.cuda.empty_cache()
+    for shape in OFFSET_SHAPES:
+        last = [r for r in rows if r["shape"].startswith(shape[0])
+                and "shard" in r["shape"]]
+        m = shape[3]
+        print(f"[offsets] {shape[0]}: the last shard sees "
+              f"{last[m - 1]['pairs'] / sum(r['pairs'] for r in last[:m]):.4f}"
+              f" of the pairs ((2m - 1) / m^2 = {(2 * m - 1) / m ** 2:.4f} "
+              f"for m {m}), the first "
+              f"{last[0]['pairs'] / sum(r['pairs'] for r in last[:m]):.4f}")
+    print(f"[offsets] {len(rows)} rows agree: each shard with its plain "
+          f"version and the whole call's rows, the shards' dk/dv sums with "
+          f"the whole call's, dk/dv past each shard's last position 0")
+    return rows
 
 
 def study_grads_vs_cpu(tag, batch, seq, kinds):
@@ -2717,6 +2908,15 @@ def study_session(tag, study, bwd_pairs=None, trials: int = 3):
     return res, launches, wall
 
 
+def cut_periods(study, periods: int) -> None:
+    """Cut a study's depth to ``periods`` periods of its layer pattern, its
+    per-period weights to match."""
+    study.cfg = replace(study.cfg, n_layers=periods * study.cfg.period)
+    study.params = {g: {k: v[:periods] for k, v in sub.items()}
+                    if g.startswith("pos") else sub
+                    for g, sub in study.params.items()}
+
+
 def phase_family_study(tag, arch, mixers, bwd_pairs=None, periods=None,
                        trials: int = 3):
     """(d) A reduced family's study on the card, a protocol check
@@ -2732,10 +2932,7 @@ def phase_family_study(tag, arch, mixers, bwd_pairs=None, periods=None,
     study = LMStudy(arch, **STUDY)
     depth = study.cfg.n_layers
     if periods is not None:
-        study.cfg = replace(study.cfg, n_layers=periods * study.cfg.period)
-        study.params = {g: {k: v[:periods] for k, v in sub.items()}
-                        if g.startswith("pos") else sub
-                        for g, sub in study.params.items()}
+        cut_periods(study, periods)
     res, launches, wall = study_session(tag, study, bwd_pairs, trials)
     sigs = {"sort": set(), "dense": set()}
     for kn in lm_config_space(study.cfg):
@@ -3456,6 +3653,7 @@ def phase_ssm():
 # -- phase 14: the SSM families' study (xlstm-125m, jamba) ---------------------
 
 SSM_KNOBS = tuple((ssm, remat) for ssm in (8, 32) for remat in ("none", "full"))
+SSM_STUDY_PERIODS = 3      # of xlstm-125m's 6 (mLSTM, sLSTM) periods
 # the kernels an SSM mixer's gradient launches (no attention)
 SSM_FB_PATH = ("matmul", "rmsnorm", "rmsnorm_bwd")
 
@@ -3559,7 +3757,8 @@ def phase_ssm_study(reduced=False, device="cuda"):
     """(a) xlstm-125m's full-width ``mlstm_fb`` (layer 0) and
     ``slstm_fb`` (layer 1) and (b) one full-width jamba Mamba layer's
     ``mamba_fb`` (``ssm_thunks``); (c) ``LMStudy("xlstm-125m",
-    reduced=False)`` as a 24-point conditional session on the card; (d)
+    reduced=False)``, its depth cut to ``SSM_STUDY_PERIODS`` periods, as a
+    24-point conditional session on the card, one selective run a point; (d)
     the reduced jamba study's 48 points as a protocol check, its depth
     cut to one period (8 of its 16 layers)."""
     from repro_torch.configs import get_config
@@ -3587,8 +3786,12 @@ def phase_ssm_study(reduced=False, device="cuda"):
         ("mamba", p, {n: t.cpu() for n, t in p.items()})])
     del p
     torch.cuda.empty_cache()
-    # (c) the full-width xlstm-125m study
-    res, launches, wall = study_session("ssm-study", study)
+    # (c) the full-width xlstm-125m study, its depth cut to
+    # SSM_STUDY_PERIODS of its 6 periods and one selective run a point
+    # after its reference (the script's time)
+    depth = study.cfg.n_layers
+    cut_periods(study, min(SSM_STUDY_PERIODS, depth // study.cfg.period))
+    res, launches, wall = study_session("ssm-study", study, trials=1)
     knobs = {k.name: k for k in lm_config_space(xcfg)}
     for r in res.records:
         print(f"[ssm-study] {r.name:26s} predicted {1e3 * r.predicted:9.3f} "
@@ -3597,8 +3800,9 @@ def phase_ssm_study(reduced=False, device="cuda"):
               f"{r.skipped:5d}")
     chunk = {w: knobs[getattr(res, w).name].ssm_chunk
              for w in ("chosen", "true_best")}
-    print(f"[ssm-study] study (full-width xlstm-125m, {len(res.records)} "
-          f"points, conditional 0.25, trials 3): chosen {res.chosen.name} "
+    print(f"[ssm-study] study (full-width xlstm-125m, "
+          f"{study.cfg.n_layers} of {depth} layers, {len(res.records)} "
+          f"points, conditional 0.25, trials 1): chosen {res.chosen.name} "
           f"(ssm_chunk {chunk['chosen']}) true best {res.true_best.name} "
           f"(ssm_chunk {chunk['true_best']}); optimum quality "
           f"{res.optimum_quality:.4f}; speedup {res.speedup:.3f}x (full "
@@ -4964,6 +5168,25 @@ def start_dryrun(tmp: Path, argv=None):
     return proc, res, log
 
 
+def attention_charge(rec) -> str:
+    """A cell record's flash charges: flops a device, forward and backward,
+    and the collectives by kind.  A rank that holds a shard of the queries
+    is charged the last shard's pairs (``ops.flash_attention`` on fake
+    tensors): the heaviest rank of the model axis, which the step waits
+    on."""
+    k = rec["kernels"]
+    fl = {n: k[n]["flops"] for n in ("flash_attention", "flash_attention_bwd")
+          if n in k}
+    coll = ", ".join(f"{kind} {b:.4e}" for kind, b in sorted(
+        rec["collectives"]["by_kind"].items()))
+    return (" + ".join(f"{n} {f:.4e}" for n, f in fl.items())
+            + f" = {sum(fl.values()):.4e} flops a device, charged at the "
+            f"heaviest rank's query offset (the last shard of the model "
+            f"axis); collectives by kind (B): {coll}"
+            if fl else f"none (no flash call); collectives by kind (B): "
+            f"{coll}")
+
+
 def finish_dryrun(started, train=None, limit_s: float = 1150):
     """Wait for the dry-run's process (until ``limit_s`` after the script's
     start) and print its cells, and its score of [train]'s step beside
@@ -5000,7 +5223,8 @@ def finish_dryrun(started, train=None, limit_s: float = 1150):
               f"{m['peak_bytes'] / gb:.3f} GiB (args "
               f"{m['argument_bytes'] / gb:.3f}), fits: {m['fits']}; trace "
               f"{rec['trace_s']:.1f} s; useful-flops ratio "
-              f"{rec['useful_flops_ratio']:.3f}")
+              f"{rec['useful_flops_ratio']:.3f}; attention "
+              + attention_charge(rec))
     tr = got["train"]
     r = tr["roofline"]
     f32_ms = 1e3 * r["flops_per_dev"] / PEAK_FLOPS["float32"]
@@ -5018,6 +5242,40 @@ def finish_dryrun(started, train=None, limit_s: float = 1150):
                              f"{got['launches']} / called plain versions "
                              f"{got['plain_calls']}")
     return dict(got, train_busy_ms=busy, train_f32_compute_ms=f32_ms)
+
+
+def offset_entries(kernels, offset_rows):
+    """The kernels line's entries of the two flash kernels at a query
+    offset (the [offsets] rows): one each, its numbers the last shard's of
+    [train]'s microbatch at f32 (64, 64), its launches the kernel's own
+    (one counter a kernel), every row beside."""
+    rep = next(r for r in offset_rows if r["dtype"] == "float32"
+               and r["pair"] == [64, 64] and "shard 3/4" in r["shape"])
+    base = {k["name"]: k for k in kernels}
+    out = []
+    for name, pre in (("flash_attention", ""), ("flash_attention_bwd",
+                                                "bwd_")):
+        entry = {f: base[name][f] for f in (
+            "route", "source", "launches", "launches_train",
+            "launches_sharded")}
+        entry.update({
+            "name": f"{name} at q_offset",
+            "replaces": "src/repro/kernels/flash_attention.py:47 (the "
+                        "Pallas kernel's q_offset, :31)",
+            "shape": rep["shape"],
+            "max_abs_err": max(r[f"{pre}max_abs_err"] for r in offset_rows),
+            "ms": rep[f"{pre}ms"], "plain_ms": rep[f"{pre}plain_ms"],
+            "bound_ms": rep[f"{pre}bound_ms"],
+            "bound_by": rep[f"{pre}bound_by"],
+            "library_ms": rep[f"{pre}library_ms"],
+            "status": "the query offset ported, each shard agrees with its "
+                      "plain version and the whole call",
+            "offset_rows": [{f: r[f] for f in (
+                "shape", "dtype", "pair", "q_offset", f"{pre}max_abs_err",
+                f"{pre}ms", f"{pre}plain_ms", f"{pre}library_ms",
+                f"{pre}bound_ms", f"{pre}bound_by")} for r in offset_rows]})
+        out.append(entry)
+    return out
 
 
 def main(argv=None) -> int:
@@ -5054,6 +5312,7 @@ def main(argv=None) -> int:
     serve_stats["profile"] = timed("profile", phase_profile, cfg, params)
     del params
     grad_rows, grad_checks = timed("grads", phase_grads, cfg)
+    offset_rows = timed("offsets", phase_offsets)
     tune = timed("tune", phase_tune, cfg)
     daemon = {"shapes": timed("daemon shapes", phase_daemon_shapes),
               "parity": timed("daemon parity", phase_daemon_parity),
@@ -5157,6 +5416,7 @@ def main(argv=None) -> int:
             k["mla"] = {f: mla_bwd[f] for f in (
                 "shape", "pair", "tile", "max_abs_err", "ms", "plain_ms",
                 "bound_ms", "bound_by", "library_ms")}
+    kernels += offset_entries(kernels, offset_rows)
     if args.out is not None:
         args.out.parent.mkdir(parents=True, exist_ok=True)
         args.out.write_text(json.dumps({"card": card, "kernels": kernels,
@@ -5166,6 +5426,7 @@ def main(argv=None) -> int:
                                         "crossover": crossover,
                                         "ptxas": ptxas, "serve": serve_stats,
                                         "grads": grad_rows,
+                                        "offsets": offset_rows,
                                         "grad_checks": grad_checks,
                                         "tune": tune, "daemon": daemon,
                                         "sim": sim, "measured": measured,

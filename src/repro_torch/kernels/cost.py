@@ -36,26 +36,29 @@ CARD_NAME = "NVIDIA H100 80GB HBM3"
 CARD_MEMORY_BYTES = 85_017_493_504
 
 
-def causal_pairs(sq: int, skv: int) -> int:
-    """The (query, key) pairs a causal mask leaves visible, queries aligned
-    to the end of the keys: the sum over i < sq of skv - sq + i + 1 (at
-    least 0)."""
-    c = skv - sq + 1                # the first query's visible keys
-    if c >= 1:
-        return sq * c + sq * (sq - 1) // 2
-    n = max(0, sq - (1 - c))        # the queries that see any key
-    return n * (n + 1) // 2
+def causal_pairs(sq: int, skv: int, q_offset=None) -> int:
+    """The (query, key) pairs a causal mask leaves visible, query i at key
+    position ``q_offset`` + i (None: skv - sq + i, the queries aligned to
+    the end of the keys): the sum over i < sq of q_offset + i + 1, clamped
+    to [0, skv]."""
+    off = skv - sq if q_offset is None else q_offset
+    lo = min(sq, max(0, -off))             # rows [0, lo) see no key
+    hi = min(sq, max(lo, skv - off - 1))   # rows [hi, sq) see all skv
+    return ((hi - lo) * (off + 1) + (lo + hi - 1) * (hi - lo) // 2
+            + (sq - hi) * skv)
 
 
 def _elem(t: torch.Tensor) -> int:
     return t.element_size()
 
 
-def kernel_cost(name: str, args) -> Tuple[int, int]:
+def kernel_cost(name: str, args, q_offset=None) -> Tuple[int, int]:
     """(bytes, flops) that kernel ``name`` needs on these inputs: matmul
-    (a, b), rmsnorm (x, w), flash_attention (q, k, v) causal, and the
-    backward kernels rmsnorm_bwd (x, w) and flash_attention_bwd (q, k,
-    v)."""
+    (a, b), rmsnorm (x, w), flash_attention (q, k, v) causal with its
+    queries at ``q_offset`` (``causal_pairs``), and the backward kernels
+    rmsnorm_bwd (x, w) and flash_attention_bwd (q, k, v, ``q_offset``).
+    Attention reads k and v up to the last query's causal limit only (the
+    kernels never load a tile past it) and writes dk and dv whole."""
     if name == "matmul":
         a, b = args
         (M, K), N = a.shape, b.shape[1]
@@ -72,18 +75,21 @@ def kernel_cost(name: str, args) -> Tuple[int, int]:
             8 * x.numel()
     q, k, v = args
     B, Sq, H, dk = q.shape
-    dv = v.shape[-1]
-    pairs = B * H * causal_pairs(Sq, k.shape[1])
+    Skv, dv = k.shape[1], v.shape[-1]
+    off = Skv - Sq if q_offset is None else q_offset
+    pairs = B * H * causal_pairs(Sq, Skv, off)
+    seen = min(Skv, max(0, off + Sq))     # the keys the last query sees
     es = _elem(q)
+    qo = q.numel() + B * Sq * H * dv               # q and o (or dq and dO)
+    kv_seen = B * seen * k.shape[2] * (dk + dv)
     if name == "flash_attention":
-        return ((q.numel() + k.numel() + v.numel() + B * Sq * H * dv) * es,
-                2 * (dk + dv) * pairs)
+        return (qo + kv_seen) * es, 2 * (dk + dv) * pairs
     if name == "flash_attention_bwd":
         # q, k, v, o, dO and lse read once, dq, dk, dv written once; per
         # visible pair 6 dk + 4 dv flops (S recomputed, dK and dQ over dk;
         # dP and dV over dv)
-        nbytes = (2 * (q.numel() + k.numel() + v.numel() + B * Sq * H * dv)
-                  * es + B * H * Sq * 4)
+        nbytes = ((2 * qo + kv_seen + k.numel() + v.numel()) * es
+                  + B * H * Sq * 4)
         return nbytes, (6 * dk + 4 * dv) * pairs
     raise ValueError(f"no cost for kernel {name!r}")
 
@@ -127,10 +133,11 @@ def charging():
         stack.remove(c)
 
 
-def charge(name: str, *args) -> None:
-    """Charge kernel ``name``'s cost on ``args`` to the active collectors."""
+def charge(name: str, *args, q_offset=None) -> None:
+    """Charge kernel ``name``'s cost on ``args`` (attention: at
+    ``q_offset``) to the active collectors."""
     stack = _active()
     if stack:
-        nbytes, flops = kernel_cost(name, args)
+        nbytes, flops = kernel_cost(name, args, q_offset)
         for c in stack:
             c.add(name, nbytes, flops)

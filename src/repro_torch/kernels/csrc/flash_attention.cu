@@ -3,8 +3,10 @@
 // Replaces: the Pallas kernel _flash_kernel
 // (src/repro/kernels/flash_attention.py:29, launched by
 // flash_attention_pallas): online softmax (m, l, acc in f32) over KV tiles,
-// causal mask aligned to the end of the KV sequence (query i sits at
-// absolute position (Skv - Sq) + i), masked scores -1e30, the caller's
+// causal mask with the queries at the caller's offset (query i sits at key
+// position q_off + i, the Pallas kernel's q_offset; the wrapper passes Skv -
+// Sq unless it is given another, as a rank's shard of a sequence split over
+// the ranks), masked scores -1e30, the caller's
 // scale (1/sqrt(dk) unless it names another: MLA's 1/sqrt(d_nope + d_rope),
 // the chunked reference's softmax_scale), output acc / max(l, 1e-30) in
 // q's dtype.  KV head of query head h is
@@ -67,6 +69,7 @@ struct Params {
   void* o;
   float* lse;  // (B, H, Sq) or null
   int64_t H, G, Sq, Skv;
+  int64_t q_off;  // key position of query 0 (causal)
   int64_t qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh;
   float scale;
   int causal, gh, bq, gchunks;
@@ -133,7 +136,7 @@ struct BlockRows {
     const int64_t q_last = (q0 + p.bq < p.Sq ? q0 + p.bq : p.Sq) - 1;
     kv_end = p.Skv;
     if (p.causal) {
-      const int64_t e = p.Skv - p.Sq + q_last + 1;
+      const int64_t e = p.q_off + q_last + 1;
       kv_end = e < p.Skv ? e : p.Skv;
     }
   }
@@ -149,7 +152,7 @@ struct BlockRows {
   __device__ int64_t limit(const Params& p, int64_t qi) const {
     if (qi < 0) return 0;
     if (!p.causal) return p.Skv;
-    const int64_t e = p.Skv - p.Sq + qi + 1;
+    const int64_t e = p.q_off + qi + 1;
     return e < p.Skv ? e : p.Skv;
   }
 };
@@ -585,7 +588,9 @@ cudaError_t dispatch_vec(const Params& p, int64_t B, int64_t KVH, int64_t DK,
 
 // q: (B, Sq, H, DK), k: (B, Skv, KVH, DK), v: (B, Skv, KVH, DV), o: (B, Sq,
 // H, DV), each with its own (b, s, h) strides and unit stride along the
-// head width; o in q's dtype; lse (B, H, Sq) f32 contiguous, or null.  The
+// head width; o in q's dtype; lse (B, H, Sq) f32 contiguous, or null.
+// q_off: the key position of query 0 under causal (0 <= q_off, q_off + Sq
+// <= Skv; Skv - Sq: the queries are the sequence's last).  The
 // wrapper's plan: gh query heads of a group times bq positions per block
 // (gh * bq <= 64), bk keys per KV tile (16, 32 or 64), and vec when every
 // q/k/v row is 16-byte aligned (cp.async).  Returns cudaGetLastError() after
@@ -594,21 +599,22 @@ extern "C" int flash_attention(
     const void* q, const void* k, const void* v, void* o, void* lse,
     int64_t B,
     int64_t H, int64_t KVH, int64_t Sq, int64_t Skv, int64_t DK, int64_t DV,
-    int64_t qsb,
+    int64_t q_off, int64_t qsb,
     int64_t qss, int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh,
     int64_t vsb, int64_t vss, int64_t vsh, int64_t osb, int64_t oss,
     int64_t osh, float scale, int causal, int gh, int bq, int bk, int vec,
     int dtype, void* stream) {
   const int64_t G = H / KVH;
-  if (gh < 1 || bq < 1 || (int64_t)gh * bq > kRows || gh > G)
+  if (gh < 1 || bq < 1 || (int64_t)gh * bq > kRows || gh > G ||
+      (causal && (q_off < 0 || q_off + Sq > Skv)))
     return cudaErrorInvalidValue;
   const int gchunks = (int)((G + gh - 1) / gh);
   const int64_t qtiles = (Sq + bq - 1) / bq;
   if (qtiles * gchunks >= (1LL << 31) || KVH >= 65536 || B >= 65536)
     return cudaErrorInvalidValue;
   const Params p{q,   k,   v,   o,   static_cast<float*>(lse), H,   G,
-                 Sq,  Skv, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh,
-                 osb, oss, osh, scale, causal, gh,  bq,  gchunks};
+                 Sq,  Skv, q_off, qsb, qss, qsh, ksb, kss, ksh, vsb, vss,
+                 vsh, osb, oss, osh, scale, causal, gh,  bq,  gchunks};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kFloat32:

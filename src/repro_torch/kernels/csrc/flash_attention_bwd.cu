@@ -8,11 +8,15 @@
 // log-sum-exp lse (B, H, Sq; f32, written by csrc/flash_attention.cu), and
 // the output gradient dO (o's shape).  With c the forward's scale (the
 // caller's: 1/sqrt(DK) by default, MLA's 1/sqrt(d_nope + d_rope)),
-// S = c q k^T masked causally (query i at absolute position Skv - Sq + i),
-// P = exp(S - lse), Dl = rowsum(dO o):
+// S = c q k^T masked causally (query i at key position q_off + i, the
+// forward's offset: Skv - Sq unless the caller names another), P = exp(S -
+// lse), Dl = rowsum(dO o):
 //   dV = P^T dO,  dS = P (dO V^T - Dl),  dQ = c dS K,  dK = c dS^T Q,
 // with dK and dV summed over the G = H / KVH query heads of each KV head.
-// dq and dk come out at width DK, dv at DV, all in q's dtype.
+// dq and dk come out at width DK, dv at DV, all in q's dtype.  A key that
+// no query sees (past q_off + Sq, a shard of queries early in a split
+// sequence) gets dK = dV = 0: its tile's dK/dV block walks no rows, loads
+// nothing and writes its zeros.
 //
 // Bound on the H100: per visible (query, key) pair 6 DK + 4 DV flops (S,
 // dK and dQ over DK; dP and dV over DV) against reading q, k, v, o, dO and
@@ -99,6 +103,7 @@ struct Params {
   float* ws;      // splits > 1: f32 dK/dV partials, BK (DK + DV) floats a block
   int* counters;  // splits > 1: one a key tile, zero between calls
   int64_t H, Sq, Skv;
+  int64_t q_off;  // key position of query 0 (causal)
   int64_t qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh, gsb,
       gss, gsh;
   float scale;
@@ -159,7 +164,7 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
 // keys [0, limit) are visible to the query at position i
 __device__ __forceinline__ int key_limit(const Params& p, int64_t i) {
   if (!p.causal) return (int)p.Skv;
-  const int64_t e = p.Skv - p.Sq + i + 1;
+  const int64_t e = p.q_off + i + 1;
   return (int)(e < p.Skv ? e : p.Skv);
 }
 
@@ -339,15 +344,15 @@ __device__ __forceinline__ void row_stats(const Params& p, int n0, int n_end,
 }
 
 // Rows [nb, ne) of a dK/dV block: the rows that see key tile kt (from the
-// first position that sees its first key), cut into p.splits shares of
-// whole chunks.
+// first position that sees its first key; none where no query does), cut
+// into p.splits shares of whole chunks.
 __device__ __forceinline__ void split_rows(const Params& p, int kt, int bk,
                                            int split, int rc, int& nb,
                                            int& ne) {
   int64_t i0 = 0;
   if (p.causal) {
-    i0 = (int64_t)kt * bk - (p.Skv - p.Sq);
-    i0 = i0 < 0 ? 0 : i0;
+    i0 = (int64_t)kt * bk - p.q_off;
+    i0 = i0 < 0 ? 0 : (i0 < p.Sq ? i0 : p.Sq);
   }
   const int64_t first = i0 * p.G, total = p.nrows - first;
   const int64_t per = ((total + p.splits - 1) / p.splits + rc - 1) / rc * rc;
@@ -571,11 +576,12 @@ __device__ void dkdv_f32(const Params& p, int64_t b, int64_t kvh, int kt,
   int nb, ne;
   split_rows(p, kt, BK, split, RC, nb, ne);
   const int nchunks = (ne - nb + RC - 1) / RC;
-  stage_keys<float, DK, DV, BK>(p, b, kvh, k0, tiles, tiles + Gm::kK);
-  if (nchunks > 0)
+  if (nchunks > 0) {  // else no row sees the tile: its zeros, unloaded
+    stage_keys<float, DK, DV, BK>(p, b, kvh, k0, tiles, tiles + Gm::kK);
     stage_rows<float, DK, DV, BK>(p, b, kvh, nb, ne, chunk(0),
                                   chunk(0) + Gm::kQ,
                                   chunk(0) + Gm::kQ + Gm::kG, lse_s);
+  }
   cp_async_commit();
 
   const int t = threadIdx.x;
@@ -842,11 +848,12 @@ __device__ void dkdv_bf16(const Params& p, int64_t b, int64_t kvh, int kt,
   split_rows(p, kt, BK, split, RC, nb, ne);
   const int nchunks = (ne - nb + RC - 1) / RC;
   zero_padding<DK, DV, BK>(tiles, true);
-  stage_keys<bf16, DK, DV, BK>(p, b, kvh, k0, tiles, tiles + Gm::kK);
-  if (nchunks > 0)
+  if (nchunks > 0) {  // else no row sees the tile: its zeros, unloaded
+    stage_keys<bf16, DK, DV, BK>(p, b, kvh, k0, tiles, tiles + Gm::kK);
     stage_rows<bf16, DK, DV, BK>(p, b, kvh, nb, ne, chunk(0),
                                  chunk(0) + Gm::kQ,
                                  chunk(0) + Gm::kQ + Gm::kG, lse_s);
+  }
   cp_async_commit();
 
   uint32_t ka[kHold ? KD : 1][4], va[kHold ? VD : 1][4];
@@ -1256,7 +1263,9 @@ cudaError_t dispatch_bk(const Params& p, int64_t B, int64_t KVH, int64_t DK,
 // q: (B, Sq, H, DK), k: (B, Skv, KVH, DK), v: (B, Skv, KVH, DV), o and dO:
 // (B, Sq, H, DV), one dtype (f32 or bf16), each with its own (b, s, h)
 // strides and unit stride along its width, (DK, DV) an instantiated pair;
-// lse: (B, H, Sq) f32 contiguous from the forward.  Writes dq (B, Sq, H,
+// lse: (B, H, Sq) f32 contiguous from the forward; q_off the forward's key
+// position of query 0 under causal (0 <= q_off, q_off + Sq <= Skv).
+// Writes dq (B, Sq, H,
 // DK), dk (B, Skv, KVH, DK) and dv (B, Skv, KVH, DV), contiguous, in q's
 // dtype.  The wrapper's plan: bk keys a KV tile (16, 32 or 64), the block's
 // warps, its rows a chunk, the dK/dV splits a key tile, vec when every
@@ -1270,13 +1279,15 @@ extern "C" int flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* o,
     const void* dO, const void* lse, void* dq, void* dk, void* dv, void* ws,
     void* counters, int64_t B, int64_t H, int64_t KVH, int64_t Sq,
-    int64_t Skv, int64_t DK, int64_t DV, int64_t qsb, int64_t qss,
+    int64_t Skv, int64_t DK, int64_t DV, int64_t q_off, int64_t qsb,
+    int64_t qss,
     int64_t qsh, int64_t ksb, int64_t kss, int64_t ksh, int64_t vsb,
     int64_t vss, int64_t vsh, int64_t osb, int64_t oss, int64_t osh,
     int64_t gsb, int64_t gss, int64_t gsh, float scale, int causal, int bk,
     int dtype, int warps, int rows, int splits, int vec, int kv_blocks,
     int q_blocks, void* stream) {
-  if (KVH < 1 || H % KVH || (causal && Sq > Skv) || Sq < 1 || Skv < 1 ||
+  if (KVH < 1 || H % KVH || (causal && (q_off < 0 || q_off + Sq > Skv)) ||
+      Sq < 1 || Skv < 1 ||
       bk < 1 || Sq * (H / KVH) >= (1LL << 31) || Skv >= (1LL << 31) ||
       KVH >= 65536 || B >= 65536 || splits < 1 || splits > 64 ||
       kv_blocks < 1 || q_blocks < 1 ||
@@ -1286,7 +1297,7 @@ extern "C" int flash_attention_bwd(
   const int64_t G = H / KVH;
   const Params p{q, k, v, o, dO, static_cast<const float*>(lse), dq, dk, dv,
                  static_cast<float*>(ws), static_cast<int*>(counters),
-                 H, Sq, Skv,
+                 H, Sq, Skv, q_off,
                  qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, osb, oss, osh,
                  gsb, gss, gsh, scale, (int)G, (int)(Sq * G), causal, splits,
                  (int)((Skv + bk - 1) / bk), kv_blocks, q_blocks, vec};

@@ -39,6 +39,14 @@ tile's rows are many, as in long prompts) and the grid, which interleaves
 the dK/dV blocks (early keys first) with the dQ blocks (late rows first) so
 the heaviest of both start first.  ``bwd_scratch`` sizes the split key
 tiles' workspace and counters from the values the C entry is given.
+
+Both kernels take the causal mask's query offset (``q_offset``, the Pallas
+kernel's): query i sits at key position ``q_offset`` + i, Skv - Sq where
+the caller names none.  A rank's shard of a sequence split over the ranks
+passes its own (``ops.flash_rule``).  Neither plan depends on it: a block
+still covers its rows or its key tile, the forward's last query tiles and
+the backward's first key tiles still see the most, and a key tile that no
+query sees walks no rows and writes zeros.
 """
 
 from __future__ import annotations
@@ -52,6 +60,7 @@ from typing import Tuple
 import torch
 
 from . import _build
+from .ref import query_offset
 
 HEAD_DIMS = (8, 16, 32, 64, 128)
 # the forward's instantiated (dk, dv) pairs (csrc dispatch_d)
@@ -68,10 +77,10 @@ BWD_TILES_OUT = ((torch.float32, 192, 128, 64),)
 # the KV tile where the caller names no chunk (the serving path's)
 DEFAULT_BK = {torch.float32: 32, torch.bfloat16: 64}
 
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 7
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int64] * 8
              + [ctypes.c_int64] * 12
              + [ctypes.c_float] + [ctypes.c_int] * 6 + [ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int64] * 7
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 11 + [ctypes.c_int64] * 8
                  + [ctypes.c_int64] * 15
                  + [ctypes.c_float] + [ctypes.c_int] * 9 + [ctypes.c_void_p])
 # backward: a dK/dV block's rows are cut into splits only where each keeps
@@ -225,7 +234,9 @@ def _unit_last(t: torch.Tensor) -> torch.Tensor:
     return t if t.stride(-1) == 1 else t.contiguous()
 
 
-def _check_shapes(q, k, v, causal: bool) -> None:
+def _check_shapes(q, k, v, causal: bool, q_offset=None) -> int:
+    """Raise where the kernels cannot take these inputs; else the key
+    position of query 0 (``ref.query_offset``)."""
     B, Sq, H, dk = q.shape
     Skv, KVH, dv = k.shape[1], k.shape[2], v.shape[-1]
     if tuple(k.shape) != (B, Skv, KVH, dk) \
@@ -238,22 +249,24 @@ def _check_shapes(q, k, v, causal: bool) -> None:
                          f"are {HEAD_DIM_PAIRS}")
     if H % KVH:
         raise ValueError(f"flash_attention: {H} heads over {KVH} KV heads")
-    if causal and Sq > Skv:
+    if causal and q_offset is None and Sq > Skv:
         raise ValueError(f"flash_attention: causal Sq {Sq} > Skv {Skv}")
     if Skv >= 2 ** 31:
         raise ValueError(f"flash_attention: Skv {Skv} >= 2^31")
+    return query_offset(Sq, Skv, causal, q_offset)
 
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, bk=None,
-                         with_lse: bool = False, scale=None):
+                         with_lse: bool = False, scale=None, q_offset=None):
     """q: (B, Sq, H, dk); k: (B, Skv, KVH, dk); v: (B, Skv, KVH, dv) CUDA
     tensors of one dtype, (dk, dv) in ``HEAD_DIM_PAIRS`` -> (B, Sq, H, dv).
-    With ``causal`` the queries are the last Sq positions of the KV
-    sequence, so Sq <= Skv.  ``bk``: the KV chunk (``kv_tile``).
+    With ``causal`` query i sits at key position ``q_offset`` + i, and
+    ``q_offset`` + Sq <= Skv (None: Skv - Sq, the queries are the last Sq
+    positions of the KV sequence).  ``bk``: the KV chunk (``kv_tile``).
     ``scale``: the scores' scale (None: 1/sqrt(dk)).  ``with_lse``: also
     return the rows' log-sum-exp of the scaled scores, f32 (B, H, Sq), for
     the backward pass."""
-    _check_shapes(q, k, v, causal)
+    q_off = _check_shapes(q, k, v, causal, q_offset)
     B, Sq, H, dk = q.shape
     Skv, KVH, dv = k.shape[1], k.shape[2], v.shape[-1]
     code = _build.check_inputs("flash_attention", q, k, v)
@@ -268,7 +281,7 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, bk=None,
     launch = _build.entry("flash_attention", _ARGTYPES)
     err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  None if lse is None else lse.data_ptr(),
-                 B, H, KVH, Sq, Skv, dk, dv, *strides,
+                 B, H, KVH, Sq, Skv, dk, dv, q_off, *strides,
                  1.0 / math.sqrt(dk) if scale is None else scale,
                  int(causal), plan.gh, plan.bq, plan.bk, int(plan.vec), code,
                  _build.stream())
@@ -279,19 +292,21 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, bk=None,
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
                              bk=None, plan: FlashBwdPlan | None = None,
-                             scale=None):
+                             scale=None, q_offset=None):
     """Gradients (dq, dk, dv) of ``flash_attention_cuda`` for output
     gradient ``do`` (o's shape), from the forward's output ``o`` (B, Sq, H,
     dv) and its ``lse`` (B, H, Sq, f32); q (B, Sq, H, dk), k (B, Skv, KVH,
     dk), v (B, Skv, KVH, dv), o and do CUDA tensors of one dtype, f32 or
     bf16 (anything else raises ``TypeError``), (dk, dv) in
     ``HEAD_DIM_PAIRS``; the gradients come out in it, dq and dk dk wide, dv
-    dv wide.  ``bk`` and ``scale``: the forward's KV chunk and scale;
+    dv wide (a key no query sees, past ``q_offset`` + Sq, gets zeros).
+    ``bk``, ``scale`` and ``q_offset``: the forward's KV chunk, scale and
+    offset;
     ``plan`` overrides ``plan_flash_bwd``'s (tests: the C entry refuses a
     plan that is not its own, or a tile it is not instantiated at).  One
     launch of csrc/flash_attention_bwd.cu: its dK/dV blocks and dQ blocks
     share the grid."""
-    _check_shapes(q, k, v, causal)
+    q_off = _check_shapes(q, k, v, causal, q_offset)
     B, Sq, H, dk = q.shape
     Skv, KVH, dv = k.shape[1], k.shape[2], v.shape[-1]
     code = _build.check_inputs("flash_attention_bwd", q, k, v, o, do)
@@ -324,7 +339,7 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, do, *, causal: bool = True,
                  dkt.data_ptr(), dvt.data_ptr(),
                  None if ws is None else ws.data_ptr(),
                  None if cnt is None else cnt.data_ptr(),
-                 B, H, KVH, Sq, Skv, dk, dv, *strides,
+                 B, H, KVH, Sq, Skv, dk, dv, q_off, *strides,
                  1.0 / math.sqrt(dk) if scale is None else scale,
                  int(causal), plan.tile, code, plan.warps, plan.rows,
                  plan.splits, int(plan.vec), plan.kv_blocks, plan.q_blocks,

@@ -93,9 +93,9 @@ def _rmsnorm_fwd(x, w, eps):
     return rmsnorm_cuda(x, w, eps)
 
 
-def _flash_fwd(q, k, v, causal, bk, scale, with_lse=False):
+def _flash_fwd(q, k, v, causal, bk, scale, q_offset=None, with_lse=False):
     if _fake(q, k, v):
-        charge("flash_attention", q, k, v)
+        charge("flash_attention", q, k, v, q_offset=q_offset)
         B, Sq, H, _ = q.shape
         o = q.new_empty((B, Sq, H, v.shape[-1]))
         return (o, q.new_empty((B, H, Sq), dtype=torch.float32)) \
@@ -103,9 +103,11 @@ def _flash_fwd(q, k, v, causal, bk, scale, with_lse=False):
     if _on_cpu(q, k, v):
         _plain("flash_attention")
         return ref.flash_attention_ref(q, k, v, causal=causal,
-                                       return_lse=with_lse, scale=scale)
+                                       return_lse=with_lse, scale=scale,
+                                       q_offset=q_offset)
     return flash_attention_cuda(q, k, v, causal=causal, bk=bk,
-                                with_lse=with_lse, scale=scale)
+                                with_lse=with_lse, scale=scale,
+                                q_offset=q_offset)
 
 
 class _Matmul(torch.autograd.Function):
@@ -145,29 +147,33 @@ class _RMSNorm(torch.autograd.Function):
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, bk, scale):
-        o, lse = _flash_fwd(q, k, v, causal, bk, scale, with_lse=True)
+    def forward(ctx, q, k, v, causal, bk, scale, q_offset):
+        o, lse = _flash_fwd(q, k, v, causal, bk, scale, q_offset,
+                            with_lse=True)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal, ctx.bk, ctx.scale = causal, bk, scale
+        ctx.q_offset = q_offset
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
         if _fake(q, k, v, do):
-            charge("flash_attention_bwd", q, k, v)
+            charge("flash_attention_bwd", q, k, v, q_offset=ctx.q_offset)
             return (torch.empty_like(q), torch.empty_like(k),
-                    torch.empty_like(v), None, None, None)
+                    torch.empty_like(v), None, None, None, None)
         if _on_cpu(q, k, v, do):
             _plain("flash_attention_bwd")
             grads = ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                                 causal=ctx.causal,
-                                                scale=ctx.scale)
+                                                scale=ctx.scale,
+                                                q_offset=ctx.q_offset)
         else:
             grads = flash_attention_bwd_cuda(q, k, v, o, lse, do,
                                              causal=ctx.causal, bk=ctx.bk,
-                                             scale=ctx.scale)
-        return (*grads, None, None, None)
+                                             scale=ctx.scale,
+                                             q_offset=ctx.q_offset)
+        return (*grads, None, None, None, None)
 
 
 def _matmul_local(a, b):
@@ -182,10 +188,10 @@ def _rmsnorm_local(x, w, eps):
     return _rmsnorm_fwd(x, w, eps)
 
 
-def _flash_local(q, k, v, causal, bk, scale):
+def _flash_local(q, k, v, causal, bk, scale, q_offset=None):
     if _records_grad(q, k, v):
-        return _FlashAttention.apply(q, k, v, causal, bk, scale)
-    return _flash_fwd(q, k, v, causal, bk, scale)
+        return _FlashAttention.apply(q, k, v, causal, bk, scale, q_offset)
+    return _flash_fwd(q, k, v, causal, bk, scale, q_offset)
 
 
 def matmul(a, b):
@@ -203,17 +209,29 @@ def rmsnorm(x, w, *, eps: float = 1e-5):
     return _rmsnorm_local(x, w, eps)
 
 
-def flash_attention(q, k, v, *, causal: bool = True, bk=None, scale=None):
+def flash_attention(q, k, v, *, causal: bool = True, bk=None, scale=None,
+                    q_offset=None):
     """q: (B, Sq, H, dk); k: (B, Skv, KVH, dk); v: (B, Skv, KVH, dv) ->
     (B, Sq, H, dv).  ``bk``: the KV chunk (the Pallas kernel's ``bk``;
     None: the serving default tile).  The plain version's result does not
     depend on it.  ``scale``: the scores' scale (None: 1/sqrt(dk), as the
-    reference's ``softmax_scale``)."""
+    reference's ``softmax_scale``).  ``q_offset``: the key position of
+    query 0 under ``causal`` (the Pallas kernel's; None: Skv - Sq, the
+    queries are the last Sq positions).
+
+    On DTensors each rank runs its own block of q's rows (``flash_rule``)
+    at its global offset: ``q_offset`` plus the block's start along the
+    sequence.  A trace on fake tensors (the dry-run) takes the last block's
+    start, the rank that sees the most keys and that the step waits on."""
     if is_distributed(q, k, v):
+        q_pl = flash_rule(q, k, v)[0][0]
+        off = ref.query_offset(q.shape[1], k.shape[1], causal, q_offset) \
+            + _block_start(q, q_pl, last=_fake(q.to_local()))
         return on_shards(
-            lambda q_, k_, v_: _flash_local(q_, k_, v_, causal, bk, scale),
+            lambda q_, k_, v_: _flash_local(q_, k_, v_, causal, bk, scale,
+                                            off),
             flash_rule, q, k, v)
-    return _flash_local(q, k, v, causal, bk, scale)
+    return _flash_local(q, k, v, causal, bk, scale, q_offset)
 
 
 # ---------------------------------------------------------------------------
@@ -281,15 +299,45 @@ def rmsnorm_rule(x, w):
     return (in_x, rep), in_x, (in_x, tuple(g_w))
 
 
+def _block_start(q, placements, last: bool = False) -> int:
+    """The start along q's dim 1 of this rank's block under ``placements``,
+    whose mesh dims split it evenly, in mesh-dim order (as DTensor shards a
+    dim held by several mesh dims); with ``last``, the last block's."""
+    mesh = q.device_mesh
+    coord = mesh.get_coordinate()
+    lo, n = 0, q.shape[1]
+    for i, p in enumerate(placements):
+        if p.is_shard(1):
+            n //= mesh.size(i)
+            lo += (mesh.size(i) - 1 if last else coord[i]) * n
+    return lo
+
+
 def flash_rule(q, k, v):
-    """Batch and heads may stay sharded; q, k and v are gathered on the
-    sequence (the kernel has no query offset).  Heads stay sharded on a
-    mesh dim only where it splits both q's H and k's KVH heads evenly, so
-    that each rank holds whole GQA groups (H / m query heads over their
-    KVH / m KV heads); otherwise they are gathered.  Every gradient has its
-    input's placement."""
+    """Batch, heads and the queries' sequence may stay sharded.  Heads stay
+    sharded on a mesh dim only where it splits both q's H and k's KVH heads
+    evenly, so that each rank holds whole GQA groups (H / m query heads over
+    their KVH / m KV heads).  On a mesh dim that splits q's sequence evenly
+    q and the output keep their shard and k and v are gathered: each rank
+    runs its own query rows against every key, at its block's offset
+    (``flash_attention``), as the reference's attention runs on its
+    sequence-sharded queries with global positions.  Every other placement
+    is gathered.  dq has q's placement; dk and dv have k's and v's, but
+    for a ``Partial`` sum on a sequence-split mesh dim (each rank's queries
+    reach every key), which their redistribution back to k's and v's own
+    placement reduce-scatters."""
     heads = _ranks_on(q, 2)
-    ps = tuple(pq if (pq.is_shard(0) and _dim_ok(q, pq)) or (
-        pq.is_shard(2) and q.shape[2] % heads == 0
-        and k.shape[2] % heads == 0) else _R for pq in q.placements)
-    return (ps, ps, ps), ps, (ps, ps, ps)
+    in_q, in_kv, g_kv = [], [], []
+    for pq in q.placements:
+        if (pq.is_shard(0) and _dim_ok(q, pq)) or (
+                pq.is_shard(2) and q.shape[2] % heads == 0
+                and k.shape[2] % heads == 0):
+            x = (pq, pq, pq)
+        elif pq.is_shard(1) and _dim_ok(q, pq):
+            x = (pq, _R, Partial())
+        else:
+            x = (_R, _R, _R)
+        for lst, p in zip((in_q, in_kv, g_kv), x):
+            lst.append(p)
+    in_q, in_kv, g_kv = tuple(in_q), tuple(in_kv), tuple(g_kv)
+    return (in_q, in_kv, in_kv), in_q, (in_q, g_kv, g_kv)

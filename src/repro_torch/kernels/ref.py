@@ -46,30 +46,47 @@ def _scaled(x, d: int, scale):
     return x / math.sqrt(d) if scale is None else x * scale
 
 
-def _gqa_scores(q, k, causal: bool, scale=None):
+def query_offset(Sq: int, Skv: int, causal: bool, q_offset=None) -> int:
+    """The key position of query 0 (the Pallas kernel's ``q_offset``):
+    ``q_offset``, or Skv - Sq where it is None (the queries are the last Sq
+    positions).  Under ``causal`` a given offset must leave every query a
+    key and see no key past Skv: 0 <= q_offset and q_offset + Sq <= Skv."""
+    if q_offset is None:
+        return Skv - Sq
+    q_offset = int(q_offset)
+    if causal and (q_offset < 0 or q_offset + Sq > Skv):
+        raise ValueError(f"flash_attention: causal q_offset {q_offset} + Sq "
+                         f"{Sq} outside [0, Skv {Skv}]")
+    return q_offset
+
+
+def _gqa_scores(q, k, causal: bool, scale=None, q_offset=None):
     """Scaled (``scale``; None: 1/sqrt(dk)), masked scores (B, KVH, G, Sq,
-    Skv) in f32."""
+    Skv) in f32; query i sits at key position ``q_offset`` + i (None: Skv -
+    Sq + i)."""
     B, Sq, H, d = q.shape
     Skv, KVH = k.shape[1], k.shape[2]
     qg = q.reshape(B, Sq, KVH, H // KVH, d).float()
     s = _scaled(torch.einsum("bqhgd,bkhd->bhgqk", qg, k.float()), d, scale)
     if causal:
-        mask = torch.ones(Sq, Skv, dtype=torch.bool,
-                          device=q.device).tril(Skv - Sq)
+        mask = torch.ones(Sq, Skv, dtype=torch.bool, device=q.device).tril(
+            query_offset(Sq, Skv, causal, q_offset))
         s = torch.where(mask, s, torch.full_like(s, -1e30))
     return s
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
-                        return_lse: bool = False, scale=None):
+                        return_lse: bool = False, scale=None,
+                        q_offset=None):
     """q: (B, Sq, H, dk); k: (B, Skv, KVH, dk); v: (B, Skv, KVH, dv) --
-    GQA naive attention with the queries aligned to the end of the KV
-    sequence, scores scaled by ``scale`` (None: 1/sqrt(dk)) -> (B, Sq, H,
-    dv).  ``return_lse``: also the rows' log-sum-exp of the scaled scores,
-    f32 (B, H, Sq), which the backward pass recomputes the probabilities
+    GQA naive attention, query i at key position ``q_offset`` + i (None:
+    the queries aligned to the end of the KV sequence, Skv - Sq + i),
+    scores scaled by ``scale`` (None: 1/sqrt(dk)) -> (B, Sq, H, dv).
+    ``return_lse``: also the rows' log-sum-exp of the scaled scores, f32
+    (B, H, Sq), which the backward pass recomputes the probabilities
     from."""
     B, Sq, H, _ = q.shape
-    s = _gqa_scores(q, k, causal, scale)
+    s = _gqa_scores(q, k, causal, scale, q_offset)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     o = o.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
@@ -79,17 +96,18 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
 
 
 def flash_attention_bwd_ref(q, k, v, o, lse, do, *, causal: bool = True,
-                            scale=None):
+                            scale=None, q_offset=None):
     """Gradients (dq, dk, dv) of ``flash_attention_ref`` for output
     gradient do (o's shape, (B, Sq, H, dv)), recomputed from the saved lse
     as the backward kernel does (FlashAttention-2), with c the forward's
-    scale (None: 1/sqrt(dk)): P = exp(S - lse), Dl = rowsum(do o), dV = P^T
-    do and dK = c dS^T q summed over the G query heads of a KV head, dS = P
-    (do V^T - Dl), dq = c dS K.  dq and dk come out dk wide, dv dv wide."""
+    scale (None: 1/sqrt(dk)) and ``q_offset``: P = exp(S - lse), Dl =
+    rowsum(do o), dV = P^T do and dK = c dS^T q summed over the G query
+    heads of a KV head, dS = P (do V^T - Dl), dq = c dS K.  dq and dk come
+    out dk wide, dv dv wide; a key no query sees gets dk = dv = 0."""
     B, Sq, H, dk = q.shape
     KVH, dv = k.shape[2], v.shape[-1]
     G = H // KVH
-    s = _gqa_scores(q, k, causal, scale)
+    s = _gqa_scores(q, k, causal, scale, q_offset)
     p = torch.exp(s - lse.reshape(B, KVH, G, Sq, 1))
     dog = do.reshape(B, Sq, KVH, G, dv).float()
     dl = (dog * o.reshape(B, Sq, KVH, G, dv).float()).sum(-1)

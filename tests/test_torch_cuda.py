@@ -460,6 +460,96 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda_device, dims, bk,
     _check_flash_bwd(grads, want, dtype)
 
 
+# (B, S, H, KVH, dk, dv, MLA's scale?): the three (dk, dv) pairs, S split
+# into 4 shards of queries (24 rows: ragged against every tile)
+OFFSET_DIMS = [(2, 96, 9, 3, 64, 64, False), (1, 96, 8, 2, 192, 128, True),
+               (2, 96, 4, 4, 24, 16, True)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dims", OFFSET_DIMS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bk", [16, 64])
+def test_flash_attention_at_query_offsets_matches_plain(cuda_device, dims,
+                                                        dtype, bk):
+    """Each shard of a split sequence at its offset r S / 4: the forward
+    (with lse) and the backward against the plain versions at the offset,
+    dk and dv past the shard's last position exactly 0 (the buffers they
+    are written to held NaN first), the shards' dk and dv summed against
+    the whole call's, the same bits on a repeat; the autograd path at the
+    offset launches both kernels and calls no plain version."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bwd_cuda, flash_attention_cuda)
+    B, S, H, KVH, dk, dv, mla = dims
+    tdt = DTYPES[dtype]
+    scale = 1.0 / np.sqrt(dk) if mla else None
+    q, k, v = _mla_flash_inputs((B, S, S, H, KVH, dk, dv), tdt, cuda_device,
+                                60)
+    do = _dev(np.random.default_rng(61).standard_normal(
+        (B, S, H, dv), np.float32), tdt, cuda_device)
+    o, lse = flash_attention_cuda(q, k, v, bk=bk, with_lse=True, scale=scale)
+    whole = flash_attention_bwd_cuda(q, k, v, o, lse, do, bk=bk, scale=scale)
+    otol = 4e-2 if dtype == "bfloat16" else 3e-4
+    n = S // 4
+    sums = [torch.zeros(t.shape, device=cuda_device) for t in whole[1:]]
+    for r in range(4):
+        off, sl = r * n, slice(r * n, (r + 1) * n)
+        qs, dos = q[:, sl], do[:, sl]
+        os_, ls = flash_attention_cuda(qs, k, v, bk=bk, with_lse=True,
+                                       scale=scale, q_offset=off)
+        want_o, want_l = ref.flash_attention_ref(
+            qs, k, v, return_lse=True, scale=scale, q_offset=off)
+        torch.testing.assert_close(os_.float(), want_o.float(), rtol=otol,
+                                   atol=otol)
+        torch.testing.assert_close(ls, want_l, rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(os_.float(), o[:, sl].float(), rtol=otol,
+                                   atol=otol)
+        # the caching allocator hands the gradients these NaN blocks back
+        junk = [torch.full(t.shape, float("nan"), dtype=tdt,
+                           device=cuda_device) for t in (qs, k, v)]
+        del junk
+        got = flash_attention_bwd_cuda(qs, k, v, os_, ls, dos, bk=bk,
+                                       scale=scale, q_offset=off)
+        again = flash_attention_bwd_cuda(qs, k, v, os_, ls, dos, bk=bk,
+                                         scale=scale, q_offset=off)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        want = ref.flash_attention_bwd_ref(qs, k, v, os_, ls, dos,
+                                           scale=scale, q_offset=off)
+        _check_flash_bwd(got, want, dtype)
+        for g in got[1:]:
+            assert torch.equal(g[:, off + n:], torch.zeros_like(
+                g[:, off + n:]))
+        for acc, g in zip(sums, got[1:]):
+            acc += g.float()
+        leaves = [t.clone().requires_grad_() for t in (qs, k, v)]
+        n1, p1 = dict(ops.launches), dict(ops.plain_calls)
+        out = ops.flash_attention(*leaves, bk=bk, scale=scale, q_offset=off)
+        grads = torch.autograd.grad(out, leaves, dos)
+        assert ops.launches["flash_attention"] == n1["flash_attention"] + 1
+        assert ops.launches["flash_attention_bwd"] == \
+            n1["flash_attention_bwd"] + 1
+        assert ops.plain_calls == p1
+        _check_flash_bwd(grads, want, dtype)
+    _check_flash_bwd([s.to(tdt) for s in sums], whole[1:], dtype)
+
+
+@pytest.mark.cuda
+def test_flash_attention_refuses_offsets_past_the_keys(cuda_device):
+    """q_offset + Sq > Skv or a negative q_offset under causal raises before
+    a launch; without causal the offset is not read."""
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    q = torch.zeros(1, 8, 2, 16, device=cuda_device)
+    k = torch.zeros(1, 24, 1, 16, device=cuda_device)
+    n0 = ops.launches["flash_attention"]
+    for off in (17, -1):
+        with pytest.raises(ValueError, match="q_offset"):
+            flash_attention_cuda(q, k, k, q_offset=off)
+    assert ops.launches["flash_attention"] == n0
+    flash_attention_cuda(q, k, k, causal=False, q_offset=17)
+    assert ops.launches["flash_attention"] == n0 + 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_bwd_splits_key_tiles(cuda_device, dtype):
@@ -1154,7 +1244,7 @@ def test_flash_attention_uninstantiated_pair_raises(cuda_device):
     strides = [t.stride(i) for t in (q, k, v, o) for i in range(3)]
     launch = _build.entry("flash_attention", _ARGTYPES)
     err = launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                 None, 1, 2, 2, 8, 8, 192, 128, *strides,
+                 None, 1, 2, 2, 8, 8, 192, 128, 0, *strides,
                  1.0 / math.sqrt(192), 1, plan.gh, plan.bq, 64, 1, 0,
                  _build.stream())
     assert err != 0

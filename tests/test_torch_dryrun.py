@@ -173,8 +173,54 @@ def test_flash_on_fake_tensors_charges_its_cost_and_no_plain_call():
 @pytest.mark.parametrize("sq,skv", [(1, 1), (31, 31), (4, 9), (9, 4),
                                     (128, 4096), (0, 5)])
 def test_causal_pairs_closed_form(sq, skv):
+    """The default (queries at the end of the keys) and every offset from
+    before the first key to past the last: the sum over the rows."""
     assert cost.causal_pairs(sq, skv) == sum(
         max(0, min(skv, skv - sq + i + 1)) for i in range(sq))
+    offsets = sorted({-sq - 1, -1, 0, 1, skv // 3, skv - sq, skv - 1, skv,
+                      skv + 2})
+    for off in offsets:
+        assert cost.causal_pairs(sq, skv, off) == sum(
+            max(0, min(skv, off + i + 1)) for i in range(sq)), off
+
+
+def test_cp_trace_charges_the_heaviest_query_shard(monkeypatch):
+    """Reduced smollm-135m's tiny train cell under cp on (2, 4): q stays
+    split on the sequence (32 positions, 8 a rank) and each flash call is
+    charged the pairs of the last shard (offset 24, the rank the step waits
+    on), not the whole sequence's nor rank 0's own."""
+    name, seq, batch = TINY
+    monkeypatch.setitem(SHAPES, name, Shape(name, seq, batch, "train"))
+    monkeypatch.setattr(cells, "get_config",
+                        lambda a: get_config(a, reduced=True))
+    seen = []
+    local = ops._flash_local
+
+    def spy(q, k, v, causal, bk, scale, q_offset=None):
+        seen.append((q.shape[1], k.shape[1], q_offset))
+        return local(q, k, v, causal, bk, scale, q_offset)
+    monkeypatch.setattr(ops, "_flash_local", spy)
+    with fake_world(8):
+        mesh = init_device_mesh("cpu", (2, 4),
+                                mesh_dim_names=("data", "model"))
+        cell = cells.build_cell("smollm-135m", name, mesh)
+        tr = cell.trace()[1]
+    assert not dist.is_initialized()
+    cfg = get_config("smollm-135m", reduced=True)
+    n = seq // 4
+    assert seen and set(seen) == {(n, seq, seq - n)}
+    calls = tr.kernels.calls["flash_attention"]
+    # a microbatch's rows on a rank: the batch over ga and the data axis
+    B = batch // cells.DRYRUN_TRAIN.grad_accum // 2
+    per_call = 2 * 2 * cfg.head_dim * cfg.n_heads * B
+    assert tr.kernels.flops["flash_attention"] == \
+        calls * per_call * cost.causal_pairs(n, seq, seq - n)
+    assert tr.kernels.flops["flash_attention_bwd"] == \
+        tr.kernels.calls["flash_attention_bwd"] * 10 * cfg.head_dim \
+        * cfg.n_heads * B * cost.causal_pairs(n, seq, seq - n)
+    # rank 0's shard would see 36 of the 528 pairs, the whole sequence 528
+    assert cost.causal_pairs(n, seq, 0) < cost.causal_pairs(n, seq, seq - n) \
+        < cost.causal_pairs(seq, seq)
 
 
 def test_moe_counts_static_shape_equal_bincount():

@@ -18,7 +18,11 @@ the CPU: one gloo group of 8 ranks for the module, the JAX side on
   the same mesh coordinate; ``ops.matmul``, ``rmsnorm``, ``flash_attention``
   and ``layers.linear`` on sharded DTensors against whole tensors (forward
   and gradients within 1e-5 x scale), and the replicated-weight matmul
-  wrong without its ``Partial`` gradient placement; the sharded train step
+  wrong without its ``Partial`` gradient placement (flash: a sequence split
+  evenly keeps the queries split, each rank at its offset, over one mesh
+  dim or both; an uneven one is gathered); under cp every local flash
+  call of the step gets the rank's S / 4 query rows at offset j S / 4 and
+  the attention output stays ``Shard(1)``; the sharded train step
   (reduced smollm-135m, ga 2, 4 x 32, AdamW lr 1e-3 warmup 1) under cp,
   dp, tp and cp_fsdp against the JAX sharded step and the port's unsharded
   one (loss rtol 1e-5, parameters rtol 5e-4 / atol 5e-5; the global
@@ -462,6 +466,25 @@ def test_replicated_weight_gradient_needs_partial(ranks):
     out, da, db = got["trap: " + label]
     assert out <= OP_TOL and da <= OP_TOL
     assert db > 0.1, db
+
+
+def test_cp_flash_runs_each_ranks_query_shard(ranks):
+    """Under cp on (2, 4) every local flash call of the sharded step gets
+    the rank's S / 4 query rows (S 32) against all S keys, at its global
+    offset (its model coordinate x S / 4, as the reference's attention
+    masks its sequence-sharded queries with global positions), and every
+    attention output is ``Shard(1)`` on ``model``."""
+    S, m = 32, 4
+    offsets = set()
+    for r in range(R.WORLD):
+        got = json.loads((ranks.out / f"flash_cp_{r}.json").read_text())
+        j = got["coord"][1]
+        assert got["local"] and all(c == [S // m, S, j * S // m]
+                                    for c in got["local"]), got["local"]
+        assert got["out"] and all(pl == [0, 1]
+                                  for pl in got["out"]), got["out"]
+        offsets.add(j * S // m)
+    assert offsets == {0, 8, 16, 24}
 
 
 @pytest.mark.parametrize("variant", R.VARIANTS + ("cp int8",))

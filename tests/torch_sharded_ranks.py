@@ -16,6 +16,7 @@ from __future__ import annotations
 import json
 import shutil
 import sys
+from contextlib import contextmanager
 from dataclasses import replace
 from pathlib import Path
 
@@ -129,8 +130,14 @@ OP_CASES = [
      [(2, 16, 8, 8), (2, 16, 4, 8), (2, 16, 4, 8)],
      [("S0", "S2"), ("S0", "S2"), ("S0", "S2")]),
     ("flash seq over model (gathered)", "flash",
+     [(2, 18, 8, 8), (2, 18, 4, 8), (2, 18, 4, 8)],
+     [("S0", "S1"), ("S0", "S1"), ("S0", "S1")]),
+    ("flash seq over model (queries split at their offsets)", "flash",
      [(2, 16, 8, 8), (2, 16, 4, 8), (2, 16, 4, 8)],
      [("S0", "S1"), ("S0", "S1"), ("S0", "S1")]),
+    ("flash seq over both (queries split at their offsets)", "flash",
+     [(2, 16, 8, 8), (2, 16, 4, 8), (2, 16, 4, 8)],
+     [("S1", "S1"), ("S1", "S1"), ("S1", "S1")]),
     ("flash KV heads that do not split (gathered)", "flash",
      [(2, 16, 8, 8), (2, 16, 2, 8), (2, 16, 2, 8)],
      [("R", "S2"), ("R", "S2"), ("R", "S2")]),
@@ -196,6 +203,33 @@ def case_op_rules(rank, in_dir, out_dir):
         (out_dir / "ops.json").write_text(json.dumps(got))
 
 
+@contextmanager
+def recording_flash():
+    """Record, while the block runs, each local flash call's (query rows,
+    keys, q_offset) and each sharded flash call's output placements (a
+    wrapper of ``ops._flash_local`` and ``ops.flash_attention``, put back
+    after)."""
+    from repro_torch.kernels import ops
+    calls = {"local": [], "out": []}
+    local, top = ops._flash_local, ops.flash_attention
+
+    def spy_local(q, k, v, causal, bk, scale, q_offset=None):
+        calls["local"].append([q.shape[1], k.shape[1], q_offset])
+        return local(q, k, v, causal, bk, scale, q_offset)
+
+    def spy(q, k, v, **kw):
+        o = top(q, k, v, **kw)
+        # the dim each mesh dim shards (None: not sharded)
+        calls["out"].append([p.dim if p.is_shard() else None
+                             for p in o.placements])
+        return o
+    ops._flash_local, ops.flash_attention = spy_local, spy
+    try:
+        yield calls
+    finally:
+        ops._flash_local, ops.flash_attention = local, top
+
+
 def sharded_step(model, params, rules, batch, grad_accum=2,
                  compression="none"):
     """One sharded step from whole ``params``: (whole params, metrics,
@@ -226,7 +260,11 @@ def case_steps(rank, in_dir, out_dir):
     out = {}
     for v in VARIANTS:
         rules = rules_on(4, v)
-        whole, m, state = sharded_step(model, params, rules, b)
+        with recording_flash() as calls:
+            whole, m, state = sharded_step(model, params, rules, b)
+        if v == "cp":
+            (out_dir / f"flash_cp_{rank}.json").write_text(json.dumps({
+                "coord": list(rules.mesh.get_coordinate()), **calls}))
         out[v] = m
         if rank == 0:
             np.savez(out_dir / f"step_{v}.npz",
