@@ -49,6 +49,17 @@ reference's ``axis_index``).
 
 As in the reference, the FFN's ``ln`` weight is not read: the router and
 the experts see the un-normalized residual.
+
+Spans and counters (``obs.py``; recorded only while a profiler session
+records): ``model.moe_ffn`` around ``moe_ffn``, with device times; in the
+sort dispatch on one device (``_sort_dispatch``) ``moe.pairs`` (T x k, the
+routed pairs), ``moe.rows`` (E x cap, the rows the experts compute) and
+``moe.kept`` (the pairs within their expert's capacity, summed on the
+device), each under the phase span that holds the call (an engine prefill
+or decode step, a train step).  Records are per thread: remat's recompute
+counts a second time under the train step where autograd runs the backward
+in the calling thread (the CPU), and in autograd's own thread, apart, on a
+card.  The dense and the sharded dispatches are not counted.
 """
 
 from __future__ import annotations
@@ -61,6 +72,7 @@ import torch.distributed._functional_collectives as funcol
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
+from .. import obs
 from ..kernels import ops
 from ..parallel.sharding import (annotate, current_rules, mesh_sizes,
                                  on_shards, placements, reshape)
@@ -211,6 +223,9 @@ def _sort_dispatch(p, xf, gates, idx, moe):
     E = moe.n_experts
     cap = sort_capacity(idx.numel(), E, moe.capacity_factor)
     plan = _plan(idx, E, cap)
+    obs.count("moe.pairs", idx.numel())
+    obs.count("moe.rows", E * cap)
+    obs.count("moe.kept", plan[2])
     ye = _expert_ffn(p, _local_pack(xf, idx, plan, E, cap))
     return _local_combine(ye, gates, idx, plan)
 
@@ -402,6 +417,11 @@ def moe_ffn(p, x, cfg, *, dispatch: str = "a2a",
     contiguous block of the flat index, in mesh order)."""
     if dispatch not in DISPATCHES:
         raise ValueError(f"unknown moe dispatch {dispatch!r}")
+    with obs.span("model.moe_ffn", device=True):
+        return _moe_ffn(p, x, cfg, dispatch, routing)
+
+
+def _moe_ffn(p, x, cfg, dispatch, routing):
     moe = cfg.moe
     B, S, D = x.shape
     rules = current_rules()

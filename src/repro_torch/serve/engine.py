@@ -16,7 +16,18 @@ patch prefix goes through ``Model.prefill``.
 
 Sampling stays on the host with numpy: greedy or temperature.  The engine
 records the host time of each prefill (cache splice and the logits' copy
-to the host included) and of each decode step in ``timings``.
+to the host included) and of each decode step in ``timings``: the
+``engine.prefill`` and ``engine.decode`` spans feed it, traced or not.
+
+Spans (``obs.py``; recorded only while a profiler session records):
+``engine.step`` around ``step`` (the root); ``engine.queued(uid)`` from a
+request's ``submit`` to the start of its prefill (the submit time is kept
+for every request; the span, a root, is recorded when the prefill starts);
+``engine.prefill(uid)`` from placing a prompt's tokens to its logits on
+the host; ``engine.decode`` from placing a step's tokens to its logits on
+the host; ``engine.sample`` over the per-slot loop that samples a decode
+step's tokens on the host.  The MoE's counters inside a prefill or a decode
+step are keyed by ``engine.prefill`` or ``engine.decode``.
 
 Under sharding rules (``rules`` with a mesh over the process group) every
 rank runs the same engine on the same requests: the parameters are placed
@@ -38,6 +49,7 @@ import numpy as np
 import torch
 from torch.distributed.tensor import DTensor
 
+from .. import obs
 from ..models.model import Model, Params, map_cache
 from ..parallel.sharding import (NamedSharding, ShardingRules, axis_rules,
                                  distribute, place, write_block)
@@ -110,6 +122,7 @@ class Engine:
         self.last_token = np.zeros((B,) + self._tok_trailing(), np.int64)
         self.timings: Dict[str, List[float]] = {"prefill_s": [],
                                                 "decode_s": []}
+        self._submitted: Dict[int, int] = {}     # uid -> time.time_ns()
         self._rng = np.random.default_rng(sc.seed)
 
     def _tok_trailing(self):
@@ -134,6 +147,7 @@ class Engine:
     # -- public API -----------------------------------------------------------
 
     def submit(self, req: Request):
+        self._submitted[req.uid] = time.time_ns()
         self.queue.append(req)
         self.results[req.uid] = Result(req.uid)
 
@@ -150,18 +164,20 @@ class Engine:
             toks = np.zeros((1, self._bucket(n)) + self._tok_trailing(),
                             np.int64)
             toks[0, :n] = req.tokens
-            t0 = time.perf_counter()
-            batch = {"tokens": self._tokens(toks, ("batch", "seq"))}
-            with axis_rules(self.rules):
-                logits, cache1, _ = self.model.prefill(
-                    self.params, batch, self.sc.s_max,
-                    logits_at=torch.tensor([n - 1], device=self.device))
-            # splice the single-request cache into slot `slot`, in place
-            map_cache(lambda big, one: write_block(
-                big, one, (0, int(slot)) + (0,) * (one.ndim - 2)),
-                self.cache, cache1)
-            logits = _whole(logits).cpu().numpy()
-            self.timings["prefill_s"].append(time.perf_counter() - t0)
+            obs.emit("engine.queued", self._submitted.pop(req.uid),
+                     uid=req.uid)
+            with obs.span("engine.prefill", uid=req.uid,
+                          sink=self.timings["prefill_s"]):
+                batch = {"tokens": self._tokens(toks, ("batch", "seq"))}
+                with axis_rules(self.rules):
+                    logits, cache1, _ = self.model.prefill(
+                        self.params, batch, self.sc.s_max,
+                        logits_at=torch.tensor([n - 1], device=self.device))
+                # splice the single-request cache into slot `slot`, in place
+                map_cache(lambda big, one: write_block(
+                    big, one, (0, int(slot)) + (0,) * (one.ndim - 2)),
+                    self.cache, cache1)
+                logits = _whole(logits).cpu().numpy()
             tok0 = self._sample(logits[0])
             self.last_token[slot] = tok0
             self.lengths[slot] = n
@@ -186,34 +202,35 @@ class Engine:
 
     def step(self) -> int:
         """Admit + one decode step for all slots; returns #active."""
-        self._admit()
-        if not self.active.any():
-            return 0
-        t0 = time.perf_counter()
-        with axis_rules(self.rules):
-            logits, self.cache = self.model.decode_step(
-                self.params, self.cache,
-                torch.from_numpy(self.lengths).to(self.device),
-                {"tokens": self._tokens(self.last_token[:, None],
-                                        ("batch", None))})
-        logits = _whole(logits).cpu().numpy()
-        self.timings["decode_s"].append(time.perf_counter() - t0)
-        for slot in np.nonzero(self.active)[0]:
-            nxt = self._sample(logits[slot])
-            self.last_token[slot] = nxt
-            self.lengths[slot] += 1
-            self.budget[slot] -= 1
-            uid = int(self.slot_uid[slot])
-            val = self._token(nxt)
-            self.results[uid].tokens.append(val)
-            eos = (self.sc.eos_id is not None
-                   and not self.model.cfg.n_codebooks
-                   and val == self.sc.eos_id)
-            if eos or self.budget[slot] <= 0 \
-                    or self.lengths[slot] >= self.sc.s_max - 1:
-                self.active[slot] = False
-                self.slot_uid[slot] = -1
-        return int(self.active.sum())
+        with obs.span("engine.step"):
+            self._admit()
+            if not self.active.any():
+                return 0
+            with obs.span("engine.decode", sink=self.timings["decode_s"]):
+                with axis_rules(self.rules):
+                    logits, self.cache = self.model.decode_step(
+                        self.params, self.cache,
+                        torch.from_numpy(self.lengths).to(self.device),
+                        {"tokens": self._tokens(self.last_token[:, None],
+                                                ("batch", None))})
+                logits = _whole(logits).cpu().numpy()
+            with obs.span("engine.sample"):
+                for slot in np.nonzero(self.active)[0]:
+                    nxt = self._sample(logits[slot])
+                    self.last_token[slot] = nxt
+                    self.lengths[slot] += 1
+                    self.budget[slot] -= 1
+                    uid = int(self.slot_uid[slot])
+                    val = self._token(nxt)
+                    self.results[uid].tokens.append(val)
+                    eos = (self.sc.eos_id is not None
+                           and not self.model.cfg.n_codebooks
+                           and val == self.sc.eos_id)
+                    if eos or self.budget[slot] <= 0 \
+                            or self.lengths[slot] >= self.sc.s_max - 1:
+                        self.active[slot] = False
+                        self.slot_uid[slot] = -1
+            return int(self.active.sum())
 
     def run(self) -> Dict[int, Result]:
         while self.queue or self.active.any():

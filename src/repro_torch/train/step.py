@@ -24,6 +24,16 @@ rank keeps its slice), runs the loss under the rules, and redistributes
 every gradient to its parameter's placements inside the microbatch loop
 (``constrain_grads``, as the reference's ``acc_body``).  Its metrics are
 plain tensors, the same on every rank.
+
+Spans (``obs.py``; recorded only while a profiler session records):
+``train.step`` around a whole step (the phase that keys the MoE's
+counters); in ``loss_and_grads``, once a microbatch, ``train.forward``
+around ``model.loss`` and ``train.backward`` around
+``torch.autograd.grad`` (remat's recompute included); ``train.optimizer``
+around ``adamw_update``.  The last three carry device times.  What lies
+outside them in a step: the microbatches' split and their gradients' sum,
+the int8 round trip and, sharded, the batch's placement and the loss made
+whole.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ from typing import Callable, Dict, Optional
 import torch
 from torch.distributed.tensor import DTensor
 
+from .. import obs
 from ..models.model import Model, spec_tree
 from ..parallel.compression import simulate_int8_roundtrip
 from ..parallel.sharding import (NamedSharding, P, ShardingRules, axis_rules,
@@ -104,10 +115,12 @@ def loss_and_grads(model: Model, params, batch):
     before the backward."""
     leaves = [t.detach().requires_grad_(True) for t in tree_leaves(params)]
     with torch.enable_grad():
-        loss = model.loss(_unflatten_like(params, leaves), batch)
+        with obs.span("train.forward", device=True):
+            loss = model.loss(_unflatten_like(params, leaves), batch)
         if isinstance(loss, DTensor):
             loss = loss.full_tensor()
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        with obs.span("train.backward", device=True):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(t) if g is None else g
              for t, g in zip(leaves, grads)]
     return loss.detach(), _unflatten_like(params, grads)
@@ -153,6 +166,10 @@ def make_train_step(model: Model, tc: TrainConfig = TrainConfig(), *,
         return loss, constrain_grads(g)
 
     def train_step(params, opt_state, batch: Dict[str, torch.Tensor]):
+        with obs.span("train.step"):
+            return step_body(params, opt_state, batch)
+
+    def step_body(params, opt_state, batch):
         if tc.grad_accum == 1:
             loss, grads = grads_of(params, batch)
         else:
@@ -177,8 +194,9 @@ def make_train_step(model: Model, tc: TrainConfig = TrainConfig(), *,
         elif tc.grad_compression == "int8":
             grads = tree_map(simulate_int8_roundtrip, grads)
 
-        params2, opt2, metrics = adamw_update(tc.optimizer, params, grads,
-                                              opt_state)
+        with obs.span("train.optimizer", device=True):
+            params2, opt2, metrics = adamw_update(tc.optimizer, params,
+                                                  grads, opt_state)
         metrics["loss"] = loss
         if sharded:
             metrics = gather(metrics)
