@@ -676,7 +676,8 @@ def rotating(fn, a, bs):
 
 def matmul_path(a, b):
     plan = plan_for(a, b)
-    return plan.path + (f" x{plan.splits} splits" if plan.splits > 1 else "")
+    return plan.path + (" A along M" if plan.acol else "") + (
+        f" x{plan.splits} splits" if plan.splits > 1 else "")
 
 
 def rms_path(plan):
@@ -1271,14 +1272,15 @@ def grad_case_rms(label, rows_, D, dtype, gen, timed=True):
 def grad_case_matmul(label, a, b, timed=True):
     """One product of a matmul backward (dA = dC B^T or dB = A^T dC) on
     transposed views, through the forward kernel."""
+    dn = str(a.dtype).split(".")[1]
     got = ops.matmul(a, b)
     again = ops.matmul(a, b)
     want = ref.matmul_ref(a, b)
     torch.cuda.synchronize()
-    row = {"kernel": "matmul", "shape": label, "dtype": "float32",
+    row = {"kernel": "matmul", "shape": label, "dtype": dn,
            "path": matmul_path(a, b),
            "bit_identical": torch.equal(got, again),
-           "max_abs_err": check_close("matmul", got, want, "float32")}
+           "max_abs_err": check_close("matmul", got, want, dn)}
     if not row["bit_identical"]:
         raise AssertionError(f"matmul {label}: two runs differ")
     if timed:
@@ -1359,6 +1361,13 @@ def phase_grads(cfg):
     rows.append(grad_case_matmul(f"tied head dX = dC embed {M}x{V}x{D}",
                                  dc, emb))
     rows.append(grad_case_matmul(f"tied head dE^T = X^T dC {D}x{M}x{V}",
+                                 x.T, dc))
+    # the bf16 weight gradient of training: gate/up at a microbatch of 16 x
+    # 2048 tokens (K split over blocks: 60 output tiles on 132 SMs)
+    T = 16 * 2048
+    x = randn((T, D), torch.bfloat16, 1.0, gen)
+    dc = randn((T, F_), torch.bfloat16, 1.0 / math.sqrt(T), gen)
+    rows.append(grad_case_matmul(f"train gate/up dW = A^T dC {D}x{T}x{F_}",
                                  x.T, dc))
     del emb, x, dc
     print(f"[grads] {len(rows)} backward cases agree with their plain "

@@ -39,6 +39,15 @@
 // 16-deep tiles, 60 KB): no TF32, so it keeps f32 accuracy.  wgmma with a
 // TMA producer warp is later work.
 //
+// The bf16 weight gradient dW = A^T dC reads A along M (A^T of a row-major
+// activation: unit stride along M).  Where that is 16-byte aligned, A's tile
+// is staged M-contiguous, [BK][BM + pad], by cp.async like a row-major B's,
+// and its fragments read with ldmatrix.trans (ACOL).  Its K is the tokens
+// (tens of thousands) and its output a few hundred squared, fewer tiles than
+// the card holds blocks: the wrapper then splits K over blockIdx.z, each
+// split writes its f32 128x128 partial tile to scratch, and the last block
+// of a tile sums the partials in split order into C (as path (a) does).
+//
 // Both paths mask every edge, so any M, N and K works, and take A and B by
 // strides.  The wrapper picks the path and geometry (kernels/matmul.py
 // plan_matmul) and a scalar-load variant where a pointer or stride is not
@@ -99,19 +108,25 @@ __device__ __forceinline__ void emit(T* C, float* part, int64_t M, int64_t N,
     part[((int64_t)split * M + m) * N + n] = v;
 }
 
+// Split-K: after this block wrote its partial tile, whether it is the last
+// of the tile's splits to arrive (then the partials are all visible to it).
+__device__ __forceinline__ bool last_split(int* counter, int splits) {
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(counter, 1) == splits - 1;
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
 // Split-K epilogue: the last block of a tile's splits sums their partials in
 // split order into C, then zeroes the tile's counter for the next call.
 template <typename T, int MT>
 __device__ __forceinline__ void finish_splits(
     T* C, const float* part, int* counter, int64_t M, int64_t N, int splits,
     int64_t m0, int64_t n0, int tile_n) {
-  __shared__ int last;
-  __threadfence();
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(counter, 1) == splits - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
+  if (!last_split(counter, splits)) return;
   for (int i = threadIdx.x; i < MT * tile_n; i += kSkThreads) {
     const int64_t m = m0 + i / tile_n, n = n0 + i % tile_n;
     if (m >= M || n >= N) continue;
@@ -413,8 +428,9 @@ __device__ __forceinline__ void load_tile(T* s, const T* g, int64_t sr,
   }
 }
 
-// Tile geometry per element type.  A is staged k-contiguous [BM][BK + pad];
-// B n-contiguous [BK][BN + pad] (ROWB) or k-contiguous [BN][BK + pad].
+// Tile geometry per element type.  A is staged k-contiguous [BM][BK + pad]
+// (ACOL: m-contiguous [BK][BM + pad]); B n-contiguous [BK][BN + pad] (ROWB)
+// or k-contiguous [BN][BK + pad].
 template <typename T>
 struct TileCfg;
 template <>
@@ -426,32 +442,37 @@ struct TileCfg<__nv_bfloat16> {
   static constexpr int BK = 64, STAGES = 3, PAD = 8;
 };
 
-template <typename T, bool COLB>
+template <typename T, bool COLB, bool ACOL = false>
 struct TileSmem {
   using C = TileCfg<T>;
-  static constexpr int LDA = C::BK + C::PAD;
+  static constexpr int LDA = ACOL ? kBM + C::PAD : C::BK + C::PAD;
   static constexpr int LDB = COLB ? C::BK + C::PAD : kBN + C::PAD;
-  static constexpr int A_ELEMS = kBM * LDA;
+  static constexpr int A_ELEMS = ACOL ? C::BK * LDA : kBM * LDA;
   static constexpr int B_ELEMS = COLB ? kBN * LDB : C::BK * LDB;
   static constexpr int STAGE = A_ELEMS + B_ELEMS;
   static constexpr int BYTES = C::STAGES * STAGE * (int)sizeof(T);
 };
 
-// Issue the loads of K tile kt into stage st.
-template <typename T, bool COLB, bool VEC>
+// Issue the loads of K tile kt into stage st.  VEC: B's vector loads (and
+// A's along K); ACOL: A's tile by vectors along M (sam == 1).
+template <typename T, bool COLB, bool VEC, bool ACOL = false>
 __device__ __forceinline__ void load_stage(T* smem, int st, int64_t kt,
                                            const T* A, const T* B, int64_t M,
                                            int64_t N, int64_t K, int64_t m0,
                                            int64_t n0, int64_t sam,
                                            int64_t sak, int64_t sbk,
                                            int64_t sbn) {
-  using S = TileSmem<T, COLB>;
+  using S = TileSmem<T, COLB, ACOL>;
   constexpr int BK = TileCfg<T>::BK;
   T* As = smem + st * S::STAGE;
   T* Bs = As + S::A_ELEMS;
   const int64_t k0 = kt * BK;
-  load_tile<T, kBM, BK, S::LDA, VEC>(As, A + m0 * sam + k0 * sak, sam, sak,
-                                     M - m0, K - k0);
+  if constexpr (ACOL)
+    load_tile<T, BK, kBM, S::LDA, true>(As, A + m0 * sam + k0 * sak, sak, sam,
+                                        K - k0, M - m0);
+  else
+    load_tile<T, kBM, BK, S::LDA, VEC>(As, A + m0 * sam + k0 * sak, sam, sak,
+                                       M - m0, K - k0);
   if constexpr (COLB)
     load_tile<T, kBN, BK, S::LDB, VEC>(Bs, B + n0 * sbn + k0 * sbk, sbn, sbk,
                                        N - n0, K - k0);
@@ -559,30 +580,67 @@ tiled_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
   }
 }
 
+// Floats in one K split's partial tile (ACOL).
+constexpr int kPartTile = kBM * kBN;
+
+// Split-K epilogue of the bf16 tiles: the last split of tile `tile` sums the
+// splits' dense partial tiles (part[(split * tiles + tile) * kPartTile]) in
+// split order into C, then zeroes the tile's counter for the next call.
+__device__ __forceinline__ void finish_tile_splits(
+    __nv_bfloat16* C, const float* part, int* counter, int64_t M, int64_t N,
+    int splits, int64_t tiles, int64_t tile, int64_t m0, int64_t n0) {
+  if (!last_split(counter, splits)) return;
+  const float4* p = reinterpret_cast<const float4*>(part + tile * kPartTile);
+  const int64_t step = tiles * kPartTile / 4;  // float4s from split to split
+  for (int i = threadIdx.x; i < kPartTile / 4; i += kTileThreads) {
+    const int64_t m = m0 + i / (kBN / 4), n = n0 + (i % (kBN / 4)) * 4;
+    if (m >= M) break;  // rows only grow with i
+    float4 s = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8  // independent loads in flight; the sum keeps split order
+    for (int sp = 0; sp < splits; ++sp) {
+      const float4 x = __ldcg(p + sp * step + i);
+      s.x += x.x; s.y += x.y; s.z += x.z; s.w += x.w;
+    }
+    const float v[4] = {s.x, s.y, s.z, s.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (n + e < N) C[m * N + n + e] = __float2bfloat16(v[e]);
+  }
+  if (threadIdx.x == 0) *counter = 0;
+}
+
 // bf16: mma.sync m16n8k16 on the tensor cores.  8 warps as 2 (M) x 4 (N),
-// each warp a 64x32 tile: 4 x 4 fragments of 16x8.
-template <bool COLB, bool VEC>
+// each warp a 64x32 tile: 4 x 4 fragments of 16x8.  ACOL: A staged along M
+// and K split over blockIdx.z, `ktiles` K tiles a split; with splits > 1
+// the splits' partials are summed in the launch (part, counters).
+template <bool COLB, bool VEC, bool ACOL>
 __global__ void __launch_bounds__(kTileThreads)
 tiled_bf16_kernel(const __nv_bfloat16* __restrict__ A,
                   const __nv_bfloat16* __restrict__ B,
-                  __nv_bfloat16* __restrict__ C, int64_t M, int64_t N,
+                  __nv_bfloat16* __restrict__ C, float* __restrict__ part,
+                  int* __restrict__ counters, int64_t M, int64_t N,
                   int64_t K, int64_t sam, int64_t sak, int64_t sbk,
-                  int64_t sbn) {
+                  int64_t sbn, int ktiles, int splits) {
   using T = __nv_bfloat16;
-  using S = TileSmem<T, COLB>;
+  using S = TileSmem<T, COLB, ACOL>;
   constexpr int BK = TileCfg<T>::BK, STAGES = TileCfg<T>::STAGES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int64_t m0 = (int64_t)blockIdx.y * kBM, n0 = (int64_t)blockIdx.x * kBN;
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   const int wm = (warp / 4) * 64, wn = (warp % 4) * 32;
-  const int64_t nk = (K + BK - 1) / BK;
+  // this block's K tiles [kt0, kt1)
+  int64_t kt0 = 0, kt1 = (K + BK - 1) / BK;
+  if constexpr (ACOL) {
+    kt0 = (int64_t)blockIdx.z * ktiles;
+    kt1 = kt1 < kt0 + ktiles ? kt1 : kt0 + ktiles;
+  }
 
 #pragma unroll
   for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < nk)
-      load_stage<T, COLB, VEC>(smem, st, st, A, B, M, N, K, m0, n0, sam, sak,
-                               sbk, sbn);
+    if (kt0 + st < kt1)
+      load_stage<T, COLB, VEC, ACOL>(smem, st, kt0 + st, A, B, M, N, K, m0,
+                                     n0, sam, sak, sbk, sbn);
     cp_async_commit();
   }
   float acc[4][4][4];
@@ -593,23 +651,32 @@ tiled_bf16_kernel(const __nv_bfloat16* __restrict__ A,
 #pragma unroll
       for (int r = 0; r < 4; ++r) acc[i][j][r] = 0.f;
 
-  for (int64_t kt = 0; kt < nk; ++kt) {
+  for (int64_t kt = kt0; kt < kt1; ++kt) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();
     const int64_t nxt = kt + STAGES - 1;
-    if (nxt < nk)
-      load_stage<T, COLB, VEC>(smem, (int)(nxt % STAGES), nxt, A, B, M, N, K,
-                               m0, n0, sam, sak, sbk, sbn);
+    if (nxt < kt1)
+      load_stage<T, COLB, VEC, ACOL>(smem, (int)((nxt - kt0) % STAGES), nxt,
+                                     A, B, M, N, K, m0, n0, sam, sak, sbk,
+                                     sbn);
     cp_async_commit();
-    const T* As = smem + (kt % STAGES) * S::STAGE;
+    const T* As = smem + ((kt - kt0) % STAGES) * S::STAGE;
     const T* Bs = As + S::A_ELEMS;
 #pragma unroll
     for (int ks = 0; ks < BK; ks += 16) {
       uint32_t a[4][4], b[4][2];
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-        ldmatrix_x4(a[i], As + (wm + i * 16 + (lane & 15)) * S::LDA + ks +
-                              (lane >> 4) * 8);
+      for (int i = 0; i < 4; ++i) {
+        // ACOL: lanes 8j..8j+7 address the k rows of the fragment's
+        // 8x8 matrix j, at m + 8 (j & 1) and k + 8 (j >> 1)
+        if constexpr (ACOL)
+          ldmatrix_x4_trans(a[i], As + (ks + (lane & 7) + (lane >> 4) * 8) *
+                                           S::LDA + wm + i * 16 +
+                                           ((lane >> 3) & 1) * 8);
+        else
+          ldmatrix_x4(a[i], As + (wm + i * 16 + (lane & 15)) * S::LDA + ks +
+                                (lane >> 4) * 8);
+      }
 #pragma unroll
       for (int p = 0; p < 2; ++p) {
         uint32_t r[4];
@@ -631,6 +698,27 @@ tiled_bf16_kernel(const __nv_bfloat16* __restrict__ A,
   }
   cp_async_wait<0>();
 
+  if constexpr (ACOL) {
+    if (splits > 1) {
+      // this split's dense partial tile, then the last split's sum
+      const int64_t tiles = (int64_t)gridDim.x * gridDim.y;
+      const int64_t tile = (int64_t)blockIdx.y * gridDim.x + blockIdx.x;
+      float* p = part + ((int64_t)blockIdx.z * tiles + tile) * kPartTile;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            *reinterpret_cast<float2*>(
+                p + (wm + i * 16 + lane / 4 + h * 8) * kBN + wn + j * 8 +
+                (lane % 4) * 2) =
+                make_float2(acc[i][j][2 * h], acc[i][j][2 * h + 1]);
+      finish_tile_splits(C, part, counters + tile, M, N, splits, tiles, tile,
+                         m0, n0);
+      return;
+    }
+  }
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -647,17 +735,29 @@ tiled_bf16_kernel(const __nv_bfloat16* __restrict__ A,
     }
 }
 
-template <bool COLB, bool VEC>
-auto tiled_kernel(float*) { return tiled_f32_kernel<COLB, VEC>; }
-template <bool COLB, bool VEC>
-auto tiled_kernel(__nv_bfloat16*) { return tiled_bf16_kernel<COLB, VEC>; }
+template <bool COLB, bool VEC, bool ACOL>
+auto tiled_kernel(float*) {
+  static_assert(!ACOL, "f32 stages A along K only");
+  return tiled_f32_kernel<COLB, VEC>;
+}
+template <bool COLB, bool VEC, bool ACOL>
+auto tiled_kernel(__nv_bfloat16*) {
+  return tiled_bf16_kernel<COLB, VEC, ACOL>;
+}
 
-template <typename T, bool COLB, bool VEC>
-cudaError_t launch_tiled(const T* A, const T* B, T* C, int64_t M, int64_t N,
-                         int64_t K, int64_t sam, int64_t sak, int64_t sbk,
-                         int64_t sbn, cudaStream_t s) {
-  constexpr int bytes = TileSmem<T, COLB>::BYTES;
-  const auto kernel = tiled_kernel<COLB, VEC>(static_cast<T*>(nullptr));
+// ACOL: kchunk-deep K splits (a multiple of BK), `splits` of them over
+// blockIdx.z; with splits > 1 part holds splits x tiles partial tiles and
+// counters one zeroed int per output tile, where tiles (the wrapper's count,
+// which sized them) must be the grid's.
+template <typename T, bool COLB, bool VEC, bool ACOL = false>
+cudaError_t launch_tiled(const T* A, const T* B, T* C, float* part,
+                         int* counters, int64_t M, int64_t N, int64_t K,
+                         int64_t sam, int64_t sak, int64_t sbk, int64_t sbn,
+                         int kchunk, int splits, int64_t plan_tiles,
+                         cudaStream_t s) {
+  constexpr int bytes = TileSmem<T, COLB, ACOL>::BYTES;
+  constexpr int BK = TileCfg<T>::BK;
+  const auto kernel = tiled_kernel<COLB, VEC, ACOL>(static_cast<T*>(nullptr));
   // above 48 KB of dynamic shared memory only with the attribute (set on
   // every launch: it is per device)
   const cudaError_t attr = cudaFuncSetAttribute(
@@ -665,8 +765,25 @@ cudaError_t launch_tiled(const T* A, const T* B, T* C, int64_t M, int64_t N,
   if (attr != cudaSuccess) return attr;
   const int64_t gx = (N + kBN - 1) / kBN, gy = (M + kBM - 1) / kBM;
   if (gx >= (1LL << 31) || gy >= 65536) return cudaErrorInvalidValue;
-  kernel<<<dim3((unsigned)gx, (unsigned)gy), kTileThreads, bytes, s>>>(
-      A, B, C, M, N, K, sam, sak, sbk, sbn);
+  if constexpr (sizeof(T) == 4) {
+    kernel<<<dim3((unsigned)gx, (unsigned)gy), kTileThreads, bytes, s>>>(
+        A, B, C, M, N, K, sam, sak, sbk, sbn);
+  } else {
+    if (ACOL) {
+      // the splits cover K exactly, none empty, and the scratch fits them
+      if (kchunk < BK || kchunk % BK || splits < 1 || splits >= 65536 ||
+          (int64_t)kchunk * splits < K ||
+          (splits > 1 && ((int64_t)kchunk * (splits - 1) >= K ||
+                          plan_tiles != gx * gy || part == nullptr ||
+                          counters == nullptr)))
+        return cudaErrorInvalidValue;
+    } else {
+      splits = 1;
+    }
+    kernel<<<dim3((unsigned)gx, (unsigned)gy, (unsigned)splits), kTileThreads,
+             bytes, s>>>(A, B, C, part, counters, M, N, K, sam, sak, sbk, sbn,
+                         kchunk / BK, splits);
+  }
   return cudaGetLastError();
 }
 
@@ -695,10 +812,20 @@ cudaError_t dispatch(const void* a, const void* b, void* c, int64_t M,
   }
   if (path == 1) {
     switch (variant) {
-      case 0: return launch_tiled<T, false, false>(A, B, C, M, N, K, sam, sak, sbk, sbn, s);
-      case 1: return launch_tiled<T, false, true>(A, B, C, M, N, K, sam, sak, sbk, sbn, s);
-      case 2: return launch_tiled<T, true, false>(A, B, C, M, N, K, sam, sak, sbk, sbn, s);
-      default: return launch_tiled<T, true, true>(A, B, C, M, N, K, sam, sak, sbk, sbn, s);
+      case 0: return launch_tiled<T, false, false>(A, B, C, P, cnt, M, N, K, sam, sak, sbk, sbn, kchunk, splits, tiles, s);
+      case 1: return launch_tiled<T, false, true>(A, B, C, P, cnt, M, N, K, sam, sak, sbk, sbn, kchunk, splits, tiles, s);
+      case 2: return launch_tiled<T, true, false>(A, B, C, P, cnt, M, N, K, sam, sak, sbk, sbn, kchunk, splits, tiles, s);
+      default: return launch_tiled<T, true, true>(A, B, C, P, cnt, M, N, K, sam, sak, sbk, sbn, kchunk, splits, tiles, s);
+    }
+  }
+  if (path == 2) {  // bf16 only: A staged along M
+    if constexpr (sizeof(T) == 2) {
+      switch (variant) {
+        case 0: return launch_tiled<T, false, false, true>(A, B, C, P, cnt, M, N, K, sam, sak, sbk, sbn, kchunk, splits, tiles, s);
+        case 1: return launch_tiled<T, false, true, true>(A, B, C, P, cnt, M, N, K, sam, sak, sbk, sbn, kchunk, splits, tiles, s);
+        case 2: return launch_tiled<T, true, false, true>(A, B, C, P, cnt, M, N, K, sam, sak, sbk, sbn, kchunk, splits, tiles, s);
+        default: return launch_tiled<T, true, true, true>(A, B, C, P, cnt, M, N, K, sam, sak, sbk, sbn, kchunk, splits, tiles, s);
+      }
     }
   }
   return cudaErrorInvalidValue;
@@ -711,16 +838,18 @@ cudaError_t dispatch(const void* a, const void* b, void* c, int64_t M,
 // fixed per shape and cached there, so that a call passes 7 arguments:
 //   p[0..6]  M, N, K, sam, sak, sbk, sbn
 //   p[7]     dtype (DType)
-//   p[8]     path: 0 skinny, 1 tiled
+//   p[8]     path: 0 skinny, 1 tiled, 2 tiled with A staged along M
+//            (bf16, sam == 1: the weight gradient A^T dC)
 //   p[9..10] colb (B read along K, unit stride sbk), vec (16-byte vector
-//            loads are aligned)
+//            loads are aligned: B's, and on path 1 A's too)
 //   p[11..14] skinny: mt rows of A per block, kchunk-deep K splits,
 //            `splits` of them, `blocks` blocks per split walking the output
 //            tiles; part holds splits*M*N floats and counters one zeroed
-//            int per output tile when splits > 1.
+//            int per output tile when splits > 1.  Path 2: kchunk and
+//            splits alike (blockIdx.z), part splits*tiles*128*128 floats.
 //   p[15..16] skinny: the output tiles the wrapper counted (the size of
-//            counters) and their width; a launch whose kernel derives
-//            other values fails with cudaErrorInvalidValue.
+//            counters) and their width; path 2 the tiles; a launch whose
+//            kernel derives other values fails with cudaErrorInvalidValue.
 // Returns cudaGetLastError().
 extern "C" int matmul(const void* a, const void* b, void* c, void* part,
                       void* counters, const int64_t* p, void* stream) {

@@ -14,7 +14,11 @@ dtype and pointer alignment:
   blocks for the card; the splits' partials are summed in a fixed order
   inside the same launch (scratch from ``_build.scratch``);
 * **tiled** (larger M): 128x128 tiles through a cp.async ring, bf16 on the
-  tensor cores, f32 on FMA.
+  tensor cores, f32 on FMA.  The bf16 weight gradient A^T dC, whose A has
+  unit stride along M, stages A along M (``acol``) and, where its output
+  tiles fill less than ``BLOCKS_PER_SM`` blocks an SM, splits its long K
+  (the tokens) over ``splits`` blocks a tile, summed in a fixed order in
+  the same launch.
 
 Choosing a path is not a fallback: a launch that fails raises, and no call
 is retried another way.
@@ -29,6 +33,7 @@ from typing import Tuple
 
 import torch
 
+from .. import obs
 from . import _build
 
 # the skinny path takes M <= this, per dtype and per whether B fits twice
@@ -53,6 +58,9 @@ L2_REREAD_MT, L2_BYTES = 4, 50_000_000
 A_STAGE_FLOATS = 8192        # csrc kAStage: A floats a skinny block stages
 SK_WARPS = 8
 TILE = 128                   # tiled path: BM = BN
+TILE_BK = 64                 # csrc TileCfg<bf16>::BK: depth of a bf16 K tile
+# tiled, A along M: no K split shallower than this many K tiles
+MIN_SPLIT_KTILES = 8
 ELEM_BYTES = {torch.float32: 4, torch.bfloat16: 2}
 # rows of A per skinny block, per dtype (bf16 vectors hold 8 values, so 16
 # rows would need 128 accumulators a thread)
@@ -66,13 +74,15 @@ _ARGTYPES = [ctypes.c_void_p] * 7
 class MatmulPlan:
     path: str                  # "skinny" or "tiled"
     colb: bool                 # B read along K (unit stride along K)
-    vec: bool                  # 16-byte vector loads are aligned
+    vec: bool                  # 16-byte vector loads are aligned (B's;
+                               # tiled with A along K: A's too)
     grid: Tuple[int, int]      # (x, y) blocks; skinny: x walks the tiles
     mt: int = 0                # skinny: rows of A per block
-    kchunk: int = 0            # skinny: depth of one K split
-    splits: int = 1            # skinny: K splits (blockIdx.y)
-    tiles: int = 0             # skinny: output tiles (split-K counters)
+    kchunk: int = 0            # skinny, acol: depth of one K split
+    splits: int = 1            # skinny, acol: K splits (blockIdx.y / .z)
+    tiles: int = 0             # skinny, acol: output tiles (split-K counters)
     bn: int = 0                # skinny: output columns per tile
+    acol: bool = False         # tiled bf16: A staged along M by cp.async
     # the C entry's parameter block (csrc/matmul.cu), built once per plan
     params: ctypes.Array = field(default=None, compare=False, repr=False)
 
@@ -117,12 +127,28 @@ def plan_matmul(M: int, K: int, N: int, strides_a, strides_b, dtype,
     b_vec = (_vec_ok(b_aligned, sbk, sbn, V) if colb
              else _vec_ok(b_aligned, sbn, sbk, V))
     if M > skinny_max:
-        vec = b_vec and _vec_ok(a_aligned, sak, sam, V)
+        a_vec = _vec_ok(a_aligned, sak, sam, V)
         grid = (_cdiv(N, TILE), _cdiv(M, TILE))
         if grid[0] >= 2 ** 31 or grid[1] >= 2 ** 16:
             raise ValueError(f"matmul: ({M}, {N}) exceeds the grid")
-        return _with_params(MatmulPlan("tiled", colb, vec, grid), M, N, K,
-                            strides_a, strides_b, dtype)
+        # A along M (the weight gradient A^T dC), bf16: staged by vectors
+        acol = (dtype == torch.bfloat16 and not a_vec
+                and _vec_ok(a_aligned, sam, sak, V))
+        if not acol:
+            return _with_params(MatmulPlan("tiled", colb, b_vec and a_vec,
+                                           grid), M, N, K, strides_a,
+                                strides_b, dtype)
+        # split K until the tiles reach BLOCKS_PER_SM blocks an SM, no split
+        # shallower than MIN_SPLIT_KTILES K tiles
+        tiles, ktiles = grid[0] * grid[1], max(1, _cdiv(K, TILE_BK))
+        splits = max(1, min(BLOCKS_PER_SM * sms // tiles,
+                            ktiles // MIN_SPLIT_KTILES))
+        per = _cdiv(ktiles, splits)            # K tiles a split
+        return _with_params(MatmulPlan("tiled", colb, b_vec, grid,
+                                       kchunk=per * TILE_BK,
+                                       splits=_cdiv(ktiles, per),
+                                       tiles=tiles, acol=True),
+                            M, N, K, strides_a, strides_b, dtype)
     mts = SKINNY_MT[dtype]
     mt = next((m for m in mts if m >= M), mts[-1])
     if b_in_l2(K, N, dtype):
@@ -146,7 +172,8 @@ def plan_matmul(M: int, K: int, N: int, strides_a, strides_b, dtype,
 def _with_params(plan: MatmulPlan, M, N, K, strides_a, strides_b, dtype):
     """The plan with the C entry's parameter block (csrc/matmul.cu)."""
     vals = (M, N, K, *strides_a, *strides_b, _build.DTYPE_CODES[dtype],
-            int(plan.path == "tiled"), int(plan.colb), int(plan.vec),
+            int(plan.path == "tiled") + int(plan.acol), int(plan.colb),
+            int(plan.vec),
             plan.mt, plan.kchunk, plan.splits, plan.grid[0], plan.tiles,
             plan.bn)
     return replace(plan, params=(ctypes.c_int64 * len(vals))(*vals))
@@ -180,9 +207,13 @@ def matmul_cuda(a: torch.Tensor, b: torch.Tensor,
         return c
     stream = _build.stream()
     part = cnt = None
-    if plan.path == "skinny" and plan.splits > 1:
-        part, cnt = _build.scratch(a.device, stream, plan.splits * M * N,
+    if plan.splits > 1:
+        per_split = plan.tiles * TILE * TILE if plan.acol else M * N
+        part, cnt = _build.scratch(a.device, stream, plan.splits * per_split,
                                    plan.tiles)
+    if plan.acol:
+        obs.count("matmul.acol", 1)
+        obs.count("matmul.splits", plan.splits)
     launch = _build.entry("matmul", _ARGTYPES)
     err = launch(a.data_ptr(), b.data_ptr(), c.data_ptr(),
                  None if part is None else part.data_ptr(),

@@ -33,7 +33,9 @@ The spans (each module's docstring says what its spans cover):
 ``engine.decode``, ``engine.sample`` (``serve/engine.py``); ``train.step``,
 ``train.forward``, ``train.backward``, ``train.optimizer``
 (``train/step.py``); ``model.moe_ffn`` (``models/moe.py``).  The counters:
-``moe.pairs``, ``moe.rows``, ``moe.kept`` (``models/moe.py``).
+``moe.pairs``, ``moe.rows``, ``moe.kept`` (``models/moe.py``);
+``matmul.acol`` (launches that stage A along M: the bf16 weight gradient)
+and ``matmul.splits`` (their K splits) (``kernels/matmul.py``).
 """
 
 from __future__ import annotations

@@ -228,6 +228,63 @@ def test_matmul_rejects_a_plan_with_other_tiles(cuda_device, colb):
                                rtol=1e-5, atol=8e-5)
 
 
+# the weight gradient A^T dC in bf16: the train cells' dW shapes (M, K, N)
+# (smollm-135m at 16 x 2048 tokens, phi3.5-moe's experts at 1280 rows and
+# attention at 8192 tokens), ragged ones (M, N and K no multiple of the
+# 128 x 128 tile or the 64-deep K tile; N = 201: B by elements), and A^T
+# off alignment ("offset": the pointer; M = 577: the row stride), which
+# keep the scalar variant
+DW_CASES = [(576, 32768, 576), (576, 32768, 192), (576, 32768, 1536),
+            (1536, 32768, 576), (4096, 1280, 6400), (6400, 1280, 4096),
+            (4096, 8192, 4096), (584, 4133, 200), (584, 20011, 201),
+            (136, 100003, 72), (1000, 777, 1000), (576, 32768, "offset"),
+            (577, 4096, 576)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", DW_CASES)
+def test_matmul_weight_gradient_a_transposed(cuda_device, case):
+    """bf16 A^T dC against the plain version in f32, bit-identical on a
+    repeat call (the K splits are summed in a fixed order); the split-K
+    counters are back at zero after the call; under a profiler session
+    the ``matmul.acol`` and ``matmul.splits`` counters read the plan."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import obs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.matmul import plan_for
+    M, K, N = case
+    offset = N == "offset"
+    N = 576 if offset else N
+    rng = np.random.default_rng(27)
+    buf = _dev(rng.standard_normal(K * M + offset, np.float32), torch.bfloat16,
+               cuda_device)
+    a = buf[int(offset):].view(K, M).T
+    b = _dev(rng.standard_normal((K, N), np.float32) / np.sqrt(K),
+             torch.bfloat16, cuda_device)
+    plan = plan_for(a, b)
+    assert plan.path == "tiled"
+    assert plan.acol == (not offset and M % 8 == 0)
+    assert plan.vec == (plan.acol and N % 8 == 0)
+    got, again = ops.matmul(a, b), ops.matmul(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got.float(),
+                               ref.matmul_ref(a.float(), b.float()),
+                               rtol=1e-2, atol=1e-2)
+    if plan.splits > 1:
+        _, cnt = _build._scratch[(a.device.index, _build.stream())]
+        assert not cnt.any()
+    with obs.span("untraced"):      # the session's recorder starts afresh
+        pass
+    with profile(activities=[ProfilerActivity.CPU]):
+        with obs.span("traced"):    # recorded: the scalar variant counts none
+            ops.matmul(a, b)
+    assert obs.counters() == ({"other": {"matmul.acol": 1,
+                                         "matmul.splits": plan.splits}}
+                              if plan.acol else {})
+
+
 # -- the redesigned flash attention ------------------------------------------
 
 @pytest.mark.cuda
@@ -823,26 +880,30 @@ def test_rmsnorm_bwd_strided_and_tampered(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("mkn", [(64, 576, 576), (64, 576, 1536),
                                  (64, 1536, 576), (32, 576, 192),
-                                 (37, 100, 51)])
+                                 (37, 100, 51), (32768, 576, 1536)])
 def test_matmul_backward_on_transposed_views(cuda_device, mkn):
     """dA = dC B^T and dB = A^T dC through the forward kernel on
-    transposed views (A^T has unit stride along its rows)."""
+    transposed views (A^T has unit stride along its rows); f32, and bf16
+    at a training microbatch's 32768 tokens (dB's K, split over blocks)."""
     M, K, N = mkn
+    dtype = torch.bfloat16 if M == 32768 else torch.float32
     rng = np.random.default_rng(25)
-    a = _dev(rng.standard_normal((M, K), np.float32), torch.float32,
+    a = _dev(rng.standard_normal((M, K), np.float32), dtype,
              cuda_device).requires_grad_()
     b = _dev((rng.standard_normal((K, N)) / np.sqrt(K)).astype(np.float32),
-             torch.float32, cuda_device).requires_grad_()
-    dc = _dev(rng.standard_normal((M, N), np.float32), torch.float32,
+             dtype, cuda_device).requires_grad_()
+    # bf16: dC scaled so that dB = A^T dC, a sum over M, stays near 1
+    dscale = 1.0 / np.sqrt(M) if dtype == torch.bfloat16 else 1.0
+    dc = _dev(rng.standard_normal((M, N), np.float32) * dscale, dtype,
               cuda_device)
     n0 = ops.launches["matmul"]
     da, db = torch.autograd.grad(ops.matmul(a, b), (a, b), dc)
     torch.cuda.synchronize()
     assert ops.launches["matmul"] == n0 + 3
-    torch.testing.assert_close(da, ref.matmul_ref(dc, b.detach().T),
-                               rtol=1e-5, atol=1e-4)
-    torch.testing.assert_close(db, ref.matmul_ref(a.detach().T, dc),
-                               rtol=1e-5, atol=1e-4)
+    tol = dict(rtol=1e-5, atol=1e-4) if dtype == torch.float32 else \
+        dict(rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(da, ref.matmul_ref(dc, b.detach().T), **tol)
+    torch.testing.assert_close(db, ref.matmul_ref(a.detach().T, dc), **tol)
 
 
 @pytest.mark.cuda

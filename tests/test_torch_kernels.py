@@ -22,8 +22,9 @@ from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.flash_attention import (
     BK_TILES, HEAD_DIMS, ROWS, bwd_scratch, flash_attention_cuda, kv_tile,
     plan_flash, plan_flash_bwd)
-from repro_torch.kernels.matmul import (A_STAGE_FLOATS, SKINNY_MAX_M,
-                                        SKINNY_MAX_M_ROWB_BEYOND_L2,
+from repro_torch.kernels.matmul import (A_STAGE_FLOATS, BLOCKS_PER_SM,
+                                        MIN_SPLIT_KTILES, SKINNY_MAX_M,
+                                        SKINNY_MAX_M_ROWB_BEYOND_L2, TILE_BK,
                                         matmul_cuda, plan_matmul,
                                         skinny_max_m)
 from repro_torch.kernels.rmsnorm import (MAX_NV, VARIANTS, plan_rmsnorm,
@@ -310,6 +311,158 @@ def test_matmul_plan_tied_head_reads_along_k():
     assert plan.colb and plan.vec and plan.path == "skinny"
     rowb = plan_matmul(4, 576, 49152, (576, 1), (49152, 1), torch.float32)
     assert not rowb.colb
+
+
+# the train cells' weight gradients dW = A^T dC as (M, K, N), A^T a
+# transposed view of the (K, M) activation (unit stride along M):
+# smollm-135m's q/o, k/v, gate/up and down at 16 x 2048 tokens a
+# microbatch; phi3.5-moe's expert up and down at 1280 rows (the capacity)
+# and its attention projections at 2 x 4096 tokens
+DW_SHAPES = [(576, 32768, 576), (576, 32768, 192), (576, 32768, 1536),
+             (1536, 32768, 576), (4096, 1280, 6400), (6400, 1280, 4096),
+             (4096, 8192, 4096)]
+
+
+def _check_splits(plan, K, sms=132):
+    """An A-along-M plan's K splits: each a whole number of K tiles, none
+    empty, none shallower than MIN_SPLIT_KTILES tiles where K is split,
+    and split only while the tiles fill less than one wave."""
+    tiles, wave = plan.grid[0] * plan.grid[1], BLOCKS_PER_SM * sms
+    assert plan.tiles == tiles and plan.params[8] == 2
+    assert plan.kchunk % TILE_BK == 0 and plan.kchunk >= TILE_BK
+    assert plan.splits * plan.kchunk >= K > (plan.splits - 1) * plan.kchunk \
+        or K == 0
+    if plan.splits > 1:
+        assert plan.kchunk >= MIN_SPLIT_KTILES * TILE_BK
+        assert tiles * plan.splits <= wave
+    if tiles >= wave:
+        assert plan.splits == 1
+
+
+@pytest.mark.parametrize("mkn", DW_SHAPES)
+def test_matmul_plan_weight_gradient_stages_a_along_m(mkn):
+    """bf16 A^T dC takes the tiled path with A staged along M by vectors
+    and B by its own vectors; K is split exactly where the unsplit grid
+    is under one wave (smollm's 10-60 tiles), to about two blocks an SM,
+    and not at all where the grid fills the card (every phi product)."""
+    M, K, N = mkn
+    plan = plan_matmul(M, K, N, (1, M), (N, 1), torch.bfloat16)
+    _check_plan(plan, M, K, N)
+    assert plan.path == "tiled" and plan.acol and plan.vec and not plan.colb
+    _check_splits(plan, K)
+    tiles = plan.grid[0] * plan.grid[1]
+    assert (plan.splits > 1) == (tiles < BLOCKS_PER_SM * 132)
+    if M >= 4096:
+        assert plan.splits == 1
+    else:
+        assert tiles * (plan.splits + 1) > BLOCKS_PER_SM * 132
+
+
+@pytest.mark.parametrize("K", [0, 1, 63, 64, 511, 512, 513, 1024, 1025,
+                               4097, 32768, 100003])
+@pytest.mark.parametrize("sms", [1, 66, 132, 144])
+def test_matmul_plan_weight_gradient_splits_cover_k(K, sms):
+    """At every K and SM count the splits cover K in whole K tiles."""
+    for M, N in ((576, 192), (576, 576), (1536, 576), (4096, 4096)):
+        plan = plan_matmul(M, K, N, (1, M), (N, 1), torch.bfloat16, sms=sms)
+        assert plan.acol
+        _check_splits(plan, K, sms)
+
+
+# plan_matmul's plans before A along M was staged by vectors, for products
+# whose A is read along K (the forward, dA = dC W^T, serving, f32) and for
+# A^T that stays on the scalar variant (f32, a misaligned pointer, a row
+# stride that is no multiple of 8): (label, M, K, N, strides of A and B,
+# dtype, A aligned, (path, colb, vec, grid, mt, kchunk, splits, tiles,
+# bn), the C parameter block)
+A_ALONG_K_PLANS = [
+    ("smollm fwd q/o", 32768, 576, 576, (576, 1), (576, 1), "bf16", True,
+     ("tiled", False, True, (5, 256), 0, 0, 1, 0, 0),
+     (32768, 576, 576, 576, 1, 576, 1, 1, 1, 0, 1, 0, 0, 1, 5, 0, 0)),
+    ("smollm fwd k/v", 32768, 576, 192, (576, 1), (192, 1), "bf16", True,
+     ("tiled", False, True, (2, 256), 0, 0, 1, 0, 0),
+     (32768, 192, 576, 576, 1, 192, 1, 1, 1, 0, 1, 0, 0, 1, 2, 0, 0)),
+    ("smollm fwd gate/up", 32768, 576, 1536, (576, 1), (1536, 1), "bf16", True,
+     ("tiled", False, True, (12, 256), 0, 0, 1, 0, 0),
+     (32768, 1536, 576, 576, 1, 1536, 1, 1, 1, 0, 1, 0, 0, 1, 12, 0, 0)),
+    ("smollm fwd down", 32768, 1536, 576, (1536, 1), (576, 1), "bf16", True,
+     ("tiled", False, True, (5, 256), 0, 0, 1, 0, 0),
+     (32768, 576, 1536, 1536, 1, 576, 1, 1, 1, 0, 1, 0, 0, 1, 5, 0, 0)),
+    ("smollm dA q/o", 32768, 576, 576, (576, 1), (1, 576), "bf16", True,
+     ("tiled", True, True, (5, 256), 0, 0, 1, 0, 0),
+     (32768, 576, 576, 576, 1, 1, 576, 1, 1, 1, 1, 0, 0, 1, 5, 0, 0)),
+    ("smollm dA k/v", 32768, 192, 576, (192, 1), (1, 192), "bf16", True,
+     ("tiled", True, True, (5, 256), 0, 0, 1, 0, 0),
+     (32768, 576, 192, 192, 1, 1, 192, 1, 1, 1, 1, 0, 0, 1, 5, 0, 0)),
+    ("smollm dA gate/up", 32768, 1536, 576, (1536, 1), (1, 1536), "bf16", True,
+     ("tiled", True, True, (5, 256), 0, 0, 1, 0, 0),
+     (32768, 576, 1536, 1536, 1, 1, 1536, 1, 1, 1, 1, 0, 0, 1, 5, 0, 0)),
+    ("smollm dA down", 32768, 576, 1536, (576, 1), (1, 576), "bf16", True,
+     ("tiled", True, True, (12, 256), 0, 0, 1, 0, 0),
+     (32768, 1536, 576, 576, 1, 1, 576, 1, 1, 1, 1, 0, 0, 1, 12, 0, 0)),
+    ("phi fwd expert up", 1280, 4096, 6400, (4096, 1), (6400, 1), "bf16", True,
+     ("tiled", False, True, (50, 10), 0, 0, 1, 0, 0),
+     (1280, 6400, 4096, 4096, 1, 6400, 1, 1, 1, 0, 1, 0, 0, 1, 50, 0, 0)),
+    ("phi fwd expert down",
+     1280, 6400, 4096, (6400, 1), (4096, 1), "bf16", True,
+     ("tiled", False, True, (32, 10), 0, 0, 1, 0, 0),
+     (1280, 4096, 6400, 6400, 1, 4096, 1, 1, 1, 0, 1, 0, 0, 1, 32, 0, 0)),
+    ("phi dA expert up", 1280, 6400, 4096, (6400, 1), (1, 6400), "bf16", True,
+     ("tiled", True, True, (32, 10), 0, 0, 1, 0, 0),
+     (1280, 4096, 6400, 6400, 1, 1, 6400, 1, 1, 1, 1, 0, 0, 1, 32, 0, 0)),
+    ("phi fwd attn", 8192, 4096, 4096, (4096, 1), (4096, 1), "bf16", True,
+     ("tiled", False, True, (32, 64), 0, 0, 1, 0, 0),
+     (8192, 4096, 4096, 4096, 1, 4096, 1, 1, 1, 0, 1, 0, 0, 1, 32, 0, 0)),
+    ("phi prefill q", 4032, 4096, 4096, (4096, 1), (4096, 1), "bf16", True,
+     ("tiled", False, True, (32, 32), 0, 0, 1, 0, 0),
+     (4032, 4096, 4096, 4096, 1, 4096, 1, 1, 1, 0, 1, 0, 0, 1, 32, 0, 0)),
+    ("phi decode q", 128, 4096, 4096, (4096, 1), (4096, 1), "bf16", True,
+     ("skinny", False, True, (256, 4), 8, 1024, 4, 256, 256),
+     (128, 4096, 4096, 4096, 1, 4096, 1, 1, 0, 0, 1, 8, 1024, 4, 256, 256,
+      256)),
+    ("phi decode head", 128, 4096, 32064, (4096, 1), (32064, 1), "bf16", True,
+     ("skinny", False, True, (264, 4), 8, 1024, 4, 2016, 256),
+     (128, 32064, 4096, 4096, 1, 32064, 1, 1, 0, 0, 1, 8, 1024, 4, 264, 2016,
+      256)),
+    ("smollm decode q f32", 4, 576, 576, (576, 1), (576, 1), "f32", True,
+     ("skinny", False, True, (5, 9), 4, 64, 9, 5, 128),
+     (4, 576, 576, 576, 1, 576, 1, 0, 0, 0, 1, 4, 64, 9, 5, 5, 128)),
+    ("smollm decode head f32", 4, 576, 49152, (576, 1), (1, 576), "f32", True,
+     ("skinny", True, True, (264, 1), 4, 576, 1, 768, 64),
+     (4, 49152, 576, 576, 1, 1, 576, 0, 0, 1, 1, 4, 576, 1, 264, 768, 64)),
+    ("smollm prefill head f32", 1, 576, 49152, (576, 1), (1, 576), "f32", True,
+     ("skinny", True, True, (264, 1), 1, 576, 1, 768, 64),
+     (1, 49152, 576, 576, 1, 1, 576, 0, 0, 1, 1, 1, 576, 1, 264, 768, 64)),
+    ("smollm head fwd f32", 32768, 576, 49152, (576, 1), (1, 576), "f32", True,
+     ("tiled", True, True, (384, 256), 0, 0, 1, 0, 0),
+     (32768, 49152, 576, 576, 1, 1, 576, 0, 1, 1, 1, 0, 0, 1, 384, 0, 0)),
+    ("smollm head dX f32",
+     32768, 49152, 576, (49152, 1), (576, 1), "f32", True,
+     ("tiled", False, True, (5, 256), 0, 0, 1, 0, 0),
+     (32768, 576, 49152, 49152, 1, 576, 1, 0, 1, 0, 1, 0, 0, 1, 5, 0, 0)),
+    ("smollm head dW f32 (A along M)",
+     576, 32768, 49152, (1, 576), (49152, 1), "f32", True,
+     ("tiled", False, False, (384, 5), 0, 0, 1, 0, 0),
+     (576, 49152, 32768, 1, 576, 49152, 1, 0, 1, 0, 0, 0, 0, 1, 384, 0, 0)),
+    ("bf16 A^T misaligned", 576, 32768, 576, (1, 576), (576, 1), "bf16", False,
+     ("tiled", False, False, (5, 5), 0, 0, 1, 0, 0),
+     (576, 576, 32768, 1, 576, 576, 1, 1, 1, 0, 0, 0, 0, 1, 5, 0, 0)),
+    ("bf16 A^T odd row stride",
+     575, 4096, 576, (1, 575), (576, 1), "bf16", True,
+     ("tiled", False, False, (5, 5), 0, 0, 1, 0, 0),
+     (575, 576, 4096, 1, 575, 576, 1, 1, 1, 0, 0, 0, 0, 1, 5, 0, 0)),
+]
+
+
+@pytest.mark.parametrize("case", A_ALONG_K_PLANS, ids=lambda c: c[0])
+def test_matmul_plan_unchanged_where_a_is_read_along_k(case):
+    _, M, K, N, sa, sb, dt, aligned, fields, params = case
+    dtype = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    plan = plan_matmul(M, K, N, sa, sb, dtype, aligned, True)
+    assert not plan.acol
+    assert (plan.path, plan.colb, plan.vec, plan.grid, plan.mt, plan.kchunk,
+            plan.splits, plan.tiles, plan.bn) == fields
+    assert tuple(plan.params) == params
 
 
 @pytest.mark.parametrize("hk", [(9, 3), (4, 4), (16, 2), (8, 1), (72, 1),
