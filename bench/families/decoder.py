@@ -1,8 +1,11 @@
-"""The plain reference: a decoder of period 1 (GQA attention, then a gated
-dense FFN or a capacity-dropping MoE) in float32 PyTorch, with no kernel,
-cache or batching of the program.
+"""The family of ``model_type`` ``llama`` and ``phimoe``: a decoder of
+period 1, GQA attention then a gated dense FFN or a capacity-dropping MoE.
+Its spec, the program's configuration, the weights' layout, the plain
+reference and the work counts, in that order (the family interface:
+``bench/families/__init__.py``).
 
-It follows the equations the configuration states (``assumed`` in its
+The reference, in float32 PyTorch with no kernel, cache or batching of the
+program, follows the equations the configuration states (``assumed`` in its
 file): RMSNorm scaled by (1 + w); rotary embeddings on the two halves of
 each head (theta from the config); causal attention with each query head
 reading key head h // (H / KVH); the dense FFN silu(h Wg) * (h Wu) Wd on
@@ -20,80 +23,156 @@ The parameters are a dict of groups in the program's layout: ``embed``
 ``mix_wq`` (D, H dh), ``mix_wk``/``mix_wv`` (D, KVH dh), ``mix_wo``,
 ``ffn_ln`` and either ``ffn_w_gate``/``ffn_w_up`` (D, F), ``ffn_w_down``
 or ``ffn_router`` (D, E) and the expert stacks (E, D, F)/(E, F, D).
+
+The counts: a layer's products are the attention projections, then the
+dense FFN or the router and the experts' products over the T x top_k
+routed pairs (no capacity padding), each expert's weights read once; a
+decode step's expert products read every expert's weights; attention is
+the flash kernel at (H, KVH, dh).
 """
 
 from __future__ import annotations
 
 import itertools
 import math
-from typing import Optional
+import sys
+from dataclasses import dataclass, field
+from typing import Iterable, Optional
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..cost import Work, causal_pairs, flash, matmul
+from ..reference.shared import F32, Precision, capacity
+
+# -- the spec -----------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ModelSpec:
+    """The shapes and dtypes the benchmark reads from a configuration."""
+
+    name: str
+    model_type: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    d_ff: int
+    vocab: int
+    tie_embeddings: bool
+    norm_eps: float
+    rope_theta: float
+    param_dtype: str
+    compute_dtype: str
+    logits_dtype: str
+    n_experts: int = 0
+    top_k: int = 0
+    d_ff_expert: int = 0
+    capacity_factor: float = 1.25
+    norm_init_std: float = 0.1
+    embed_init_std: float = 0.02
+    residual_init_scale: float = 1.0
+    family: object = field(default=None, compare=False, repr=False)
+
+
+# the configuration keys read into ``ModelSpec`` beyond the shared ones,
+# and the values it builds
+READ = {"num_hidden_layers", "hidden_size", "num_attention_heads",
+        "num_key_value_heads", "head_dim", "intermediate_size",
+        "vocab_size", "tie_word_embeddings", "rms_norm_eps", "rope_theta",
+        "num_local_experts", "num_experts_per_tok"}
+BUILT = {"hidden_act": {"silu"}}
+
+
+def spec(cfg: dict) -> ModelSpec:
+    run = cfg["run"]
+    D, H = cfg["hidden_size"], cfg["num_attention_heads"]
+    E = cfg.get("num_local_experts", 0)
+    return ModelSpec(
+        name=cfg["name"], model_type=cfg["model_type"],
+        n_layers=cfg["num_hidden_layers"], d_model=D,
+        n_heads=H, n_kv_heads=cfg["num_key_value_heads"],
+        head_dim=cfg.get("head_dim") or D // H,
+        d_ff=0 if E else cfg["intermediate_size"],
+        vocab=cfg["vocab_size"],
+        tie_embeddings=cfg["tie_word_embeddings"],
+        norm_eps=cfg["rms_norm_eps"], rope_theta=cfg["rope_theta"],
+        param_dtype=run["param_dtype"], compute_dtype=run["compute_dtype"],
+        logits_dtype=run["logits_dtype"], n_experts=E,
+        top_k=cfg.get("num_experts_per_tok", 0),
+        d_ff_expert=cfg["intermediate_size"] if E else 0,
+        capacity_factor=run.get("capacity_factor", 1.25),
+        norm_init_std=run["norm_init_std"],
+        embed_init_std=run.get("embed_init_std", 0.02),
+        residual_init_scale=run.get("residual_init_scale", 1.0))
+
+
+# -- the program's configuration and the weights' layout ----------------------
+
+def arch_config(spec):
+    from repro_torch.configs.base import ArchConfig, MoEConfig
+    moe = None
+    if spec.n_experts:
+        moe = MoEConfig(n_experts=spec.n_experts, top_k=spec.top_k,
+                        d_ff_expert=spec.d_ff_expert,
+                        capacity_factor=spec.capacity_factor)
+    return ArchConfig(
+        name=spec.name, family="moe" if moe else "dense",
+        n_layers=spec.n_layers, d_model=spec.d_model, n_heads=spec.n_heads,
+        n_kv_heads=spec.n_kv_heads, d_ff=spec.d_ff or spec.d_ff_expert,
+        vocab=spec.vocab, pattern=("attn",),
+        ffn_pattern=("moe",) if moe else ("dense",), moe=moe,
+        d_head=spec.head_dim, rope_theta=spec.rope_theta,
+        norm_eps=spec.norm_eps, tie_embeddings=spec.tie_embeddings)
+
+
+def layout(spec):
+    """(shape, std) of every parameter, in the program's layout: groups
+    ``pos0`` (each layer weight stacked over the layers), ``embed``,
+    ``head`` (untied only) and ``final``.  The embedding N(0,
+    ``embed_init_std``^2), each product's weight N(0, 1 / fan_in), the
+    products that end a residual branch (``wo``, ``w_down``) scaled further
+    by ``residual_init_scale`` (GPT-2's 1 / sqrt(2 L), so that the residual
+    stays near the embedding's scale through many layers), each norm weight
+    N(0, ``norm_init_std``^2) (not zero: a zero norm weight would hide a
+    program that scales by w instead of 1 + w)."""
+    D, V, L = spec.d_model, spec.vocab, spec.n_layers
+    H, KV, dh = spec.n_heads, spec.n_kv_heads, spec.head_dim
+    ln = spec.norm_init_std
+    pos = {"mix_ln": ((L, D), ln),
+           "mix_wq": ((L, D, H * dh), D), "mix_wk": ((L, D, KV * dh), D),
+           "mix_wv": ((L, D, KV * dh), D), "mix_wo": ((L, H * dh, D), H * dh),
+           "ffn_ln": ((L, D), ln)}
+    if spec.n_experts:
+        E, Fe = spec.n_experts, spec.d_ff_expert
+        pos.update({"ffn_router": ((L, D, E), D),
+                    "ffn_w_gate": ((L, E, D, Fe), D),
+                    "ffn_w_up": ((L, E, D, Fe), D),
+                    "ffn_w_down": ((L, E, Fe, D), Fe)})
+    else:
+        F_ = spec.d_ff
+        pos.update({"ffn_w_gate": ((L, D, F_), D),
+                    "ffn_w_up": ((L, D, F_), D),
+                    "ffn_w_down": ((L, F_, D), F_)})
+    out = {"pos0": {k: (s, v if k.endswith("_ln") else 1 / math.sqrt(v)
+                        * (spec.residual_init_scale
+                           if k in ("mix_wo", "ffn_w_down") else 1.0))
+                    for k, (s, v) in pos.items()},
+           "embed": {"tok": ((V, D), spec.embed_init_std)}}
+    if not spec.tie_embeddings:
+        out["head"] = {"w": ((D, V), 1 / math.sqrt(D))}
+    out["final"] = {"ln": ((D,), ln)}
+    return out
+
+
+# -- the reference ------------------------------------------------------------
+
 # rows of queries (and of the head's logits) a block of the reference
 QUERY_BLOCK = 1024
 HEAD_ROWS = 4096
-
-
-def _fp8(t: torch.Tensor) -> torch.Tensor:
-    """t scaled by its largest magnitude, rounded to float8 e4m3, scaled
-    back."""
-    scale = t.abs().amax().clamp(min=1e-30) / 448.0
-    return (t / scale).to(torch.float8_e4m3fn).to(t.dtype) * scale
-
-
-class _Fp8Product(torch.autograd.Function):
-    """a @ b with every operand of the forward and of the backward's two
-    products (a, b and the output's gradient) rounded to float8."""
-
-    @staticmethod
-    def forward(ctx, a, b):
-        qa, qb = _fp8(a), _fp8(b)
-        ctx.save_for_backward(qa, qb)
-        return qa @ qb
-
-    @staticmethod
-    def backward(ctx, dc):
-        qa, qb = ctx.saved_tensors
-        qdc = _fp8(dc)
-        return qdc @ qb.transpose(-1, -2), qa.transpose(-1, -2) @ qdc
-
-
-class Precision:
-    """The products' arithmetic: ``"float32"`` exact f32 (TF32 off), or a
-    control's lower precision, ``"float8"``: each operand of a product,
-    and in the backward each operand of its two products, scaled by its
-    largest magnitude, rounded to float8 e4m3 and multiplied in f32."""
-
-    def __init__(self, name: str = "float32"):
-        if name not in ("float32", "float8"):
-            raise ValueError(f"unknown precision {name!r}")
-        self.name = name
-
-    def mm(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        if self.name == "float8":
-            return _Fp8Product.apply(a, b)
-        return a @ b
-
-
-F32 = Precision()
-
-
-def exact_f32() -> None:
-    """Products in float32 as written: no TF32 anywhere (called before the
-    reference runs, after the program's window)."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-
-
-def capacity(pairs: int, n_experts: int, factor: float) -> int:
-    """Rows per expert for ``pairs`` token-expert pairs: round(pairs / E *
-    factor) (Python's rounding), at least 1, and from 256 pairs on a
-    multiple of 256."""
-    cap = int(max(1, round(pairs / n_experts * factor)))
-    return -(-cap // 256) * 256 if pairs >= 256 else cap
 
 
 def rms_norm(x, w, eps):
@@ -278,6 +357,22 @@ def logits_at(params, tokens, spec, rows, groups, prec: Precision = F32,
     return prec.mm(h, head_weight(params))
 
 
+def check_slots(spec, slots: int) -> None:
+    """Refuses a serving cell whose decode step over ``slots`` rows can drop
+    pairs, which the per-request check cannot reproduce."""
+    if spec.n_experts and capacity(slots * spec.top_k, spec.n_experts,
+                                   spec.capacity_factor) < slots:
+        raise ValueError("a decode step of this cell can drop pairs, which "
+                         "the per-request check cannot reproduce")
+
+
+# a token's routing at a layer may go either way where the reference's
+# k-th and (k+1)-th router logits lie within this share of the spread of
+# its router logits (``near_tie``): bf16 rounding flips such near ties, and
+# either routing is the stated model's answer
+TIE = 0.05
+
+
 def near_tie(router, k: int, tau: float):
     """Where the k-th and (k+1)-th router logits of a token lie within
     ``tau`` times the spread (standard deviation) of its logits."""
@@ -341,3 +436,121 @@ def tied_variants(params, spec, records, i, tau, prec: Precision = F32):
         xs = nxt
     h = rms_norm(torch.cat(xs), params["final"]["ln"], spec.norm_eps)
     return prec.mm(h, head_weight(params))
+
+
+def candidates(params, tokens, spec, rows, groups, prec: Precision = F32):
+    """Per position of ``rows`` in one sequence ``tokens`` (1, S), the
+    logits (n, V) under each routing its near ties allow (the exact pass's
+    first)."""
+    records = []
+    logits = logits_at(params, tokens, spec, rows, groups, prec, records)
+    out = [logits[j][None] for j in range(len(rows))]
+    if spec.n_experts:
+        tied = torch.stack([near_tie(r["router"][0], spec.top_k, TIE)
+                            for r in records]).any(0)
+        for j, i in enumerate(rows):
+            if bool(tied[i]):
+                out[j] = torch.cat([out[j], tied_variants(
+                    params, spec, records, i, TIE, prec)])
+    return out
+
+
+# -- the work counts ----------------------------------------------------------
+
+def layer_forward(spec, T: int) -> Work:
+    """One layer's products over T tokens (attention projections, then the
+    dense FFN or the router and the experts' routed pairs)."""
+    D, H, KV, dh = spec.d_model, spec.n_heads, spec.n_kv_heads, spec.head_dim
+    dt = spec.compute_dtype
+    w = (matmul(T, D, H * dh, dt) + 2 * matmul(T, D, KV * dh, dt)
+         + matmul(T, H * dh, D, dt))
+    if spec.n_experts:
+        E, Fe, pairs = spec.n_experts, spec.d_ff_expert, T * spec.top_k
+        return (w + matmul(T, D, E, dt)
+                + 2 * matmul(pairs, D, Fe, dt, n_weights=E)
+                + matmul(pairs, Fe, D, dt, n_weights=E))
+    return w + 2 * matmul(T, D, spec.d_ff, dt) + matmul(T, spec.d_ff, D, dt)
+
+
+def head(spec, rows: int) -> Work:
+    return matmul(rows, spec.d_model, spec.vocab, spec.logits_dtype)
+
+
+def train_matmul(spec, batch: int, seq: int, grad_accum: int) -> Work:
+    """A training step's products: forward, dA and dB of every product of
+    every microbatch."""
+    T = batch * seq // grad_accum
+    return 3 * grad_accum * (spec.n_layers * layer_forward(spec, T)
+                             + head(spec, T))
+
+
+def train_flash(spec, batch: int, seq: int, grad_accum: int) -> Work:
+    """A training step's attention kernels: forward and backward a layer a
+    microbatch."""
+    b = batch // grad_accum
+    args = (b, seq, spec.n_heads, spec.n_kv_heads, spec.head_dim,
+            spec.compute_dtype)
+    return grad_accum * spec.n_layers * (flash(*args)
+                                         + flash(*args, backward=True))
+
+
+def active_layer_params(spec) -> int:
+    """The product parameters one token passes through in a layer."""
+    D, H, KV, dh = spec.d_model, spec.n_heads, spec.n_kv_heads, spec.head_dim
+    attn = 2 * D * H * dh + 2 * D * KV * dh
+    if spec.n_experts:
+        return (attn + D * spec.n_experts
+                + spec.top_k * 3 * D * spec.d_ff_expert)
+    return attn + 3 * D * spec.d_ff
+
+
+def attention_flops(spec, sq: int, skv: int) -> float:
+    """QK and PV of sq queries at the end of skv keys, all layers."""
+    return (spec.n_layers * 4 * spec.head_dim * spec.n_heads
+            * causal_pairs(sq, skv))
+
+
+def train_model_flops(spec, batch: int, seq: int) -> float:
+    """6 flops per parameter per token, plus attention's three passes."""
+    tokens = batch * seq
+    per_token = spec.n_layers * active_layer_params(spec) \
+        + spec.d_model * spec.vocab
+    return 6 * per_token * tokens + 3 * batch * attention_flops(spec, seq, seq)
+
+
+def prefill_matmul(spec, n: int) -> Work:
+    """A prefill of one n-token prompt: every layer over n tokens, the head
+    at the last position only."""
+    return spec.n_layers * layer_forward(spec, n) + head(spec, 1)
+
+
+def prefill_flash(spec, n: int) -> Work:
+    return spec.n_layers * flash(1, n, spec.n_heads, spec.n_kv_heads,
+                                 spec.head_dim, spec.compute_dtype)
+
+
+def prefill_model_flops(spec, n: int) -> float:
+    return (2 * (spec.n_layers * active_layer_params(spec) * n
+                 + spec.d_model * spec.vocab) + attention_flops(spec, n, n))
+
+
+def decode_matmul(spec, rows: int) -> Work:
+    """A decode step of ``rows`` tokens: every layer's products (every
+    expert's weights read) and the head."""
+    return spec.n_layers * layer_forward(spec, rows) + head(spec, rows)
+
+
+def decode_model_flops(spec, positions: Iterable[int]) -> float:
+    """One new token at each of ``positions`` (its key position; it sees
+    position + 1 keys)."""
+    per_token = 2 * (spec.n_layers * active_layer_params(spec)
+                     + spec.d_model * spec.vocab)
+    total = 0.0
+    for t in positions:
+        total += per_token + (spec.n_layers * 4 * spec.head_dim
+                              * spec.n_heads * (t + 1))
+    return total
+
+
+# the family's reference and counts are this module's own functions
+reference = cost = sys.modules[__name__]

@@ -12,7 +12,6 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Dict, List, Optional
 
-from ..spec import ModelSpec
 from .trace import TraceStats
 
 
@@ -28,7 +27,7 @@ class Run:
 
     kind: str
     device: str
-    spec: ModelSpec
+    spec: object        # the cell's spec (its family's)
     traffic: dict
     setup_s: float
     window: Dict[str, object] = field(default_factory=dict)

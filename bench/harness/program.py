@@ -1,6 +1,6 @@
 """The program under test, ``repro_torch``, as the benchmark drives it: its
-configuration, its model knobs, and its launch counter.  Nothing else of
-the program is read."""
+model (configured by the spec's family), its model knobs, and its launch
+counter.  Nothing else of the program is read."""
 
 from __future__ import annotations
 
@@ -9,28 +9,11 @@ import torch
 from .weights import DTYPES, layout
 
 
-def arch_config(spec):
-    from repro_torch.configs.base import ArchConfig, MoEConfig
-    moe = None
-    if spec.n_experts:
-        moe = MoEConfig(n_experts=spec.n_experts, top_k=spec.top_k,
-                        d_ff_expert=spec.d_ff_expert,
-                        capacity_factor=spec.capacity_factor)
-    return ArchConfig(
-        name=spec.name, family="moe" if moe else "dense",
-        n_layers=spec.n_layers, d_model=spec.d_model, n_heads=spec.n_heads,
-        n_kv_heads=spec.n_kv_heads, d_ff=spec.d_ff or spec.d_ff_expert,
-        vocab=spec.vocab, pattern=("attn",),
-        ffn_pattern=("moe",) if moe else ("dense",), moe=moe,
-        d_head=spec.head_dim, rope_theta=spec.rope_theta,
-        norm_eps=spec.norm_eps, tie_embeddings=spec.tie_embeddings)
-
-
 def model(spec, remat: str, device):
     """The program's ``Model`` of ``spec`` on ``device``, its weights'
     layout checked against the benchmark's."""
     from repro_torch.models.model import Model, ModelKnobs, spec_tree
-    cfg = arch_config(spec)
+    cfg = spec.family.arch_config(spec)
     ours = {g: {n: s for n, (s, _) in sub.items()}
             for g, sub in layout(spec).items()}
     theirs = {g: {n: tuple(s) for n, (s, _) in sub.items()}

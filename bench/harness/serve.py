@@ -18,10 +18,12 @@ profiler for ``TRACE_SECONDS``.
 The check: a sample drawn from the seed of the requests completed in the
 window, the longest among them, each prompt with its served tokens run
 through the reference once; each served token's logit is compared with
-the reference's best at its position (the widest gap).  The engine's
-prefill is the MoE's capacity group for the prompt's tokens; a decode
-step's batch is all slots, whose capacity holds every pair, so none is
-dropped there (checked).
+the reference's best at its position (the widest gap; where the family
+allows more than one answer, as at a near tie of a routing, the least gap
+of its ``candidates``).  The reference reads the prompt as the one batch
+the engine's prefill made of it (an MoE's capacity group) and each decode
+position alone; the family refuses slots whose decode step it could not
+reproduce so (``check_slots``: for an MoE, a step that can drop pairs).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ import time
 import numpy as np
 import torch
 
-from ..reference import model as RM
+from ..reference import shared as RS
 from . import program, trace, weights
 from .metrics import Run
 from .traffic import Arrivals, Requests
@@ -128,10 +130,7 @@ def run(cell, seed: int, seconds: float, traced: bool, device, t_start):
     from repro_torch.serve.engine import Engine, ServeConfig
     spec, tr = cell.spec, cell.traffic
     slots = tr["slots"]
-    if spec.n_experts and RM.capacity(slots * spec.top_k, spec.n_experts,
-                                      spec.capacity_factor) < slots:
-        raise ValueError("a decode step of this cell can drop pairs, which "
-                         "the per-request check cannot reproduce")
+    spec.family.reference.check_slots(spec, slots)
     model = program.model(spec, "none", device)
     params = weights.make(spec, seed, device)
     eng = Engine(model, params, ServeConfig(
@@ -181,13 +180,6 @@ def pick(done: list, seed: int, n: int) -> list:
     return [done[i] for i in [order[0], *rest[:n - 1]]]
 
 
-# a token's routing at a layer may go either way where the reference's
-# k-th and (k+1)-th router logits lie within this share of the spread of
-# its router logits (``reference.model.near_tie``): bf16 rounding flips
-# such near ties, and either routing is the stated model's answer
-TIE = 0.05
-
-
 def _sequence(info, device):
     """A request's prompt and served tokens as the reference reads them:
     (tokens (1, S), its capacity groups, the positions that predicted each
@@ -201,44 +193,27 @@ def _sequence(info, device):
     return seq, groups, list(range(n - 1, S))
 
 
-def reference_candidates(spec, params, info, prec=RM.F32):
-    """Per position that predicted a served token, the reference's logits
-    (n, V) under each routing its near ties allow (the exact pass's
-    first)."""
-    seq, groups, rows = _sequence(info, params["embed"]["tok"].device)
-    records = []
-    logits = RM.logits_at(params, seq, spec, rows, groups, prec, records)
-    out = [logits[j][None] for j in range(len(rows))]
-    if spec.n_experts:
-        tied = torch.stack([RM.near_tie(r["router"][0], spec.top_k, TIE)
-                            for r in records]).any(0)
-        for j, i in enumerate(rows):
-            if bool(tied[i]):
-                out[j] = torch.cat([out[j], RM.tied_variants(
-                    params, spec, records, i, TIE, prec)])
-    return out
-
-
 def check(cell, seed: int, device, sample: list, controls: bool = False):
     """The widest gap by which a served token's reference logit lies below
-    the reference's best at its position, over the sample (at a near tie
-    of the routing, the least gap of the routings it allows); with
+    the reference's best at its position, over the sample (the least gap
+    of the answers the family allows there: its ``candidates``); with
     ``controls`` also that of the tokens the reference in float8 puts first
     at the same positions (``control.logit_gap``)."""
     spec = cell.spec
+    ref = spec.family.reference
     if not sample:
         return {"logit_gap": float("inf")}
-    RM.exact_f32()
+    RS.exact_f32()
     params = weights.make(spec, seed, device, torch.float32)
     worst = {"logit_gap": 0.0}
-    low = RM.Precision("float8")
+    low = RS.Precision("float8")
     with torch.no_grad():
         for info in sample:
-            cands = reference_candidates(spec, params, info)
+            seq, groups, rows = _sequence(info, device)
+            cands = ref.candidates(params, seq, spec, rows, groups)
             picks = {"logit_gap": info["tokens"]}
             if controls:
-                seq, groups, rows = _sequence(info, device)
-                picks["control.logit_gap"] = RM.logits_at(
+                picks["control.logit_gap"] = ref.logits_at(
                     params, seq, spec, rows, groups, low).argmax(1).tolist()
             for key, toks in picks.items():
                 for c, t in zip(cands, toks):

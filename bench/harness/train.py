@@ -17,7 +17,7 @@ import time
 
 import torch
 
-from ..reference import model as RM, train as RT
+from ..reference import shared as RS, train as RT
 from . import program, trace, traffic as TR, weights
 from .metrics import Run
 
@@ -51,7 +51,7 @@ def _program_readings(spec, tr, seed, device, params, opt_state, step):
     return params, opt_state, out
 
 
-def _reference_readings(spec, tr, seed, device, prec=RM.F32, rows=None):
+def _reference_readings(spec, tr, seed, device, prec=RS.F32, rows=None):
     params = weights.make(spec, seed, device, torch.float32)
     batches = [TR.train_batch(tr, spec.vocab, seed, i, device)
                for i in range(CHECK_STEPS)]
@@ -110,13 +110,13 @@ def check(cell, seed: int, device, prog: dict, controls: bool = False):
     (``half_batch.*``), each read against the float32 reference, and each
     number's readings per step and by the median leaf (``details``)."""
     spec, tr = cell.spec, cell.traffic
-    RM.exact_f32()
+    RS.exact_f32()
     ref = _reference_readings(spec, tr, seed, device)
     out = compare(prog, ref)
     if controls:
         out.update(details(prog, ref))
         ctl = _reference_readings(spec, tr, seed, device,
-                                  RM.Precision("float8"))
+                                  RS.Precision("float8"))
         half = list(range(tr["batch"] // tr["grad_accum"] // 2))
         flt = _reference_readings(spec, tr, seed, device, rows=half)
         for name, got in (("control", ctl), ("half_batch", flt)):

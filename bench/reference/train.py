@@ -1,8 +1,9 @@
 """The reference's training steps: the loss's gradients by autograd over
-``model.loss``, microbatches averaged, then AdamW with global-norm
-clipping, the warmup-cosine schedule, bias correction and decoupled weight
-decay, in place and in float32.  Parameters are held at the values the
-configuration's parameter dtype can hold: each update is rounded to it.
+the spec's family's ``reference.loss``, microbatches averaged, then AdamW
+with global-norm clipping, the warmup-cosine schedule, bias correction and
+decoupled weight decay, in place and in float32.  Parameters are held at
+the values the configuration's parameter dtype can hold: each update is
+rounded to it.
 
 ``steps`` returns what the check compares: each step's loss, each leaf's
 first gradient as the optimizer takes it (after clipping), and each leaf's
@@ -16,7 +17,7 @@ from typing import Dict, List
 
 import torch
 
-from . import model as M
+from . import shared as S
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -35,7 +36,7 @@ def lr_at(opt: dict, step: int) -> float:
                                + (1 - opt["min_lr_ratio"]) * cos)
 
 
-def grads(params, batch, spec, grad_accum: int, prec: M.Precision,
+def grads(params, batch, spec, grad_accum: int, prec: S.Precision,
           rows=None):
     """(mean loss, gradient leaves) over the batch's microbatches.
     ``rows``: a fault's subset of each microbatch's rows (None: all)."""
@@ -49,7 +50,7 @@ def grads(params, batch, spec, grad_accum: int, prec: M.Precision,
         mb = {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
         if rows is not None:
             mb = {k: v[rows] for k, v in mb.items()}
-        loss = M.loss(params, mb, spec, prec)
+        loss = spec.family.reference.loss(params, mb, spec, prec)
         g = torch.autograd.grad(loss, flat, allow_unused=True)
         g = [torch.zeros_like(t) if x is None else x.detach()
              for t, x in zip(flat, g)]
@@ -62,7 +63,7 @@ def grads(params, batch, spec, grad_accum: int, prec: M.Precision,
 
 
 def steps(params, batches: List[dict], spec, opt: dict, grad_accum: int,
-          prec: M.Precision = M.F32, rows=None):
+          prec: S.Precision = S.F32, rows=None):
     """Run len(batches) steps from ``params`` (f32 tensors, changed in
     place).  Returns {"loss": [...], "grad1": {leaf: norm}, "change":
     {leaf: norm}}."""

@@ -1,99 +1,61 @@
 """Find a cell's pieces by name: ``BENCHMARK.json``'s entries, the
 configuration file it names, the traffic mix ``bench/traffic/<name>.json``
-(all under the checkout's root).
+and the configuration's family ``bench/families/<model_type>.py`` (all
+under the checkout's root).
 
 A configuration file holds its model's published ``config.json`` keys
 (cut where ``reduced`` says), with ``published`` giving the source's value
 of each cut key, ``assumed`` what the port computes where it departs from
 the published model, and ``run`` the dtypes and the deployment's knobs.
-The harness builds one family, a decoder of attention layers with a dense
-or a mixture-of-experts FFN (``program.arch_config``); a file with a key
-it does not know, or a value of ``hidden_act`` or ``model_type`` it does
-not build, is refused, so that another family (latent attention, a scan)
-fails loudly instead of running as the wrong model.
+Its ``model_type`` picks its family, a file of its own
+(``bench/families/__init__.py`` says what the file provides), which reads
+the configuration into the run's spec and knows the program's
+configuration, the weights' layout, the plain reference and the work
+counts.  A ``model_type`` with no such file is not built; a key that
+neither the shared sets below nor the family reads, or a value the family
+does not build, is refused: a configuration runs as the model it states or
+not at all.  A new family is a new file and needs no edit here.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 from dataclasses import dataclass
 from pathlib import Path
 
-@dataclass(frozen=True)
-class ModelSpec:
-    """The shapes and dtypes the benchmark reads from a configuration."""
+from . import families
 
-    name: str
-    n_layers: int
-    d_model: int
-    n_heads: int
-    n_kv_heads: int
-    head_dim: int
-    d_ff: int
-    vocab: int
-    tie_embeddings: bool
-    norm_eps: float
-    rope_theta: float
-    param_dtype: str
-    compute_dtype: str
-    logits_dtype: str
-    n_experts: int = 0
-    top_k: int = 0
-    d_ff_expert: int = 0
-    capacity_factor: float = 1.25
-    norm_init_std: float = 0.1
-    embed_init_std: float = 0.02
-    residual_init_scale: float = 1.0
+ROOT = Path(__file__).resolve().parents[1]
 
-
-# the keys a configuration file may hold: those read into ``ModelSpec``,
-# and the source's record that the reading does not need (each departure
-# from it is written under ``assumed``)
-READ = {"name", "num_hidden_layers", "hidden_size", "num_attention_heads",
-        "num_key_value_heads", "head_dim", "intermediate_size",
-        "vocab_size", "tie_word_embeddings", "rms_norm_eps", "rope_theta",
-        "num_local_experts", "num_experts_per_tok", "run"}
-RECORD = {"source", "reduced", "published", "deployment", "assumed",
-          "architectures", "model_type", "torch_dtype", "hidden_act",
-          "max_position_embeddings", "original_max_position_embeddings",
-          "sliding_window", "attention_bias", "lm_head_bias"}
+# the keys every configuration file may hold, whatever its family: its
+# name, its run knobs (``RUN``), and the source's record that no reading
+# needs (each departure from it is written under ``assumed``)
+RECORD = {"name", "run", "source", "reduced", "published", "deployment",
+          "assumed", "architectures", "model_type", "torch_dtype",
+          "hidden_act", "max_position_embeddings",
+          "original_max_position_embeddings", "sliding_window",
+          "attention_bias", "lm_head_bias"}
 RUN = {"param_dtype", "compute_dtype", "logits_dtype",
        "optimizer_state_dtype", "capacity_factor", "norm_init_std",
        "embed_init_std", "residual_init_scale"}
-BUILT = {"hidden_act": {"silu"}, "model_type": {"llama", "phimoe"}}
 
 
-def model_spec(cfg: dict) -> ModelSpec:
-    """A ``ModelSpec`` from a configuration file's contents; raises
-    ``ValueError`` on a key or a value the harness does not build."""
-    unknown = sorted(set(cfg) - READ - RECORD) \
+def model_spec(cfg: dict, root: Path = ROOT):
+    """The run's spec from a configuration file's contents, read by its
+    family under ``root``; raises ``ValueError`` on a ``model_type``, a key
+    or a value the harness does not build."""
+    fam = families.load(cfg.get("model_type"), root)
+    unknown = sorted(set(cfg) - RECORD - fam.READ) \
         + sorted(f"run.{k}" for k in set(cfg.get("run", {})) - RUN)
     if unknown:
         raise ValueError(f"configuration {cfg.get('name')!r}: keys the "
                          f"harness does not build: {unknown}")
-    for k, ok in BUILT.items():
+    for k, ok in getattr(fam, "BUILT", {}).items():
         if k in cfg and cfg[k] not in ok:
             raise ValueError(f"configuration {cfg.get('name')!r}: {k} "
                              f"{cfg[k]!r} is not built (only {sorted(ok)})")
-    run = cfg["run"]
-    D, H = cfg["hidden_size"], cfg["num_attention_heads"]
-    E = cfg.get("num_local_experts", 0)
-    return ModelSpec(
-        name=cfg["name"], n_layers=cfg["num_hidden_layers"], d_model=D,
-        n_heads=H, n_kv_heads=cfg["num_key_value_heads"],
-        head_dim=cfg.get("head_dim") or D // H,
-        d_ff=0 if E else cfg["intermediate_size"],
-        vocab=cfg["vocab_size"],
-        tie_embeddings=cfg["tie_word_embeddings"],
-        norm_eps=cfg["rms_norm_eps"], rope_theta=cfg["rope_theta"],
-        param_dtype=run["param_dtype"], compute_dtype=run["compute_dtype"],
-        logits_dtype=run["logits_dtype"], n_experts=E,
-        top_k=cfg.get("num_experts_per_tok", 0),
-        d_ff_expert=cfg["intermediate_size"] if E else 0,
-        capacity_factor=run.get("capacity_factor", 1.25),
-        norm_init_std=run["norm_init_std"],
-        embed_init_std=run.get("embed_init_std", 0.02),
-        residual_init_scale=run.get("residual_init_scale", 1.0))
+    return dataclasses.replace(fam.spec(cfg), family=fam)
 
 
 def _read(path: Path) -> dict:
@@ -107,7 +69,7 @@ class Cell:
 
     name: str
     chips: int
-    spec: ModelSpec
+    spec: object        # its family's spec
     traffic: dict
     root: Path
 
@@ -122,7 +84,7 @@ def load_cell(name: str, root: Path) -> Cell:
     w = cells[name]
     cfg = _read(root / configs[w["config"]]["file"])
     traffic = _read(root / "bench" / "traffic" / f"{w['traffic']}.json")
-    return Cell(name, w["chips"], model_spec(cfg), traffic, root)
+    return Cell(name, w["chips"], model_spec(cfg, root), traffic, root)
 
 
 def cell_metrics(name: str, root: Path, trace: bool) -> list:

@@ -11,19 +11,20 @@ from pathlib import Path
 BENCH = Path(__file__).resolve().parents[1]
 
 MOE = {"name": "tiny-moe", "source": "test", "reduced": [], "published": {},
-       "hidden_size": 64, "intermediate_size": 48, "num_attention_heads": 4,
-       "num_key_value_heads": 2, "num_hidden_layers": 2,
-       "num_local_experts": 4, "num_experts_per_tok": 2, "vocab_size": 128,
-       "rms_norm_eps": 1e-5, "rope_theta": 10000.0,
-       "tie_word_embeddings": False,
+       "model_type": "phimoe", "hidden_size": 64, "intermediate_size": 48,
+       "num_attention_heads": 4, "num_key_value_heads": 2,
+       "num_hidden_layers": 2, "num_local_experts": 4,
+       "num_experts_per_tok": 2, "vocab_size": 128, "rms_norm_eps": 1e-5,
+       "rope_theta": 10000.0, "tie_word_embeddings": False,
        "run": {"param_dtype": "float32", "compute_dtype": "float32",
                "logits_dtype": "float32", "capacity_factor": 2.0,
                "norm_init_std": 0.1}}
 DENSE = {"name": "tiny-dense", "source": "test", "reduced": [],
-         "published": {}, "hidden_size": 48, "intermediate_size": 96,
-         "num_attention_heads": 3, "num_key_value_heads": 1,
-         "num_hidden_layers": 3, "vocab_size": 96, "rms_norm_eps": 1e-5,
-         "rope_theta": 10000.0, "tie_word_embeddings": True,
+         "published": {}, "model_type": "llama", "hidden_size": 48,
+         "intermediate_size": 96, "num_attention_heads": 3,
+         "num_key_value_heads": 1, "num_hidden_layers": 3, "vocab_size": 96,
+         "rms_norm_eps": 1e-5, "rope_theta": 10000.0,
+         "tie_word_embeddings": True,
          "run": {"param_dtype": "float32", "compute_dtype": "float32",
                  "logits_dtype": "float32", "norm_init_std": 0.1}}
 OPT = {"lr": 3e-2, "b1": 0.9, "b2": 0.95, "eps": 1e-8, "weight_decay": 0.1,
